@@ -4,20 +4,43 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit; fails without a CUDA device.
-2. Builds the kernels from csrc/ (nvcc, sm_90a) and prints the build time.
-3. Holds each kernel against its plain torch version on the card, at the
-   shapes of the 2x10^7-bit plan (depth 12, w 2, L 512, conv 16384): every
-   ladder group of the forward (both operands stacked) and inverse
-   transforms, the pointwise conv on (16384, 512), normmod_div on
-   (16384, 512), canonicalize on the 2.5 M-digit product.  Canonical
-   outputs must be equal; redundant outputs equal after normmod and inside
-   the ~2^17 digit bound.  Times each (CUDA events, warmed up, median).
-4. Drives the main path with the launch counters reset: mul and sqr at
-   2x10^6 bits (full compare with Python's a*b), at 2x10^7 bits (residues
-   mod four 61-bit primes), timing the end-to-end calls.  Every kernel must
-   have launched.
-5. Prints the kernel table as one JSON line, the card's line again, and
-   the result line {"ok": true, "device": {...}} last.
+2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
+   sm_90a) and prints the build time and the compiler's resource lines.
+3. Holds each of the eight kernels against its plain torch version on the
+   card at the shapes the main path gives it, and times both (CUDA events,
+   warmed up, median):
+     ladder, conv_base, normmod, canonicalize -- the 2x10^7-bit plan (depth
+       12, w 2, L 512, conv 16384): every ladder group of the forward
+       (operands stacked) and inverse transforms, the pointwise conv on
+       (16384, 512), normmod_div on (16384, 512) and normmod on one
+       2^18-digit row (the mulmod_int ring at N = 2^22, streamed),
+       canonicalize on the 2.5 M-digit product;
+     sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
+       (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
+       without a tail;
+     twiddle_half -- the 10^8-bit plan's inner weights (8192 x 256 rows at
+       Lp 32, step 4), an odd step at L 256, an L % 4 != 0 row (L 71);
+     transform_small, forward and inverse -- (8192, 256, 32) and
+       (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits.
+   Canonical outputs must be equal; redundant outputs equal after normmod
+   (they come out identical digit for digit) and inside the ~2^17 bound.
+   Each kernel's bound_ms is the least time the card could take for the
+   same work: the larger of its bytes (inputs read once, outputs written
+   once) over 3.35 TB/s and its integer operations over the INT32 rate.
+4. Drives the main path, the launch counters reset before each size and
+   read after it; every kernel the path should reach must have launched:
+     mul/sqr 2x10^6 (full compare with Python's a*b) and 2x10^7 (residues
+       mod four 61-bit primes): even w, schoolbook pointwise;
+     mul/sqr 3,162,277 (full compare) and 10^7 (residues): odd w, the
+       sqrt2 top layer;
+     mul 10^8 (residues) and 10^9 (residues mod two primes, run once): the
+       recursive Fermat mulmod as the pointwise (inner rings Lp 32, 72);
+     mulmod_int at N = 2^22 (against Python's product folded mod 2^N+1) and
+       at N = 2^24 (against the port's own mul, folded).
+   For each: the plan, the launches, host-clock and CUDA-event times, and
+   torch.cuda.max_memory_allocated().
+5. Prints the kernel table as one JSON line, the card's line again, and the
+   result line {"ok": true, "device": {...}} last.
 
 Any failure raises and exits nonzero before the result line."""
 
@@ -33,6 +56,17 @@ import time
 SEED = 20261016
 PLAN_BITS = 20_000_000
 SMALL_BITS = 2_000_000
+ODD_SMALL_BITS = 3_162_277
+ODD_BITS = 10_000_000
+REC_BITS = 100_000_000
+HUGE_BITS = 1_000_000_000
+MULMOD_N = (1 << 22, 1 << 24)
+
+# the least time the card could take (H100 SXM, NVIDIA data sheet and
+# Hopper white paper): HBM3 at 3.35 TB/s; 64 INT32 lanes per SM x 132 SMs x
+# 1.98 GHz boost = 16.7 x 10^12 int32 operations (multiply-adds) per second
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def gpu_line() -> str:
@@ -68,6 +102,13 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for nbytes moved and ops done."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def is_canonical(t) -> bool:
@@ -108,26 +149,40 @@ def primes_61(count: int) -> list[int]:
     return out
 
 
+def mod_fermat(x: int, N: int) -> int:
+    """x mod 2^N+1 for 0 <= x < 2^(2N+1) by one fold (2^N == -1): linear
+    time, where Python's % by an N-bit modulus is quadratic."""
+    p = (1 << N) + 1
+    r = (x & ((1 << N) - 1)) - (x >> N)
+    while r < 0:
+        r += p
+    return r
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device")
+    t_start = time.perf_counter()
     card = gpu_line()
     print(f"gpu: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    from mpir_fft_tpu_torch import kernels
+    from mpir_fft_tpu_torch import kernels, mulmod_int
     from mpir_fft_tpu_torch.models.mul import (
         mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
-        canonicalize_plain_torch, fused_butterfly_ladder, fused_canonicalize_plain,
-        fused_normmod_div, ladder_plain, normmod_rows_plain)
+        _affine_half_exps, canonicalize_plain_torch, fused_butterfly_ladder,
+        fused_canonicalize_plain, fused_normmod_div, fused_sqrt2_top_fwd,
+        fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups,
+        ladder_plain, ladder_stages, normmod_rows_plain, sqrt2_top_fwd_plain,
+        sqrt2_top_inv_plain, transform_plain, twiddle_half_rows_plain)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int
+    from mpir_fft_tpu_torch.ops.mulmod import mulmod, mulmod_plan
     from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
-    from mpir_fft_tpu_torch.ops.transforms import ladder_groups
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
 
     dev = torch.device("cuda", 0)
@@ -141,10 +196,10 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # -- 3. each kernel against its plain version at the plan's shapes ---------
+    # -- 3. each kernel against its plain version at the main path's shapes ----
     plan = choose_params(PLAN_BITS, PLAN_BITS, sqrt2=True)
     C, W, L = plan.conv_len, plan.W, plan.W // DIGIT_BITS
-    print(f"plan: {plan} L={L} conv={C}")
+    print(f"plan 2x10^7: {plan} L={L} conv={C}")
     assert (plan.depth, plan.w, L, C) == (12, 2, 512, 16384), plan
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -154,11 +209,32 @@ def main() -> int:
     def canon(x):   # normmod through the plain version: independent of the kernels
         return normmod_rows_plain(x.reshape(-1, x.shape[-1]), 0, DIGIT_BITS * x.shape[-1])
 
-    rows = []
+    def compare(what, got, want, canonical=False, digit_bound=1 << 17):
+        """max |canonical digit difference| of kernel vs plain (0 or raise);
+        raw digits are compared first, and only unequal ones normalised."""
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        if canonical:
+            assert same and is_canonical(got), what
+            return 0, same
+        err = 0 if same else int((canon(got) - canon(want)).abs().max())
+        top = int(got.abs().max())
+        assert err == 0, (what, err)
+        assert top < digit_bound, (what, top)
+        return err, same
+
+    rows = {}
+
+    def add_row(name, source, replaces, err, ms, pms, nbytes, ops):
+        r = rows.setdefault(name, dict(name=name, route="cuda", source=source, replaces=replaces,
+                                       max_abs_err=0, ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["nbytes"] += nbytes
+        r["ops"] += ops
 
     # ladder: every group of the forward (stacked operands) and inverse transform
-    lad_ms = lad_plain_ms = 0.0
-    lad_err = 0
     w_half = plan.w // 2
     for kind, lead in (("fwd", 2), ("inv", 1)):
         for l, kg in ladder_groups(C, L, kind):
@@ -166,40 +242,24 @@ def main() -> int:
             shape = (lead << l, K, C >> (l + kg), L)
             steps = tuple(w_half << (l + j) for j in range(kg))
             x = rand(shape, -(1 << 17), 1 << 17)
-            got = fused_butterfly_ladder(kind, x, steps, W)
-            want = ladder_plain(kind, x, steps, W)
-            torch.cuda.synchronize()
-            bound = int(got.abs().max())
-            err = int((canon(got) - canon(want)).abs().max())
-            same = bool(torch.equal(got, want))
-            assert err == 0, (kind, shape, err)
-            assert bound < 1 << 17, (kind, shape, bound)
+            err, same = compare(("ladder", kind, shape), fused_butterfly_ladder(kind, x, steps, W),
+                                ladder_plain(kind, x, steps, W))
             ms = time_ms(lambda: fused_butterfly_ladder(kind, x, steps, W), 10, 2)
             pms = time_ms(lambda: ladder_plain(kind, x, steps, W), 3)
-            lad_ms += ms
-            lad_plain_ms += pms
-            lad_err = max(lad_err, err)
-            print(f"ladder {kind} {shape}: max|digit| {bound}, equal after normmod, "
-                  f"raw digits identical: {same}; {ms:.3f} ms (plain {pms:.3f} ms)")
-    rows.append(dict(name="ladder", source="mpir_fft_tpu_torch/csrc/ladder.cu",
-                     replaces="mpir_fft_tpu/ops/fused.py:250", max_abs_err=lad_err,
-                     ms=lad_ms, plain_ms=lad_plain_ms))
+            add_row("ladder", "mpir_fft_tpu_torch/csrc/ladder.cu",
+                    "mpir_fft_tpu/ops/fused.py:250", err, ms, pms, 8 * x.numel(), kg * x.numel())
+            print(f"ladder {kind} {shape}: equal after normmod, raw digits identical: {same}; "
+                  f"{ms:.3f} ms (plain {pms:.3f} ms)")
 
     # pointwise schoolbook conv on the pointwise batch
     a = rand((C, L), -(1 << 17), 1 << 17)
     b = rand((C, L), -(1 << 17), 1 << 17)
-    got = mulmod_base_fused(a, b)
-    want = conv_base_plain(a, b)
-    err = int((canon(got) - canon(want)).abs().max())
-    bound = int(got.abs().max())
-    assert err == 0 and bound < 1 << 17, (err, bound)
+    err, _ = compare("conv_base", mulmod_base_fused(a, b), conv_base_plain(a, b))
     ms = time_ms(lambda: mulmod_base_fused(a, b), 10, 2)
     pms = time_ms(lambda: conv_base_plain(a, b), 2)
-    print(f"conv_base {tuple(a.shape)}: max|digit| {bound}, equal after normmod; "
-          f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    rows.append(dict(name="conv_base", source="mpir_fft_tpu_torch/csrc/conv_base.cu",
-                     replaces="mpir_fft_tpu/ops/pointwise_fused.py:77", max_abs_err=err,
-                     ms=ms, plain_ms=pms))
+    add_row("conv_base", "mpir_fft_tpu_torch/csrc/conv_base.cu",
+            "mpir_fft_tpu/ops/pointwise_fused.py:77", err, ms, pms, 12 * a.numel(), 4 * L * L * C)
+    print(f"conv_base {tuple(a.shape)}: equal after normmod; {ms:.3f} ms (plain {pms:.3f} ms)")
 
     # normmod_div tail, with the ripple edge rows
     x = rand((C, L), -(1 << 18), 1 << 18)
@@ -210,20 +270,30 @@ def main() -> int:
     x[3] = 0
     x[3, L - 1] = 1 << 16       # carry out of the top: folds in as -1
     s = (2 * W - plan.lg_conv) % (2 * W)
-    got = fused_normmod_div(x, s, W)
-    want = normmod_rows_plain(x, s, W)
-    err = int((got - want).abs().max())
-    assert err == 0, err
-    assert is_canonical(got)
+    err, _ = compare("normmod", fused_normmod_div(x, s, W), normmod_rows_plain(x, s, W),
+                     canonical=True)
     for s_edge in (0, 1, W - 1, W, W + 17, 2 * W - 1):
         assert torch.equal(fused_normmod_div(x[:64], s_edge, W),
                            normmod_rows_plain(x[:64], s_edge, W)), s_edge
     ms = time_ms(lambda: fused_normmod_div(x, s, W), 10, 2)
     pms = time_ms(lambda: normmod_rows_plain(x, s, W), 3)
+    add_row("normmod", "mpir_fft_tpu_torch/csrc/normmod.cu", "mpir_fft_tpu/ops/fused.py:503",
+            err, ms, pms, 8 * x.numel(), 3 * x.numel())
     print(f"normmod_div {tuple(x.shape)} d={plan.lg_conv}: exact; {ms:.3f} ms (plain {pms:.3f} ms)")
-    rows.append(dict(name="normmod", source="mpir_fft_tpu_torch/csrc/normmod.cu",
-                     replaces="mpir_fft_tpu/ops/fused.py:503", max_abs_err=err,
-                     ms=ms, plain_ms=pms))
+    # a long row (the mulmod_int ring at N = 2^22): the streaming kernel
+    Ll = MULMOD_N[0] // DIGIT_BITS
+    xl = rand((1, Ll), -(1 << 18), 1 << 18)
+    xl[0, Ll - 1] = 1 << 20
+    for sl in (0, 3, 2 * 16 * Ll - 12):
+        err_l, _ = compare(("normmod long", sl), fused_normmod_div(xl, sl, 16 * Ll),
+                           normmod_rows_plain(xl, sl, 16 * Ll), canonical=True)
+    ms = time_ms(lambda: fused_normmod_div(xl, 0, 16 * Ll), 10, 2)
+    pms = time_ms(lambda: normmod_rows_plain(xl, 0, 16 * Ll), 3)
+    add_row("normmod", "mpir_fft_tpu_torch/csrc/normmod.cu", "mpir_fft_tpu/ops/fused.py:503",
+            err_l, ms, pms, 8 * xl.numel(), 3 * xl.numel())
+    print(f"normmod {tuple(xl.shape)} (long row, streamed): exact; {ms:.3f} ms "
+          f"(plain {pms:.3f} ms)")
+    del xl
 
     # exact carry of the product's digits
     N = out_len_digits(plan)
@@ -232,65 +302,203 @@ def main() -> int:
     ripple = torch.full((N,), 0xFFFF, dtype=torch.int32, device=dev)
     ripple[0] = 0x1FFFF
     ripple[-2:] = 0
-    err = 0
     for vec in (v, ripple):
-        got = fused_canonicalize_plain(vec)
-        want = canonicalize_plain_torch(vec)
-        err = max(err, int((got - want).abs().max()))
-        assert is_canonical(got[None])
-    assert err == 0, err
+        compare("canonicalize", fused_canonicalize_plain(vec), canonicalize_plain_torch(vec),
+                canonical=True)
     ms = time_ms(lambda: fused_canonicalize_plain(v), 10, 2)
     pms = time_ms(lambda: canonicalize_plain_torch(v), 3)
+    add_row("canonicalize", "mpir_fft_tpu_torch/csrc/canonicalize.cu",
+            "mpir_fft_tpu/ops/fused.py:574", 0, ms, pms, 8 * N, 3 * N)
     print(f"canonicalize ({N},): exact (random + full-length ripple); "
           f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    rows.append(dict(name="canonicalize", source="mpir_fft_tpu_torch/csrc/canonicalize.cu",
-                     replaces="mpir_fft_tpu/ops/fused.py:574", max_abs_err=err,
-                     ms=ms, plain_ms=pms))
+    del a, b, x, v, ripple
 
-    # -- 4. the main path, counted ---------------------------------------------
+    # sqrt2 top pair at the 10^7-bit plan (odd w)
+    oplan = choose_params(ODD_BITS, ODD_BITS, sqrt2=True)
+    oW, oL, oC = oplan.W, oplan.W // DIGIT_BITS, oplan.conv_len
+    print(f"plan 10^7: {oplan} L={oL} conv={oC}")
+    assert (oplan.depth, oplan.w, oL, oC) == (12, 1, 256, 16384), oplan
+    x = rand((2, oC, oL), -(1 << 17), 1 << 17)
+    err, same = compare("sqrt2_top_fwd", fused_sqrt2_top_fwd(x, oplan.w, oW),
+                        sqrt2_top_fwd_plain(x, oplan.w, oW), digit_bound=1 << 18)
+    ms = time_ms(lambda: fused_sqrt2_top_fwd(x, oplan.w, oW), 10, 2)
+    pms = time_ms(lambda: sqrt2_top_fwd_plain(x, oplan.w, oW), 3)
+    add_row("sqrt2_top_fwd", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
+            "mpir_fft_tpu/ops/fused.py:739", err, ms, pms, 8 * x.numel(), 6 * x.numel())
+    print(f"sqrt2_top_fwd {tuple(x.shape)} w={oplan.w}: raw digits identical: {same}; "
+          f"{ms:.3f} ms (plain {pms:.3f} ms)")
+    x = rand((oC, oL), -(1 << 17), 1 << 17)
+    for nd in (oplan.lg_conv, 0):
+        err, same = compare(("sqrt2_top_inv", nd), fused_sqrt2_top_inv(x, oplan.w, oW, nd),
+                            sqrt2_top_inv_plain(x, oplan.w, oW, nd), canonical=nd > 0)
+        ms = time_ms(lambda: fused_sqrt2_top_inv(x, oplan.w, oW, nd), 10, 2)
+        pms = time_ms(lambda: sqrt2_top_inv_plain(x, oplan.w, oW, nd), 3)
+        add_row("sqrt2_top_inv", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
+                "mpir_fft_tpu/ops/fused.py:783", err, ms, pms, 8 * x.numel(),
+                (9 if nd else 6) * x.numel())
+        print(f"sqrt2_top_inv {tuple(x.shape)} norm_div={nd}: raw digits identical: {same}; "
+              f"{ms:.3f} ms (plain {pms:.3f} ms)")
+    del x
+
+    # half-bit twiddles: the 10^8 plan's inner weights, an odd step, L % 4 != 0
+    rplan = choose_params(REC_BITS, REC_BITS, sqrt2=True)
+    mplan = mulmod_plan(rplan.W)
+    print(f"plan 10^8: {rplan} L={rplan.W // DIGIT_BITS}; inner {mplan} m={mplan.m} "
+          f"Lp={mplan.Lp}")
+    assert (rplan.W // DIGIT_BITS, mplan.m, mplan.Lp, mplan.wp) == (3072, 256, 32, 4)
+    for shape, e0, step in (((rplan.conv_len, mplan.m, mplan.Lp), 0, mplan.wp),
+                            ((64, 128, 256), 3, 1), ((64, 64, 71), 0, 5)):
+        h, tL = shape[-2], shape[-1]
+        tW = DIGIT_BITS * tL
+        x = rand(shape, -(1 << 17), 1 << 17)
+        e2 = _affine_half_exps(torch.arange(x.numel() // tL, device=dev) % h, e0, step, tW)
+        err, same = compare(("twiddle_half", shape), fused_twiddle_half(x, e0, step, tW),
+                            twiddle_half_rows_plain(x.reshape(-1, tL), e2, tW).reshape(shape),
+                            digit_bound=1 << 18)
+        ms = time_ms(lambda: fused_twiddle_half(x, e0, step, tW), 10, 2)
+        pms = time_ms(lambda: twiddle_half_rows_plain(x.reshape(-1, tL), e2, tW), 2)
+        add_row("twiddle_half", "mpir_fft_tpu_torch/csrc/twiddle_half.cu",
+                "mpir_fft_tpu/ops/fused.py:533", err, ms, pms, 8 * x.numel(), 4 * x.numel())
+        print(f"twiddle_half {shape} e0={e0} step={step}: raw digits identical: {same}; "
+              f"{ms:.3f} ms (plain {pms:.3f} ms)")
+        del x, e2
+
+    # whole transforms of the recursive mulmod's inner rows (10^8, 10^9)
+    hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
+    hmp = mulmod_plan(hplan.W)
+    print(f"plan 10^9: {hplan} L={hplan.W // DIGIT_BITS}; inner {hmp} m={hmp.m} Lp={hmp.Lp}")
+    assert (hplan.W // DIGIT_BITS, hmp.m, hmp.Lp) == (4096, 128, 72)
+    for B, mp in ((rplan.conv_len, mplan), (hplan.conv_len, hmp)):
+        shape = (B, mp.m, mp.Lp)
+        D = mp.m.bit_length() - 1
+        x = rand(shape, -(1 << 17), 1 << 17)
+        for kind in ("fwd", "inv"):
+            err, same = compare(("transform_small", kind, shape),
+                                fused_transform(kind, x, mp.wp, mp.Wp),
+                                transform_plain(kind, x, mp.wp, mp.Wp))
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: fused_transform(kind, x, mp.wp, mp.Wp), 5, 1)
+            pms = time_ms(lambda: transform_plain(kind, x, mp.wp, mp.Wp), 1, 0)
+            torch.cuda.empty_cache()
+            add_row("transform_small", "mpir_fft_tpu_torch/csrc/transform_small.cu",
+                    "mpir_fft_tpu/ops/fused.py:171", err, ms, pms, 8 * x.numel(),
+                    D * x.numel())
+            print(f"transform_small {kind} {shape} w={mp.wp} (groups of "
+                  f"{ladder_stages(mp.Lp)}): raw digits identical: {same}; "
+                  f"{ms:.3f} ms (plain {pms:.3f} ms)")
+        del x
+    torch.cuda.empty_cache()
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 4. the main path, counted per size --------------------------------------
     rnd = random.Random(SEED)
-    x2 = rnd.getrandbits(SMALL_BITS) | (1 << (SMALL_BITS - 1))
-    y2 = rnd.getrandbits(SMALL_BITS) | (1 << (SMALL_BITS - 1))
-    a7 = rnd.getrandbits(PLAN_BITS) | (1 << (PLAN_BITS - 1))
-    b7 = rnd.getrandbits(PLAN_BITS) | (1 << (PLAN_BITS - 1))
     primes = primes_61(4)
-    da7 = torch.from_numpy(digits_from_int(a7, cdiv(PLAN_BITS, DIGIT_BITS))).to(dev)
-    db7 = torch.from_numpy(digits_from_int(b7, cdiv(PLAN_BITS, DIGIT_BITS))).to(dev)
-    torch.cuda.synchronize()
+    launches_total = dict.fromkeys(kernels.LAUNCHES, 0)
+    e2e = {}
 
-    kernels.reset_launches()
-    prod2 = mul(x2, y2)
-    assert prod2 == x2 * y2, "mul at 2e6 bits differs from Python's product"
-    assert sqr(x2) == x2 * x2, "sqr at 2e6 bits differs from Python's product"
-    print(f"mul/sqr {SMALL_BITS} bits: exact (full compare)")
-    prod7 = mul(a7, b7)
-    sq7 = sqr(a7)
-    for p in primes:
-        assert prod7 % p == (a7 % p) * (b7 % p) % p, ("mul residue", p)
-        assert sq7 % p == (a7 % p) * (a7 % p) % p, ("sqr residue", p)
-    assert prod7.bit_length() in (2 * PLAN_BITS - 1, 2 * PLAN_BITS)
-    print(f"mul/sqr {PLAN_BITS} bits: residues mod {len(primes)} 61-bit primes agree")
-    e2e = {
-        "mul_2e6_ms": wall_ms(lambda: mul(x2, y2), 5),
-        "sqr_2e6_ms": wall_ms(lambda: sqr(x2), 5),
-        "mul_2e7_ms": wall_ms(lambda: mul(a7, b7), 3),
-        "sqr_2e7_ms": wall_ms(lambda: sqr(a7), 3),
-        "mul_2e7_device_ms": time_ms(lambda: mpn_mul_flagship(da7, db7, plan), 5),
-        "sqr_2e7_device_ms": time_ms(lambda: mpn_sqr_flagship(da7, plan), 5),
-    }
-    launches = dict(kernels.LAUNCHES)
-    print("e2e (mul/sqr: host clock incl. digit conversion; *_device: CUDA events, "
-          "digits on the card): " + json.dumps(e2e))
-    print(f"launches on the main path: {launches}")
-    for name, n in launches.items():
+    def operand(bits):
+        return rnd.getrandbits(bits) | (1 << (bits - 1))
+
+    def on_card(v, bits):
+        return torch.from_numpy(digits_from_int(v, cdiv(bits, DIGIT_BITS))).to(dev)
+
+    def counted(label, expect, fn):
+        """Run fn() with the counters reset; check every expected kernel
+        launched, print the launches and the peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        got = dict(kernels.LAUNCHES)
+        for name, n in got.items():
+            launches_total[name] += n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{label}: launches {json.dumps({k: n for k, n in got.items() if n})}; "
+              f"host clock {dt:.1f} ms (incl. checks); peak memory {peak:.2f} GiB")
+        for name in expect:
+            assert got[name] > 0, f"{label}: kernel {name} was not launched"
+        return out
+
+    even = ("ladder", "conv_base", "normmod", "canonicalize")
+    odd = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "conv_base", "canonicalize")
+    rec = ("ladder", "twiddle_half", "transform_small", "conv_base", "normmod", "canonicalize")
+    rec_flat = ("ladder", "twiddle_half", "conv_base", "normmod", "canonicalize")
+
+    def residues_agree(prod, x, y, ps):
+        return all(prod % p == (x % p) * (y % p) % p for p in ps)
+
+    def drive(bits, label, expect, full, do_sqr, ps, reps):
+        tplan = choose_params(bits, bits, sqrt2=True)
+        inner = mulmod_plan(tplan.W) if tplan.W // DIGIT_BITS > 2048 else None
+        print(f"{label} plan: {tplan} L={tplan.W // DIGIT_BITS} conv={tplan.conv_len}"
+              + (f"; inner {inner}" if inner else ""))
+        x, y = operand(bits), operand(bits)
+
+        def run():
+            pr = mul(x, y)
+            assert (pr == x * y) if full else residues_agree(pr, x, y, ps), f"mul {label}"
+            assert pr.bit_length() in (2 * bits - 1, 2 * bits)
+            if do_sqr:
+                sq = sqr(x)
+                assert (sq == x * x) if full else residues_agree(sq, x, x, ps), f"sqr {label}"
+
+        counted(f"mul{'/sqr' if do_sqr else ''} {label}", expect, run)
+        print(f"mul{'/sqr' if do_sqr else ''} {label}: exact "
+              f"({'full compare' if full else f'residues mod {len(ps)} 61-bit primes'})")
+        dx, dy = on_card(x, bits), on_card(y, bits)
+        e2e[f"mul_{label}_ms"] = wall_ms(lambda: mul(x, y), reps)
+        e2e[f"mul_{label}_device_ms"] = time_ms(lambda: mpn_mul_flagship(dx, dy, tplan), reps,
+                                                1 if reps > 1 else 0)
+        if do_sqr:
+            e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
+            e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps)
+        print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
+
+    drive(SMALL_BITS, "2e6", even, True, True, primes, 5)
+    drive(PLAN_BITS, "2e7", even, False, True, primes, 3)
+    drive(ODD_SMALL_BITS, "3162277", odd, True, True, primes, 5)
+    drive(ODD_BITS, "1e7", odd, False, True, primes, 3)
+    drive(REC_BITS, "1e8", rec, False, False, primes, 3)
+    drive(HUGE_BITS, "1e9", rec, False, False, primes[:2], 1)
+
+    for n_bits in MULMOD_N:
+        mp = mulmod_plan(n_bits)
+        print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: {mp} m={mp.m} Lp={mp.Lp}")
+        p_n = (1 << n_bits) + 1
+        x, y = rnd.randrange(p_n), rnd.randrange(p_n)
+        got = counted(f"mulmod_int 2^{n_bits.bit_length() - 1}", rec_flat,
+                      lambda: mulmod_int(x, y, n_bits))
+        want = mod_fermat(x * y if n_bits == MULMOD_N[0] else mul(x, y), n_bits)
+        assert got == want, f"mulmod_int at N = {n_bits}"
+        print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: exact (against "
+              f"{'Python' if n_bits == MULMOD_N[0] else 'the port'}'s product, folded)")
+        label = f"mulmod_2^{n_bits.bit_length() - 1}"
+        dx = torch.from_numpy(digits_from_int(x, n_bits // DIGIT_BITS)).to(dev)
+        dy = torch.from_numpy(digits_from_int(y, n_bits // DIGIT_BITS)).to(dev)
+        e2e[f"{label}_ms"] = wall_ms(lambda: mulmod_int(x, y, n_bits), 3)
+        e2e[f"{label}_device_ms"] = time_ms(lambda: mulmod(dx, dy, n_bits, canonical=True), 3)
+        print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
+
+    print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
+          "events, digits on the card): " + json.dumps(e2e))
+    print(f"launches on the main path (all sizes): {launches_total}")
+    for name, n in launches_total.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
 
     # -- 5. report ------------------------------------------------------------
-    for r in rows:
-        r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    table = []
+    for r in rows.values():
+        bms, by = bound(r["nbytes"], r["ops"])
+        table.append(dict(name=r["name"], route=r["route"], source=r["source"],
+                          replaces=r["replaces"], launches=launches_total[r["name"]],
+                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                          bound_ms=bms, bound_by=by, library_ms=None))
+    assert {r["name"] for r in table} == set(kernels.LAUNCHES)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

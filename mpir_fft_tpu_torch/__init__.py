@@ -9,15 +9,20 @@ with an explicit device; the hand-written Hopper kernels live in `csrc/`,
 are built by `kernels/` at first use, and are launched by the wrappers in
 `ops/fused.py` and `ops/pointwise_fused.py`.
 
-What the port serves today: `models.mul.mul` / `sqr` for plans with even
-`w` whose pointwise ring the schoolbook base serves (2L <= 4096), through
-full-length transforms.  Odd `w`, the NTT-CRT leaf, the recursive Fermat
-mulmod, truncation, the MFA and the staged/out-of-core drivers raise
-NotImplementedError.
+What the port serves today: `models.mul.mul` / `sqr` for every plan the
+planner picks (odd and even `w`; the schoolbook pointwise where 2L <= 4096,
+the recursive Fermat mulmod above), through full-length transforms, and
+`mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet:
+the NTT-CRT leaf, truncation, the MFA and the staged/out-of-core drivers.
 
     from mpir_fft_tpu_torch.models.mul import mul
     mul(a, b)                      # exact product, on "cuda" by default
     mul(a, b, device="cpu")        # same pipeline on the plain torch path
+    from mpir_fft_tpu_torch import mulmod_int
+    mulmod_int(a, b, 1 << 22)      # (a * b) mod 2^(2^22)+1
 """
 
-__version__ = "0.1.0"
+from mpir_fft_tpu_torch.ops.mulmod import mulmod_int
+
+__all__ = ["mulmod_int"]
+__version__ = "0.2.0"

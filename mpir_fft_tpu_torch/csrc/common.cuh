@@ -41,6 +41,100 @@ __device__ __forceinline__ int carry_digit(const int* v, int i, int L) {
   return (v[i] & DIGIT_MASK) + (i == 0 ? -c : c);
 }
 
+// Digit i of shift_mod(v, s) with a per-row exponent s in [0, 2W), the
+// sequence of limb.shift_mod's tensor path: s = (neg ? W : 0) + 16 kd + b,
+// a rotation by kd, the sub-digit shift by b (a carry pass at b == 0), the
+// sign.
+__device__ __forceinline__ int shift_mod_digit(const int* v, int i, long long s, int L) {
+  const long long W = 16LL * L;
+  const bool neg = s >= W;
+  const int r = static_cast<int>(neg ? s - W : s);
+  const int kd = r >> 4;
+  const int ip = i == 0 ? L - 1 : i - 1;
+  const int d = shift_bits_digit(rot_digit(v, i, kd, L), rot_digit(v, ip, kd, L), i, r & 15);
+  return neg ? -d : d;
+}
+
+// Digit i of one radix-2 butterfly on the rows A, B (shared memory) with the
+// stage twiddle 2^e, e in [0, 2W) -- the sequence of ops/butterfly.py as
+// the ladder's plain version runs it:
+//   fwd:  sa = a + b,          sb = (a - b) * 2^e      (rotate a - b)
+//   inv:  u = b / 2^e = b * 2^(2W - e),  sa = a + u,  sb = a - u
+// the twiddle a rotation by kd digits, the sub-digit shift by b, the sign.
+__device__ __forceinline__ void butterfly_digit(const int* A, const int* B, int i, int L,
+                                                long long e, bool inverse, int* sa, int* sb) {
+  const long long W = 16LL * L;
+  if (inverse) e = (2 * W - e) % (2 * W);
+  const bool neg = e >= W;
+  const int r = static_cast<int>(neg ? e - W : e);
+  const int kd = r >> 4;
+  const int ip = i == 0 ? L - 1 : i - 1;
+  int r_i, r_p;
+  if (!inverse) {
+    const int si = i >= kd ? i - kd : L - kd + i;
+    const int sp = ip >= kd ? ip - kd : L - kd + ip;
+    r_i = (i >= kd ? 1 : -1) * (A[si] - B[si]);
+    r_p = (ip >= kd ? 1 : -1) * (A[sp] - B[sp]);
+  } else {
+    r_i = rot_digit(B, i, kd, L);
+    r_p = rot_digit(B, ip, kd, L);
+  }
+  int tw = shift_bits_digit(r_i, r_p, i, r & 15);
+  if (neg) tw = -tw;
+  if (!inverse) {
+    *sa = A[i] + B[i];
+    *sb = tw;
+  } else {
+    *sa = A[i] + tw;
+    *sb = A[i] - tw;
+  }
+}
+
+// One row times 2^(e2/2) mod 2^(16L)+1, half-bit exponent e2 in [0, 4W): the
+// row body of mpir_fft_tpu/ops/fused.py _twiddle_half_rows (fused.py:714-736)
+// and of the plain version ops/fused.py twiddle_half_rows_plain.  k = e2 >> 1.
+// Even e2: out = shift_mod(x, k).  Odd e2: 2^(k + 1/2) = 2^(k + 3W/4) -
+// 2^(k + W/4), so out = carry_pass(hi - lo), where hi and lo are the static
+// rotations by 3L/4 and L/4 digits of base = shift_mod(x, k) when L % 4 == 0,
+// else the two sub-digit shift_mods of x.
+// x, t1, t2: L-int buffers in shared memory; out may alias t1 (not x or t2)
+// and may lie in global memory.  Every thread of the block calls it with the
+// same e2; it ends in __syncthreads.
+__device__ inline void twiddle_half_row(const int* x, int* t1, int* t2, int* out, long long e2,
+                                        int L) {
+  const long long W = 16LL * L;
+  const long long k = e2 >> 1;
+  if (!(e2 & 1)) {
+    for (int i = threadIdx.x; i < L; i += blockDim.x) out[i] = shift_mod_digit(x, i, k, L);
+  } else {
+    if (L % 4 == 0) {
+      for (int i = threadIdx.x; i < L; i += blockDim.x) t1[i] = shift_mod_digit(x, i, k, L);
+      __syncthreads();
+      for (int i = threadIdx.x; i < L; i += blockDim.x)
+        t2[i] = rot_digit(t1, i, 3 * L / 4, L) - rot_digit(t1, i, L / 4, L);
+    } else {
+      const long long khi = (k + 3 * W / 4) % (2 * W);
+      const long long klo = (k + W / 4) % (2 * W);
+      for (int i = threadIdx.x; i < L; i += blockDim.x)
+        t2[i] = shift_mod_digit(x, i, khi, L) - shift_mod_digit(x, i, klo, L);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < L; i += blockDim.x) out[i] = carry_digit(t2, i, L);
+  }
+  __syncthreads();
+}
+
+// (a * b) mod m for a, b >= 0 and m < 2^31.
+__device__ __forceinline__ long long mulmod_small(long long a, long long b, long long m) {
+  return (a % m) * (b % m) % m;
+}
+
+// Threads for a one-row-per-CTA kernel: L rounded up to a warp, at most cap.
+inline unsigned row_threads(int L, int cap) {
+  const int t = ((L + 31) / 32) * 32;
+  return static_cast<unsigned>(t < cap ? t : cap);
+}
+
 inline cudaError_t set_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

@@ -40,8 +40,7 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k,
   extern __shared__ int smem[];
   int* cur = smem;
   int* nxt = smem + K * L;
-  const long long W = 16LL * L;
-  const long long W2 = 2 * W;
+  const long long W2 = 32LL * L;
   const long long n = blockIdx.x / h;
   const int hpos = static_cast<int>(blockIdx.x % h);
   const int KL = K * L;
@@ -65,34 +64,9 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k,
       const int qm = p % m;
       const int qa = (p / m) * 2 * m + qm;
       const int qb = qa + m;
-      long long e = ((static_cast<long long>(qm) * h + hpos) * step) % W2;
-      if (inverse) e = (W2 - e) % W2;            // divide: 2^(2W - e)
-      const bool neg = e >= W;
-      const int s = static_cast<int>(neg ? e - W : e);
-      const int kd = s >> 4;
-      const int b = s & 15;
-      const int ip = i == 0 ? L - 1 : i - 1;
-      const int* A = cur + qa * L;
-      const int* B = cur + qb * L;
-      int r_i, r_p;
-      if (!inverse) {          // rotate (a - b)
-        const int si = i >= kd ? i - kd : L - kd + i;
-        const int sp = ip >= kd ? ip - kd : L - kd + ip;
-        r_i = (i >= kd ? 1 : -1) * (A[si] - B[si]);
-        r_p = (ip >= kd ? 1 : -1) * (A[sp] - B[sp]);
-      } else {                 // rotate b
-        r_i = mf::rot_digit(B, i, kd, L);
-        r_p = mf::rot_digit(B, ip, kd, L);
-      }
-      int tw = mf::shift_bits_digit(r_i, r_p, i, b);
-      if (neg) tw = -tw;
-      if (!inverse) {
-        nxt[qa * L + i] = A[i] + B[i];
-        nxt[qb * L + i] = tw;
-      } else {
-        nxt[qa * L + i] = A[i] + tw;
-        nxt[qb * L + i] = A[i] - tw;
-      }
+      const long long e = ((static_cast<long long>(qm) * h + hpos) * step) % W2;
+      mf::butterfly_digit(cur + qa * L, cur + qb * L, i, L, e, inverse, nxt + qa * L + i,
+                          nxt + qb * L + i);
     }
     __syncthreads();
     int* tmp = cur;

@@ -2,7 +2,8 @@
 
 All `csrc/*.cu` files compile with nvcc into ONE shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), loaded with
-ctypes.  The build runs at first use, from the package's own sources, into
+ctypes: one nvcc process per source, all started together, then one link.
+The build runs at first use, from the package's own sources, into
 `kernels/build/` (git-ignored); the library's file name carries a hash of
 the sources and flags, so an edit to any source triggers a rebuild.
 
@@ -30,11 +31,14 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_STEM = "libmpir_fft_kernels"
 
-LAUNCHES = {"ladder": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0}
+LAUNCHES = {
+    "ladder": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
+    "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
+}
 
 
 def reset_launches() -> None:
@@ -67,19 +71,39 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu for sm_90a unless a library for the current
-    sources exists; return its path.  The compiler's resource report
-    (`-Xptxas -v`) is kept beside it as `<lib>.log`."""
+    sources exists; return its path.  Each source compiles in its own nvcc
+    process, all at once; the objects then link into the library.  The
+    compilers' resource reports (`-Xptxas -v`) are kept beside it as
+    `<lib>.log`."""
     lib = BUILD_DIR / f"{LIB_STEM}_{_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src_obj, proc in zip(objs, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src_obj.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        obj.unlink()
+    lib.with_suffix(".log").write_text("".join(logs) + res.stdout + res.stderr)
     os.replace(tmp, lib)
     return lib
 
@@ -93,10 +117,19 @@ _SIGNATURES = {
     "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P),
     # a, b, out, B, L, stream
     "mf_conv_base": (_P, _P, _P, _LL, _I, _P),
-    # x, out, B, L, s (shift exponent in [0, 2W)), stream
-    "mf_normmod": (_P, _P, _LL, _I, _I, _P),
+    # x, out, scratch (2*B*L ints for L > mf_normmod_row_max(), else null),
+    # B, L, s (shift exponent in [0, 2W)), stream
+    "mf_normmod": (_P, _P, _P, _LL, _I, _I, _P),
     # x, out, y, t, g, p, rc, Bt, N, R, stream
     "mf_canonicalize": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    # x, out, B, L, h, e0, step (half-bit exponents), stream
+    "mf_twiddle_half": (_P, _P, _LL, _I, _LL, _LL, _LL, _P),
+    # x, out, N, h, L, w, stream
+    "mf_sqrt2_top_fwd": (_P, _P, _LL, _LL, _I, _LL, _P),
+    # x, out, N, h, L, w, s (norm shift in [0, 2W), or -1), stream
+    "mf_sqrt2_top_inv": (_P, _P, _LL, _LL, _I, _LL, _I, _P),
+    # x, out, B, C, L, w, inverse, kmax, stream
+    "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _P),
 }
 
 
@@ -110,8 +143,9 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     so.mf_error_string.argtypes = [ctypes.c_int]
     so.mf_error_string.restype = ctypes.c_char_p
-    so.mf_canonicalize_tile.argtypes = []
-    so.mf_canonicalize_tile.restype = ctypes.c_int
+    for fn in (so.mf_canonicalize_tile, so.mf_normmod_row_max):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     return so
 
 

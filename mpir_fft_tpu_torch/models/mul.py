@@ -6,12 +6,15 @@ forward-transform (both stacked in one transform), pointwise-multiply,
 inverse-transform with the divide-by-2^lg_conv + normalize tail, combine
 with carries.
 
-Every plan runs the full-length flat transform pair.  A full convolution
-is exact for every valid plan (`validate` requires j1 + j2 - 1 <= conv_len),
-so truncation and the MFA only save work; they are not ported yet, nor are
-odd w (sqrt2 top layer), the NTT leaf, the recursive pointwise, or the
-staged / out-of-core drivers.  Each raises NotImplementedError where it
-would be needed.
+Every plan runs the full-length flat transform pair, odd w through the
+sqrt2 top layer; the pointwise takes the schoolbook base where it serves
+the ring and the recursive Fermat mulmod elsewhere (the 10^8..10^9-bit
+plans).  A full convolution is exact for every valid plan (`validate`
+requires j1 + j2 - 1 <= conv_len), so truncation and the MFA only save
+work; they are not ported yet, nor is the NTT leaf.  The staged driver
+(`_staged_flagship`, mpir_fft_tpu/models/mul.py:402) is not needed here:
+80 GB of device memory holds the 10^9-bit spectra unstaged (~2 GB
+stacked).
 
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never
@@ -62,7 +65,7 @@ def _split2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan):
 
 def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """The production multiply on digit tensors a [..., La], b [..., Lb]:
-    full-length sqrt2 transforms with the base pointwise.  Returns the
+    full-length sqrt2 transforms, pointwise through mulmod.  Returns the
     canonical product digits [..., out_len_digits(plan)].  Coefficients
     past j1 + j2 - 1 are zero, so the combine takes only plan.trunc."""
     assert plan.sqrt2

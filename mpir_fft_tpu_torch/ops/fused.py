@@ -4,8 +4,12 @@ mpir_fft_tpu/ops/fused.py), each beside its plain torch version.
 | wrapper                    | CUDA kernel             | replaces (TPU kernel)                  |
 |----------------------------|-------------------------|----------------------------------------|
 | fused_butterfly_ladder     | csrc/ladder.cu          | fused.fused_butterfly_ladder           |
+| fused_transform            | csrc/transform_small.cu | fused.fused_batched (whole transforms) |
 | fused_normmod_div          | csrc/normmod.cu         | fused.fused_rows(normmod_div's core)   |
 | fused_canonicalize_plain   | csrc/canonicalize.cu    | fused.fused_canonicalize_plain         |
+| fused_twiddle_half         | csrc/twiddle_half.cu    | fused.fused_twiddle_half               |
+| fused_sqrt2_top_fwd        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_fwd              |
+| fused_sqrt2_top_inv        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_inv              |
 
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
 it launches its kernel or raises.  The plain versions compute exactly what
@@ -14,7 +18,8 @@ the CPU tests hold against the JAX package.
 
 Blocking is Hopper's, not Mosaic's: a ladder CTA keeps K = 2^k ring
 elements of one h-position in shared memory (ping-pong, 2*K*L*4 bytes), so
-k is capped by that budget and by the deferred-carry growth ~2^(18+k)."""
+k is capped by that budget and by the deferred-carry growth ~2^(18+k); a
+whole-transform CTA keeps a whole (C, L) row the same way."""
 
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from .limb import (
     _normmod_core,
     carry_pass,
     exact_carries_nonneg,
+    shift_digits_static,
     shift_mod,
 )
 
@@ -46,6 +52,27 @@ def ladder_stages(L: int) -> int:
     while k > 1 and 2 * (1 << k) * L * 4 > LADDER_SMEM_BYTES:
         k -= 1
     return k
+
+
+def ladder_groups(C: int, L: int, kind: str) -> list[tuple[int, int]]:
+    """(first stage l, stage count kg) of each ladder launch of a length-C
+    transform at digit width L, in execution order."""
+    D = C.bit_length() - 1
+    kmax = ladder_stages(L)
+    groups = []
+    if kind == "fwd":
+        l = 0
+        while l < D:
+            kg = min(kmax, D - l)
+            groups.append((l, kg))
+            l += kg
+    else:
+        l_hi = D
+        while l_hi > 0:
+            kg = min(kmax, l_hi)
+            groups.append((l_hi - kg, kg))
+            l_hi -= kg
+    return groups
 
 
 def _require(x: torch.Tensor, what: str, ndim: int | None = None) -> None:
@@ -116,6 +143,57 @@ def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int) ->
 
 
 # ---------------------------------------------------------------------------
+# 2. whole transforms of small batch rows
+# ---------------------------------------------------------------------------
+
+# shared memory one whole-transform CTA may take: its ping-pong pair of
+# (C, L) rows, 2 * C * L * 4 bytes (a Hopper block has up to 227 KB)
+WHOLE_SMEM_BYTES = 128 * 1024
+
+
+def whole_fits(C: int, L: int) -> bool:
+    """Does one (C, L) row fit a whole-transform CTA's shared memory?"""
+    return 2 * C * L * 4 <= WHOLE_SMEM_BYTES
+
+
+def transform_plain(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """Plain version of the whole-transform kernel: the ladder groups of a
+    length-C transform (ladder_groups), each one ladder_plain pass over x
+    (B, C, L) -- the sequence the kernel runs on a shared-memory row."""
+    B, C, L = x.shape
+    for l, kg in ladder_groups(C, L, kind):
+        K = 1 << kg
+        steps = tuple(w << (l + j) for j in range(kg))
+        x = ladder_plain(kind, x.reshape(-1, K, C >> (l + kg), L), steps, W).reshape(B, C, L)
+    return x
+
+
+def fused_transform(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """The whole radix-2 transform (fft_radix2 for 'fwd', ifft_radix2 for
+    'inv', root 2^w) of every (C, L) row of x (B, C, L) in one launch, the
+    row resident in shared memory.  Output: bounded redundant digits (a
+    carry pass after every ladder group, as on the ladder path)."""
+    if kind not in ("fwd", "inv"):
+        raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
+    _require(x, "transform_small", ndim=3)
+    B, C, L = x.shape
+    if C < 2 or C & (C - 1) or W != DIGIT_BITS * L:
+        raise ValueError(f"transform_small: C={C} must be a power of two >= 2, W={W} 16*L")
+    if x.device.type == "cpu":
+        return transform_plain(kind, x, w, W)
+    if not whole_fits(C, L):
+        raise ValueError(f"transform_small: a ({C}, {L}) row exceeds the shared-memory block")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mf_transform_small(
+            x.data_ptr(), out.data_ptr(), B, C, L, int(w), int(kind == "inv"),
+            ladder_stages(L), kernels.stream_of(x))
+    kernels.check(rc, "transform_small")
+    kernels.LAUNCHES["transform_small"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 3. normmod rows (the normmod_div tail and normmod)
 # ---------------------------------------------------------------------------
 
@@ -128,7 +206,8 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     """Canonical digits of x * 2^s mod p for every [..., L] row: the static
     shift, two carry passes, the exact carry scan and the fold of the
     carry-out with the -1 form, in one pass.  normmod_div(x, d) is s = 2W - d;
-    normmod is s = 0."""
+    normmod is s = 0.  Rows too long for a block's shared memory (a
+    mulmod_int ring at N >= 2^18) stream through a scratch buffer."""
     _require(x, "normmod")
     L = x.shape[-1]
     if W != DIGIT_BITS * L:
@@ -136,10 +215,15 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     s = int(s) % (2 * W)
     if x.device.type == "cpu":
         return normmod_rows_plain(x, s, W)
+    B = x.numel() // L
     out = torch.empty_like(x)
+    scratch = None
+    if L > kernels.lib().mf_normmod_row_max():    # long rows stream through scratch
+        scratch = torch.empty((2, B, L), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_normmod(
-            x.data_ptr(), out.data_ptr(), x.numel() // L, L, s, kernels.stream_of(x))
+            x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            B, L, s, kernels.stream_of(x))
     kernels.check(rc, "normmod")
     kernels.LAUNCHES["normmod"] += 1
     return out
@@ -183,4 +267,127 @@ def fused_canonicalize_plain(x: torch.Tensor) -> torch.Tensor:
             Bt, N, R, kernels.stream_of(x))
     kernels.check(rc, "canonicalize")
     kernels.LAUNCHES["canonicalize"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. half-bit twiddles and the sqrt2 top layer (odd w)
+# ---------------------------------------------------------------------------
+
+def twiddle_half_rows_plain(x: torch.Tensor, e2: torch.Tensor, W: int) -> torch.Tensor:
+    """Plain version of the half-bit twiddle row body (the reference's
+    _twiddle_half_rows, fused.py:714-736): x * 2^(e2/2) mod p for an int64
+    exponent column e2 in [0, 4W) broadcastable to x[..., :1].  Even e2 is
+    shift_mod by k = e2/2; odd e2 is carry_pass(hi - lo) with
+    2^(k+1/2) = 2^(k+3W/4) - 2^(k+W/4): hi, lo are static rotations by 3L/4
+    and L/4 digits of base = shift_mod(x, k) when L % 4 == 0, else two
+    sub-digit shift_mods of x."""
+    L = x.shape[-1]
+    k = e2 >> 1
+    base = shift_mod(x, k, W)
+    if L % 4 == 0:
+        hi = shift_digits_static(base, (3 * L) // 4)
+        lo = shift_digits_static(base, L // 4)
+    else:   # the W/4 offset is not a whole digit: two more shifts of x
+        hi = shift_mod(x, torch.remainder(k + 3 * W // 4, 2 * W), W)
+        lo = shift_mod(x, torch.remainder(k + W // 4, 2 * W), W)
+    return torch.where((e2 & 1) == 1, carry_pass(hi - lo), base)
+
+
+def _affine_half_exps(j: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
+    return torch.remainder(e0 + j * step, 4 * W)[..., None]
+
+
+def fused_twiddle_half(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
+    """x[..., j, :] * 2^((e0 + j*step)/2) mod p (half-bit exponents) in one
+    pass, j the index along axis -2; leading axes replicate."""
+    _require(x, "twiddle_half")
+    L = x.shape[-1]
+    if x.ndim < 2 or W != DIGIT_BITS * L:
+        raise ValueError(f"twiddle_half: shape {tuple(x.shape)} needs rows on axis -2, W=16*L")
+    h = x.shape[-2]
+    B = x.numel() // L
+    if x.device.type == "cpu":
+        j = torch.arange(B, dtype=torch.int64) % h
+        return twiddle_half_rows_plain(
+            x.reshape(B, L), _affine_half_exps(j, e0, step, W), W).reshape(x.shape)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mf_twiddle_half(
+            x.data_ptr(), out.data_ptr(), B, L, h, int(e0), int(step), kernels.stream_of(x))
+    kernels.check(rc, "twiddle_half")
+    kernels.LAUNCHES["twiddle_half"] += 1
+    return out
+
+
+def sqrt2_top_fwd_plain(x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """Plain version of the forward top layer on x [..., C, L], C = 2h:
+    [carry_pass(a + b), (a - b) * 2^(j w / 2)] with a, b the halves."""
+    h = x.shape[-2] // 2
+    a, b = x[..., :h, :], x[..., h:, :]
+    e2 = _affine_half_exps(torch.arange(h, device=x.device), 0, w, W)
+    return torch.cat([carry_pass(a + b), twiddle_half_rows_plain(a - b, e2, W)], dim=-2)
+
+
+def sqrt2_top_inv_plain(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> torch.Tensor:
+    """Plain version of the inverse top merge on x [..., C, L] = [sL, oR]:
+    u = oR * 2^(-j w / 2), [post(sL + u), post(sL - u)], post = carry_pass,
+    or for norm_div > 0 normmod(v / 2^norm_div)."""
+    h = x.shape[-2] // 2
+    sl, orr = x[..., :h, :], x[..., h:, :]
+    e2 = _affine_half_exps(torch.arange(h, device=x.device), 0, -w, W)
+    u = twiddle_half_rows_plain(orr, e2, W)
+    if norm_div:
+        sdiv = (2 * W - norm_div) % (2 * W)
+
+        def post(v):
+            return _normmod_core(shift_mod(v, sdiv, W))
+    else:
+        post = carry_pass
+    return torch.cat([post(sl + u), post(sl - u)], dim=-2)
+
+
+def _require_top(x: torch.Tensor, what: str, W: int) -> tuple[int, int, int]:
+    _require(x, what)
+    L = x.shape[-1]
+    if x.ndim < 2 or x.shape[-2] % 2 or W != DIGIT_BITS * L:
+        raise ValueError(f"{what}: shape {tuple(x.shape)} needs an even axis -2 and W=16*L")
+    h = x.shape[-2] // 2
+    return x.numel() // (2 * h * L), h, L
+
+
+def fused_sqrt2_top_fwd(x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """Forward sqrt2 top layer of a length-C = 2h transform over the 4n-th
+    root q = sqrt2^w (odd w) in one pass over x [..., C, L]: row j of the
+    output holds s_j = carry(a_j + b_j), row h + j holds t_j = (a_j - b_j) q^j
+    (a, b: the halves).  Both halves then transform as one [..., 2, h, L]
+    array."""
+    N, h, L = _require_top(x, "sqrt2_top_fwd", W)
+    if x.device.type == "cpu":
+        return sqrt2_top_fwd_plain(x, w, W)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mf_sqrt2_top_fwd(
+            x.data_ptr(), out.data_ptr(), N, h, L, int(w), kernels.stream_of(x))
+    kernels.check(rc, "sqrt2_top_fwd")
+    kernels.LAUNCHES["sqrt2_top_fwd"] += 1
+    return out
+
+
+def fused_sqrt2_top_inv(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> torch.Tensor:
+    """Inverse sqrt2 top merge in one pass over x [..., C, L] = [sL, oR] (the
+    two inverse half transforms): u_j = oR_j q^-j, rows j and h + j of the
+    output hold carry(sL_j + u_j) and carry(sL_j - u_j).  norm_div > 0
+    instead divides both by 2^norm_div and canonicalizes in the same pass
+    (the drivers' scale + normalize tail)."""
+    N, h, L = _require_top(x, "sqrt2_top_inv", W)
+    if x.device.type == "cpu":
+        return sqrt2_top_inv_plain(x, w, W, norm_div)
+    s = (2 * W - int(norm_div)) % (2 * W) if norm_div else -1
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mf_sqrt2_top_inv(
+            x.data_ptr(), out.data_ptr(), N, h, L, int(w), s, kernels.stream_of(x))
+    kernels.check(rc, "sqrt2_top_inv")
+    kernels.LAUNCHES["sqrt2_top_inv"] += 1
     return out

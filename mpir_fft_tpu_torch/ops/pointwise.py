@@ -65,8 +65,8 @@ def conv_base_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def base_serves(L: int) -> bool:
     """Can mulmod_base serve an L-digit ring?  The schoolbook needs
-    2L <= 4096 (int32 accumulation bound); wider rings need the recursive
-    Fermat path (not ported)."""
+    2L <= 4096 (int32 accumulation bound); wider rings take the recursive
+    Fermat path (ops/mulmod.py mulmod_fft)."""
     return 2 * L <= SCHOOLBOOK_MAX_CHUNKS
 
 

@@ -1,10 +1,21 @@
 """Iterative radix-2 DIF transforms over Z/(2^W+1)Z (counterpart of
 mpir_fft_tpu/ops/transforms.py).
 
-A transform of length C = x.shape[-2] runs as consecutive butterfly-ladder
-groups: each group of kg <= ladder_stages(L) stages is one pass over the
-whole [..., C, L] array (one kernel launch on a GPU tensor), exactly the
-grouping of the reference's ladder path (transforms.py:146-168, 297-318).
+A transform of length C = x.shape[-2] takes one of two kernel routes:
+  * a batch of transforms (x.ndim >= 3) whose (C, L) row fits a
+    shared-memory block (ops/fused.py whole_fits) runs whole, one launch of
+    the whole-transform kernel (fused_transform) -- the reference's
+    `_auto_fusable` rule (transforms.py:50-62) with Hopper's limit: two
+    row buffers within a 227 KB block (WHOLE_SMEM_BYTES = 128 KB), not
+    Mosaic's L <= 1024 and 512 KB padded-row cap.  This serves the
+    recursive mulmod's inner negacyclic transforms ((256, 32), (64, 84),
+    (128, 72) rows at 10^8..10^9 bits) and small multiplies;
+  * everything else (the MB-sized outer flagship rows) runs as consecutive
+    butterfly-ladder groups: each group of kg <= ladder_stages(L) stages is
+    one pass over the whole [..., C, L] array, exactly the grouping of the
+    reference's ladder path (transforms.py:146-168, 297-318).
+Both routes run the same integer sequence (the whole-transform kernel
+repeats the ladder groups on its shared-memory row), so their digits agree.
 
 Conventions (identical to the reference):
   * z = 2^w is a 2n-th root of unity; the forward transform is
@@ -19,34 +30,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fused import fused_butterfly_ladder, ladder_stages
-
-
-def ladder_groups(C: int, L: int, kind: str) -> list[tuple[int, int]]:
-    """(first stage l, stage count kg) of each ladder launch of a length-C
-    transform at digit width L, in execution order."""
-    D = C.bit_length() - 1
-    kmax = ladder_stages(L)
-    groups = []
-    if kind == "fwd":
-        l = 0
-        while l < D:
-            kg = min(kmax, D - l)
-            groups.append((l, kg))
-            l += kg
-    else:
-        l_hi = D
-        while l_hi > 0:
-            kg = min(kmax, l_hi)
-            groups.append((l_hi - kg, kg))
-            l_hi -= kg
-    return groups
+from .fused import fused_butterfly_ladder, fused_transform, ladder_groups, whole_fits
 
 
 def _run(x: torch.Tensor, w: int, W: int, kind: str) -> torch.Tensor:
     C, L = x.shape[-2], x.shape[-1]
     assert C == 1 << (C.bit_length() - 1), "transform length must be a power of two"
     shape = x.shape
+    if C > 1 and x.ndim >= 3 and whole_fits(C, L):
+        return fused_transform(kind, x.reshape(-1, C, L).contiguous(), w, W).reshape(shape)
     x = x.contiguous()
     for l, kg in ladder_groups(C, L, kind):
         K = 1 << kg

@@ -1,0 +1,154 @@
+"""Where the time of a multiply goes on the card (counterpart, in part, of
+mpir_fft_tpu/utils/profile.py).
+
+    python -m mpir_fft_tpu_torch.utils.profile [BITS ...] [--reps R]
+
+For each operand size (both operands BITS bits, random from a fixed seed;
+default 10^7, 10^8 and 10^9):
+  * the plan (and the inner mulmod plan where the pointwise recurses);
+  * the flagship's device time, digits on the card (CUDA events, median);
+  * a torch.profiler window over R mpn_mul_flagship calls after a warm-up:
+    device time per call by kernel (the port's kernels by name, PyTorch's
+    own ops -- split, stack, combine, the sign lift -- as "torch ops"), and
+    the device's busy and idle share of the window;
+  * the host-clock split of mul() into its steps: planner, digits_from_int
+    of both operands, host-to-device copies, the synchronised flagship call
+    (after one warm-up call at the size), device-to-host copy,
+    int_from_digits;
+  * the peak device memory of one flagship call.
+Prints one JSON object per size, then the card's nvidia-smi name and
+power-limit line.  Needs a CUDA device; without one it raises."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import statistics
+import subprocess
+import time
+
+import torch
+
+from mpir_fft_tpu_torch import kernels
+from mpir_fft_tpu_torch.models.mul import _select_plan, mpn_mul_flagship
+from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.mulmod import mulmod_plan
+from mpir_fft_tpu_torch.ops.pointwise import base_serves
+from mpir_fft_tpu_torch.utils.params import cdiv
+
+SEED = 20261016
+
+# device kernel name fragment -> the port's kernel (csrc/); the rest are
+# PyTorch's own kernels
+KERNEL_NAMES = (
+    ("ladder_kernel", "ladder"), ("conv_base_kernel", "conv_base"),
+    ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
+    ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
+    ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
+)
+
+
+def _kernel_of(name: str) -> str:
+    for frag, kernel in KERNEL_NAMES:
+        if frag in name:
+            return kernel
+    return "torch ops"
+
+
+def _events_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_size(bits: int, reps: int) -> dict:
+    dev = torch.device("cuda", 0)
+    rnd = random.Random(SEED + bits)
+    a = rnd.getrandbits(bits) | (1 << (bits - 1))
+    b = rnd.getrandbits(bits) | (1 << (bits - 1))
+    L = cdiv(bits, DIGIT_BITS)
+
+    steps = {}
+    t = time.perf_counter()
+    plan = _select_plan(bits, bits)
+    steps["planner"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ha, hb = digits_from_int(a, L), digits_from_int(b, L)
+    steps["digits_from_int x2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
+    torch.cuda.synchronize()
+    steps["host to device"] = time.perf_counter() - t
+    mpn_mul_flagship(da, db, plan)        # warm-up: first launches of each op
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    prod = mpn_mul_flagship(da, db, plan)
+    torch.cuda.synchronize()
+    steps["flagship"] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    hp = prod.cpu().numpy()
+    steps["device to host"] = time.perf_counter() - t
+    t = time.perf_counter()
+    int_from_digits(hp)
+    steps["int_from_digits"] = time.perf_counter() - t
+
+    device_ms = _events_ms(lambda: mpn_mul_flagship(da, db, plan), reps)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            mpn_mul_flagship(da, db, plan)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t) * 1e3
+    by_kernel: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = _kernel_of(ev.key)
+            by_kernel[k] = by_kernel.get(k, 0.0) + ev.device_time_total / 1e3 / reps
+    busy = sum(by_kernel.values())
+    W = plan.W
+    inner = mulmod_plan(W) if not base_serves(W // DIGIT_BITS) else None
+    return {
+        "bits": bits,
+        "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
+                 "conv": plan.conv_len},
+        "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
+        "device_ms": device_ms,
+        "profiled_wall_ms_per_call": window_ms / reps,
+        "device_busy_ms_per_call": busy,
+        "device_idle_share": max(0.0, 1.0 - busy * reps / window_ms),
+        "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
+        "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
+        "peak_memory_gib": peak / 2**30,
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("bits", nargs="*", type=int,
+                    default=[10_000_000, 100_000_000, 1_000_000_000])
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    kernels.lib()                   # build first: no size pays for nvcc
+    torch.empty(1, device="cuda")   # nor for creating the CUDA context
+    for bits in args.bits:
+        print(json.dumps(profile_size(bits, args.reps)), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

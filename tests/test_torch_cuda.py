@@ -14,18 +14,29 @@ import numpy as np
 import pytest
 import torch
 
-from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.models.mul import mul, sqr
+from mpir_fft_tpu_torch import kernels, mulmod_int
+from mpir_fft_tpu_torch.models.mul import mpn_mul_flagship, mul, sqr
 from mpir_fft_tpu_torch.ops.fused import (
+    _affine_half_exps,
     canonicalize_plain_torch,
     fused_butterfly_ladder,
     fused_canonicalize_plain,
     fused_normmod_div,
+    fused_sqrt2_top_fwd,
+    fused_sqrt2_top_inv,
+    fused_transform,
+    fused_twiddle_half,
     ladder_plain,
     normmod_rows_plain,
+    sqrt2_top_fwd_plain,
+    sqrt2_top_inv_plain,
+    transform_plain,
+    twiddle_half_rows_plain,
 )
+from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
+from mpir_fft_tpu_torch.utils.params import plan_for_depth
 
 pytestmark = pytest.mark.cuda
 
@@ -77,8 +88,9 @@ def test_conv_base_matches_plain(dev, B, L):
     assert torch.equal(_canon(got), _canon(want))
 
 
-@pytest.mark.parametrize("L", [1, 16, 71, 512, 2048])
+@pytest.mark.parametrize("L", [1, 16, 71, 512, 2048, 8193, 20000])
 def test_normmod_matches_plain(dev, L):
+    """L > 8192: the streaming long-row kernel."""
     rng = np.random.default_rng(3)
     W = 16 * L
     x = rng.integers(-(1 << 29), 1 << 29, (8, L)).astype(np.int32)
@@ -113,11 +125,89 @@ def test_canonicalize_matches_plain(dev, Bt, N):
     assert torch.equal(got.cpu(), canonicalize_plain_torch(xt))
 
 
+def _launched(name, fn):
+    before = kernels.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.parametrize("B,h,L,e0,step", [
+    (6, 3, 16, 5, 7), (8, 8, 71, 0, 3), (4, 4, 64, 1, -5), (5, 5, 32, 0, 4), (3, 1, 70, 9, 0),
+])
+def test_twiddle_half_matches_plain(dev, B, h, L, e0, step):
+    rng = np.random.default_rng(5)
+    W = 16 * L
+    x = _rand(rng, (B // h, h, L), -(1 << 17), 1 << 17, dev)
+    got = _launched("twiddle_half", lambda: fused_twiddle_half(x, e0, step, W))
+    j = torch.arange(x.numel() // L) % h
+    want = twiddle_half_rows_plain(x.reshape(-1, L).cpu(), _affine_half_exps(j, e0, step, W), W)
+    assert torch.equal(_canon(got), _canon(want))
+    assert int(got.abs().max()) < 1 << 18
+
+
+@pytest.mark.parametrize("N,h,L,w", [(2, 4, 16, 1), (1, 8, 71, 3), (3, 2, 64, 157), (2, 16, 256, 1)])
+def test_sqrt2_top_matches_plain(dev, N, h, L, w):
+    rng = np.random.default_rng(6)
+    W = 16 * L
+    x = _rand(rng, (N, 2 * h, L), -(1 << 17), 1 << 17, dev)
+    got = _launched("sqrt2_top_fwd", lambda: fused_sqrt2_top_fwd(x, w, W))
+    assert torch.equal(_canon(got), _canon(sqrt2_top_fwd_plain(x.cpu(), w, W)))
+    assert int(got.abs().max()) < 1 << 18
+    for nd in (0, 5):
+        got = _launched("sqrt2_top_inv", lambda: fused_sqrt2_top_inv(x, w, W, norm_div=nd))
+        want = sqrt2_top_inv_plain(x.cpu(), w, W, norm_div=nd)
+        if nd:
+            assert torch.equal(got.cpu(), want)       # canonical output
+        else:
+            assert torch.equal(_canon(got), _canon(want))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("B,C,L,w", [
+    (3, 32, 16, 1), (5, 256, 32, 4), (2, 128, 72, 18), (4, 64, 84, 42), (3, 8, 71, 3),
+])
+def test_transform_small_matches_plain(dev, kind, B, C, L, w):
+    rng = np.random.default_rng(7)
+    W = 16 * L
+    x = _rand(rng, (B, C, L), -(1 << 17), 1 << 17, dev)
+    got = _launched("transform_small", lambda: fused_transform(kind, x, w, W))
+    want = transform_plain(kind, x.cpu(), w, W)
+    assert torch.equal(_canon(got), _canon(want))
+    assert int(got.abs().max()) < 1 << 17
+
+
 @pytest.mark.parametrize("bits_a,bits_b", [(12000, 12000), (16000, 16000), (12000, 5000),
-                                           (48000, 48000)])
+                                           (48000, 48000), (40000, 40000), (40000, 17000)])
 def test_mul_exact_on_gpu(dev, bits_a, bits_b):
     rnd = random.Random(bits_a + bits_b)
     a = rnd.getrandbits(bits_a) | (1 << (bits_a - 1))
     b = rnd.getrandbits(bits_b) | (1 << (bits_b - 1))
     assert mul(a, b, device=dev) == a * b
     assert sqr(a, device=dev) == a * a
+
+
+@pytest.mark.parametrize("bits,depth", [(150000, 2), (530000, 4)])
+def test_recursive_pointwise_on_gpu(dev, bits, depth):
+    """L 2344 (even w) and L 2071 (odd w): the pointwise recurses."""
+    plan = plan_for_depth(bits, bits, depth, sqrt2=True)
+    rnd = random.Random(bits)
+    a = rnd.getrandbits(bits) | (1 << (bits - 1))
+    b = rnd.getrandbits(bits) | (1 << (bits - 1))
+    da = torch.from_numpy(digits_from_int(a, -(-bits // 16))).to(dev)
+    db = torch.from_numpy(digits_from_int(b, -(-bits // 16))).to(dev)
+    kernels.reset_launches()
+    got = int_from_digits(mpn_mul_flagship(da, db, plan).cpu().numpy())
+    assert got == a * b
+    assert kernels.LAUNCHES["twiddle_half"] > 0 and kernels.LAUNCHES["transform_small"] > 0
+
+
+@pytest.mark.parametrize("N", [1 << 15, 37504, 49152])
+def test_mulmod_int_on_gpu(dev, N):
+    p = (1 << N) + 1
+    rnd = random.Random(N)
+    a, b = rnd.getrandbits(N), rnd.getrandbits(N)
+    assert mulmod_int(a, b, N, device=dev) == a * b % p
+    for x, y in ((p - 1, p - 1), (p - 1, b), (0, b), ((1 << N) - 1, a)):
+        assert mulmod_int(x, y, N, device=dev) == x * y % p

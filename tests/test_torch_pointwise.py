@@ -89,9 +89,14 @@ def test_mulmod_base_branch_and_limits(rng):
     for r in range(4):
         want = int_from_digits(a[r]) * int_from_digits(b[r]) % p
         assert int_from_digits(got[r]) % p == want
-    wide = torch.zeros((1, 2049), dtype=torch.int32)           # 2L > 4096
-    with pytest.raises(NotImplementedError, match="recursive"):
-        mulmod(wide, wide, 16 * 2049)
+    # 2L > 4096: the base cannot serve the ring, mulmod recurses (mulmod_fft)
+    Nw = 16 * 2049
+    pw = (1 << Nw) + 1
+    wa, wb = _rand(rng, (2, 2049)), _rand(rng, (2, 2049))
+    wide = mulmod(T(wa), T(wb), Nw).numpy()
+    for r in range(2):
+        assert int_from_digits(wide[r]) % pw == int_from_digits(wa[r]) * int_from_digits(wb[r]) % pw
+    assert np.array_equal(wide, normmod(T(wide)).numpy())     # canonical
     assert MULMOD_BASE_MAX_BITS == 131072
 
 

@@ -121,9 +121,11 @@ def test_sqrt2_even_w_matches_reference_and_roundtrips(rng, n, w):
     assert np.array_equal(back.numpy(), np.asarray(jback))
 
 
-def test_sqrt2_odd_w_not_ported():
-    x = torch.zeros((8, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="fused_sqrt2_top"):
-        tsqrt2.fft_sqrt2(x, 3, 64)
-    with pytest.raises(NotImplementedError, match="fused_sqrt2_top"):
-        tsqrt2.ifft_sqrt2(x, 3, 64, norm_div=3)
+def test_sqrt2_odd_w_not_ported(rng):
+    """Odd w, once refused, now runs the sqrt2 top layer: equal to the
+    reference, and the inverse with its norm tail undoes the forward."""
+    x = _rand(rng, (8, 4))
+    f = tsqrt2.fft_sqrt2(T(x), 3, 64)
+    assert np.array_equal(canon(f), canon(jsqrt2.fft_sqrt2(jnp.asarray(x), 3, 64)))
+    back = tsqrt2.ifft_sqrt2(f, 3, 64, norm_div=3)
+    assert torch.equal(back, normmod(T(x)))
