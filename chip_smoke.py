@@ -6,37 +6,49 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the eight kernels against its plain torch version on the
-   card at the shapes the main path gives it, and times both (CUDA events,
-   warmed up, median):
-     ladder, conv_base, normmod, canonicalize -- the 2x10^7-bit plan (depth
-       12, w 2, L 512, conv 16384): every ladder group of the forward
-       (operands stacked) and inverse transforms, the pointwise conv on
-       (16384, 512), normmod_div on (16384, 512) and normmod on one
-       2^18-digit row (the mulmod_int ring at N = 2^22, streamed),
-       canonicalize on the 2.5 M-digit product;
+3. Holds each of the eleven kernels, and the NTT's int8 GEMM, against its
+   plain torch version on the card at the shapes the main path gives it,
+   and times both (CUDA events, warmed up, median):
+     ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
+       L 512, conv 16384): every ladder group of the forward (operands
+       stacked) and inverse transforms, normmod_div on (16384, 512) and
+       normmod on one 2^18-digit row (the mulmod_int ring at N = 2^22,
+       streamed), canonicalize on the 2.5 M-digit product;
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
        without a tail;
-     twiddle_half -- the 10^8-bit plan's inner weights (8192 x 256 rows at
-       Lp 32, step 4), an odd step at L 256, an L % 4 != 0 row (L 71);
+     input_planes, mid_planes, garner_carry, int8_gemm -- the dense
+       NTT-CRT pointwise of the 10^8-bit (32768 x 1024) and 10^9-bit
+       (131072 x 2048) plans, each link fed the previous one's real output;
+     conv_base -- under MPIR_FFT_NTT=0, the pointwise of the 3,162,277-bit
+       (8192, 128) and 2x10^7-bit (16384, 512) plans and the 10^8-bit
+       plan's inner rings (2097152, 32);
+     twiddle_half -- the MPIR_FFT_NTT=0 10^8-bit plan's inner weights
+       (8192 x 256 rows at Lp 32, step 4), an odd step at L 256, an
+       L % 4 != 0 row (L 71);
      transform_small, forward and inverse -- (8192, 256, 32) and
-       (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits.
-   Canonical outputs must be equal; redundant outputs equal after normmod
-   (they come out identical digit for digit) and inside the ~2^17 bound.
-   Each kernel's bound_ms is the least time the card could take for the
-   same work: the larger of its bytes (inputs read once, outputs written
-   once) over 3.35 TB/s and its integer operations over the INT32 rate.
+       (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits under
+       MPIR_FFT_NTT=0.
+   Canonical outputs must be equal; the NTT links' outputs identical;
+   other redundant outputs equal after normmod (they come out identical
+   digit for digit) and inside their bounds.  Each kernel's bound_ms is the
+   least time the card could take for the same work: the larger of its
+   bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+   operations over the INT32 rate (the int8 tensor-core rate for the GEMM).
 4. Drives the main path, the launch counters reset before each size and
-   read after it; every kernel the path should reach must have launched:
-     mul/sqr 2x10^6 (full compare with Python's a*b) and 2x10^7 (residues
-       mod four 61-bit primes): even w, schoolbook pointwise;
-     mul/sqr 3,162,277 (full compare) and 10^7 (residues): odd w, the
-       sqrt2 top layer;
-     mul 10^8 (residues) and 10^9 (residues mod two primes, run once): the
-       recursive Fermat mulmod as the pointwise (inner rings Lp 32, 72);
-     mulmod_int at N = 2^22 (against Python's product folded mod 2^N+1) and
-       at N = 2^24 (against the port's own mul, folded).
+   read after it; every kernel the path should reach must have launched,
+   and at the power-of-two plans conv_base must not have:
+     mul/sqr at the default plans (dense NTT pointwise): 2x10^6 (full
+       compare with Python's a*b), 10^7 (odd w), 2x10^7, 10^8 and 10^9
+       (odd w, unstaged; residues mod 61-bit primes);
+     under MPIR_FFT_NTT=0, its A/B plans, with no NTT kernel launched:
+       2x10^6 and 2x10^7 (even-w schoolbook; 2x10^6 full compare),
+       3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
+       (the recursive Fermat mulmod: inner Lp 32, and at 10^9 L 4096
+       rings with inner Lp 72);
+     mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
+       NTT), against Python's product folded mod 2^N+1 and against the
+       port's own mul, folded.
    For each: the plan, the launches, host-clock and CUDA-event times, and
    torch.cuda.max_memory_allocated().
 5. Prints the kernel table as one JSON line, the card's line again, and the
@@ -46,7 +58,9 @@ Any failure raises and exits nonzero before the result line."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -64,9 +78,12 @@ MULMOD_N = (1 << 22, 1 << 24)
 
 # the least time the card could take (H100 SXM, NVIDIA data sheet and
 # Hopper white paper): HBM3 at 3.35 TB/s; 64 INT32 lanes per SM x 132 SMs x
-# 1.98 GHz boost = 16.7 x 10^12 int32 operations (multiply-adds) per second
+# 1.98 GHz boost = 16.7 x 10^12 int32 operations (multiply-adds) per second;
+# dense int8 tensor cores 1979 x 10^12 operations per second
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT8_OPS_PER_S = 1979e12
+NTT_DIGIT_BOUND = (1 << 16) + (1 << 12)   # mulmod_ntt's redundant output bound
 
 
 def gpu_line() -> str:
@@ -104,11 +121,26 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """(least time in ms, what bounds it) for nbytes moved and ops done."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT32_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+@contextlib.contextmanager
+def ntt_off():
+    """The reference's A/B setting MPIR_FFT_NTT=0: schoolbook and recursive
+    pointwise, its A/B plans."""
+    old = os.environ.get("MPIR_FFT_NTT")
+    os.environ["MPIR_FFT_NTT"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MPIR_FFT_NTT"]
+        else:
+            os.environ["MPIR_FFT_NTT"] = old
 
 
 def is_canonical(t) -> bool:
@@ -176,12 +208,15 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.fused import (
         _affine_half_exps, canonicalize_plain_torch, fused_butterfly_ladder,
         fused_canonicalize_plain, fused_normmod_div, fused_sqrt2_top_fwd,
-        fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups,
-        ladder_plain, ladder_stages, normmod_rows_plain, sqrt2_top_fwd_plain,
-        sqrt2_top_inv_plain, transform_plain, twiddle_half_rows_plain)
+        fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups, ladder_plain,
+        ladder_stages, normmod_rows_plain, sqrt2_top_fwd_plain, sqrt2_top_inv_plain,
+        transform_plain, twiddle_half_rows_plain)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int
     from mpir_fft_tpu_torch.ops.mulmod import mulmod, mulmod_plan
-    from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
+    from mpir_fft_tpu_torch.ops.ntt import (
+        _blocks, _dot_raw, garner_carry, garner_carry_plain, input_planes, input_planes_plain,
+        mid_planes, mid_planes_plain)
+    from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, leaf_serves
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
 
@@ -223,16 +258,24 @@ def main() -> int:
         assert top < digit_bound, (what, top)
         return err, same
 
+    def identical(what, got, want):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), what
+
     rows = {}
 
-    def add_row(name, source, replaces, err, ms, pms, nbytes, ops):
+    def add_row(name, source, replaces, err, ms, pms, nbytes, ops, library_ms=None,
+                ops_per_s=INT32_OPS_PER_S):
         r = rows.setdefault(name, dict(name=name, route="cuda", source=source, replaces=replaces,
-                                       max_abs_err=0, ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0))
+                                       max_abs_err=0, ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0,
+                                       library_ms=None, ops_per_s=ops_per_s))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += pms
         r["nbytes"] += nbytes
         r["ops"] += ops
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
 
     # ladder: every group of the forward (stacked operands) and inverse transform
     w_half = plan.w // 2
@@ -250,16 +293,6 @@ def main() -> int:
                     "mpir_fft_tpu/ops/fused.py:250", err, ms, pms, 8 * x.numel(), kg * x.numel())
             print(f"ladder {kind} {shape}: equal after normmod, raw digits identical: {same}; "
                   f"{ms:.3f} ms (plain {pms:.3f} ms)")
-
-    # pointwise schoolbook conv on the pointwise batch
-    a = rand((C, L), -(1 << 17), 1 << 17)
-    b = rand((C, L), -(1 << 17), 1 << 17)
-    err, _ = compare("conv_base", mulmod_base_fused(a, b), conv_base_plain(a, b))
-    ms = time_ms(lambda: mulmod_base_fused(a, b), 10, 2)
-    pms = time_ms(lambda: conv_base_plain(a, b), 2)
-    add_row("conv_base", "mpir_fft_tpu_torch/csrc/conv_base.cu",
-            "mpir_fft_tpu/ops/pointwise_fused.py:77", err, ms, pms, 12 * a.numel(), 4 * L * L * C)
-    print(f"conv_base {tuple(a.shape)}: equal after normmod; {ms:.3f} ms (plain {pms:.3f} ms)")
 
     # normmod_div tail, with the ripple edge rows
     x = rand((C, L), -(1 << 18), 1 << 18)
@@ -311,7 +344,7 @@ def main() -> int:
             "mpir_fft_tpu/ops/fused.py:574", 0, ms, pms, 8 * N, 3 * N)
     print(f"canonicalize ({N},): exact (random + full-length ripple); "
           f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    del a, b, x, v, ripple
+    del x, v, ripple
 
     # sqrt2 top pair at the 10^7-bit plan (odd w)
     oplan = choose_params(ODD_BITS, ODD_BITS, sqrt2=True)
@@ -340,12 +373,103 @@ def main() -> int:
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
     del x
 
-    # half-bit twiddles: the 10^8 plan's inner weights, an odd step, L % 4 != 0
-    rplan = choose_params(REC_BITS, REC_BITS, sqrt2=True)
-    mplan = mulmod_plan(rplan.W)
-    print(f"plan 10^8: {rplan} L={rplan.W // DIGIT_BITS}; inner {mplan} m={mplan.m} "
-          f"Lp={mplan.Lp}")
+    # the dense NTT-CRT pointwise of the 10^8 and 10^9 default plans: each
+    # link on the previous one's real output, the GEMMs between them
+    for bits, want_plan in ((REC_BITS, (13, 2, 1024, 32768)),
+                            (HUGE_BITS, (15, 1, 2048, 131072))):
+        nplan = choose_params(bits, bits, sqrt2=True)
+        nB, nM = nplan.conv_len, nplan.W // DIGIT_BITS
+        print(f"plan {bits:.0e}: {nplan} L={nM} conv={nB}")
+        assert (nplan.depth, nplan.w, nM, nB) == want_plan, nplan
+        blocks = _blocks(nM, dev)
+        x = rand((nB, nM), -(1 << 17), 1 << 17)
+        y = rand((nB, nM), -(1 << 17), 1 << 17)
+        pa = input_planes(x)
+        identical("input_planes", pa, input_planes_plain(x))
+        ms = time_ms(lambda: input_planes(x), 10, 2)
+        pms = time_ms(lambda: input_planes_plain(x), 3)
+        add_row("input_planes", "mpir_fft_tpu_torch/csrc/ntt_links.cu",
+                "mpir_fft_tpu/ops/ntt.py:698", 0, ms, pms, 10 * x.numel(), 3 * x.numel())
+        print(f"input_planes {tuple(x.shape)}: planes identical; {ms:.3f} ms (plain {pms:.3f} ms)")
+        pb = input_planes(y)
+        del x, y
+        parts = []
+        for j, (p, F, G) in enumerate(blocks):
+            sa = _dot_raw(pa[j], F)
+            sb = _dot_raw(pb[j], F)
+            if j == 0:
+                # the GEMM against an exact float64 product (sums < 2^27)
+                torch.cuda.synchronize()
+                assert torch.equal(sa, (pa[j].double() @ F.double()).int()), "int8_gemm"
+                ms = time_ms(lambda: _dot_raw(pa[j], F), 5, 1)
+                pms = time_ms(lambda: (pa[j].double() @ F.double()).int(), 1, 0)
+                Frow = F.contiguous()       # the same block row-major: another cuBLASLt path
+                rms = time_ms(lambda: torch._int_mm(pa[j], Frow), 3, 1)
+                del Frow
+                K = 2 * nM
+                gemm_bytes = nB * K + K * K + 4 * nB * K
+                add_row("int8_gemm", "mpir_fft_tpu_torch/ops/ntt.py", "mpir_fft_tpu/ops/ntt.py:344",
+                        0, ms, pms, gemm_bytes, 2 * nB * K * K, library_ms=ms,
+                        ops_per_s=INT8_OPS_PER_S)
+                print(f"int8_gemm ({nB}, {K}) @ ({K}, {K}): exact; {ms:.3f} ms with the "
+                      f"column-major block (row-major block {rms:.3f} ms; float64 matmul "
+                      f"{pms:.3f} ms)")
+            pp = mid_planes(sa, sb, p)
+            identical(("mid_planes", p), pp, mid_planes_plain(sa, sb, p))
+            if j == 0:
+                ms = time_ms(lambda: mid_planes(sa, sb, p), 10, 2)
+                pms = time_ms(lambda: mid_planes_plain(sa, sb, p), 3)
+                add_row("mid_planes", "mpir_fft_tpu_torch/csrc/ntt_links.cu",
+                        "mpir_fft_tpu/ops/ntt.py:730", 0, ms, pms, 18 * nB * nM, 3 * nB * nM)
+                print(f"mid_planes {tuple(sa.shape)} p={p}: planes identical (all primes); "
+                      f"{ms:.3f} ms (plain {pms:.3f} ms)")
+            del sa, sb
+            parts.append(_dot_raw(pp, G))
+            del pp
+        del pa, pb
+        d = garner_carry(*parts)
+        err, same = compare("garner_carry", d, garner_carry_plain(*parts),
+                            digit_bound=NTT_DIGIT_BOUND)
+        assert same, "garner_carry: raw digits differ from the plain version"
+        ms = time_ms(lambda: garner_carry(*parts), 10, 2)
+        pms = time_ms(lambda: garner_carry_plain(*parts), 2)
+        add_row("garner_carry", "mpir_fft_tpu_torch/csrc/ntt_links.cu",
+                "mpir_fft_tpu/ops/ntt.py:465", err, ms, pms, 28 * nB * nM, 12 * nB * nM)
+        print(f"garner_carry 3 x {tuple(parts[0].shape)}: digits identical, below 2^16 + 2^12; "
+              f"{ms:.3f} ms (plain {pms:.3f} ms)")
+        del parts, d
+        torch.cuda.empty_cache()
+
+    # the schoolbook, half-bit twiddles and whole transforms at the shapes of
+    # the MPIR_FFT_NTT=0 plans: 3,162,277 (odd w, L 128), 2x10^7 (even w,
+    # L 512, the plan of the kernel phase above), 10^8 and 10^9 (the
+    # recursive mulmod, inner rings Lp 32 and 72)
+    with ntt_off():
+        splan = choose_params(ODD_SMALL_BITS, ODD_SMALL_BITS, sqrt2=True)
+        rplan = choose_params(REC_BITS, REC_BITS, sqrt2=True)
+        mplan = mulmod_plan(rplan.W)
+        hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
+        hmp = mulmod_plan(hplan.W)
+        assert choose_params(PLAN_BITS, PLAN_BITS, sqrt2=True) == plan
+    sL = splan.W // DIGIT_BITS
+    print(f"MPIR_FFT_NTT=0 plans: 3,162,277 {splan} L={sL}; 10^8 {rplan} "
+          f"L={rplan.W // DIGIT_BITS}; inner {mplan} m={mplan.m} Lp={mplan.Lp}; 10^9 {hplan} "
+          f"L={hplan.W // DIGIT_BITS}; inner {hmp} m={hmp.m} Lp={hmp.Lp}")
+    assert (splan.depth, splan.w, sL, splan.conv_len) == (11, 1, 128, 8192), splan
     assert (rplan.W // DIGIT_BITS, mplan.m, mplan.Lp, mplan.wp) == (3072, 256, 32, 4)
+    assert (hplan.depth, hplan.w, hplan.W // DIGIT_BITS, hmp.m, hmp.Lp) == (14, 4, 4096, 128, 72)
+    for shape in ((splan.conv_len, sL), (C, L), (rplan.conv_len * mplan.m, mplan.Lp)):
+        a = rand(shape, -(1 << 17), 1 << 17)
+        b = rand(shape, -(1 << 17), 1 << 17)
+        cL = shape[1]
+        err, _ = compare("conv_base", mulmod_base_fused(a, b), conv_base_plain(a, b))
+        ms = time_ms(lambda: mulmod_base_fused(a, b), 10, 2)
+        pms = time_ms(lambda: conv_base_plain(a, b), 2)
+        add_row("conv_base", "mpir_fft_tpu_torch/csrc/conv_base.cu",
+                "mpir_fft_tpu/ops/pointwise_fused.py:77", err, ms, pms, 12 * a.numel(),
+                4 * cL * cL * shape[0])
+        print(f"conv_base {shape}: equal after normmod; {ms:.3f} ms (plain {pms:.3f} ms)")
+        del a, b
     for shape, e0, step in (((rplan.conv_len, mplan.m, mplan.Lp), 0, mplan.wp),
                             ((64, 128, 256), 3, 1), ((64, 64, 71), 0, 5)):
         h, tL = shape[-2], shape[-1]
@@ -362,12 +486,6 @@ def main() -> int:
         print(f"twiddle_half {shape} e0={e0} step={step}: raw digits identical: {same}; "
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
         del x, e2
-
-    # whole transforms of the recursive mulmod's inner rows (10^8, 10^9)
-    hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
-    hmp = mulmod_plan(hplan.W)
-    print(f"plan 10^9: {hplan} L={hplan.W // DIGIT_BITS}; inner {hmp} m={hmp.m} Lp={hmp.Lp}")
-    assert (hplan.W // DIGIT_BITS, hmp.m, hmp.Lp) == (4096, 128, 72)
     for B, mp in ((rplan.conv_len, mplan), (hplan.conv_len, hmp)):
         shape = (B, mp.m, mp.Lp)
         D = mp.m.bit_length() - 1
@@ -381,8 +499,7 @@ def main() -> int:
             pms = time_ms(lambda: transform_plain(kind, x, mp.wp, mp.Wp), 1, 0)
             torch.cuda.empty_cache()
             add_row("transform_small", "mpir_fft_tpu_torch/csrc/transform_small.cu",
-                    "mpir_fft_tpu/ops/fused.py:171", err, ms, pms, 8 * x.numel(),
-                    D * x.numel())
+                    "mpir_fft_tpu/ops/fused.py:171", err, ms, pms, 8 * x.numel(), D * x.numel())
             print(f"transform_small {kind} {shape} w={mp.wp} (groups of "
                   f"{ladder_stages(mp.Lp)}): raw digits identical: {same}; "
                   f"{ms:.3f} ms (plain {pms:.3f} ms)")
@@ -402,9 +519,12 @@ def main() -> int:
     def on_card(v, bits):
         return torch.from_numpy(digits_from_int(v, cdiv(bits, DIGIT_BITS))).to(dev)
 
-    def counted(label, expect, fn):
+    peaks = {}
+
+    def counted(label, expect, fn, forbid=()):
         """Run fn() with the counters reset; check every expected kernel
-        launched, print the launches and the peak memory."""
+        launched and no forbidden one did, print the launches and the peak
+        memory."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -415,62 +535,81 @@ def main() -> int:
         got = dict(kernels.LAUNCHES)
         for name, n in got.items():
             launches_total[name] += n
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = peaks[label] = torch.cuda.max_memory_allocated() / 2**30
         print(f"{label}: launches {json.dumps({k: n for k, n in got.items() if n})}; "
               f"host clock {dt:.1f} ms (incl. checks); peak memory {peak:.2f} GiB")
         for name in expect:
             assert got[name] > 0, f"{label}: kernel {name} was not launched"
+        for name in forbid:
+            assert got[name] == 0, f"{label}: kernel {name} was launched"
         return out
 
+    ntt = ("input_planes", "mid_planes", "garner_carry", "int8_gemm")
+    even_ntt = ("ladder", "normmod", "canonicalize") + ntt
+    odd_ntt = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt
     even = ("ladder", "conv_base", "normmod", "canonicalize")
     odd = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "conv_base", "canonicalize")
     rec = ("ladder", "twiddle_half", "transform_small", "conv_base", "normmod", "canonicalize")
-    rec_flat = ("ladder", "twiddle_half", "conv_base", "normmod", "canonicalize")
+    rec_flat_ntt = ("ladder", "twiddle_half", "normmod", "canonicalize") + ntt
+    no_school = ("conv_base",)
 
     def residues_agree(prod, x, y, ps):
         return all(prod % p == (x % p) * (y % p) % p for p in ps)
 
-    def drive(bits, label, expect, full, do_sqr, ps, reps):
+    def drive(bits, label, want_plan, expect, full, ps, reps, forbid=()):
         tplan = choose_params(bits, bits, sqrt2=True)
-        inner = mulmod_plan(tplan.W) if tplan.W // DIGIT_BITS > 2048 else None
-        print(f"{label} plan: {tplan} L={tplan.W // DIGIT_BITS} conv={tplan.conv_len}"
+        L = tplan.W // DIGIT_BITS
+        inner = None if leaf_serves(L) else mulmod_plan(tplan.W)
+        print(f"{label} plan: {tplan} L={L} conv={tplan.conv_len}"
               + (f"; inner {inner}" if inner else ""))
+        assert (tplan.depth, tplan.w, L) == want_plan, (label, tplan)
         x, y = operand(bits), operand(bits)
 
         def run():
             pr = mul(x, y)
             assert (pr == x * y) if full else residues_agree(pr, x, y, ps), f"mul {label}"
             assert pr.bit_length() in (2 * bits - 1, 2 * bits)
-            if do_sqr:
-                sq = sqr(x)
-                assert (sq == x * x) if full else residues_agree(sq, x, x, ps), f"sqr {label}"
+            sq = sqr(x)
+            assert (sq == x * x) if full else residues_agree(sq, x, x, ps), f"sqr {label}"
 
-        counted(f"mul{'/sqr' if do_sqr else ''} {label}", expect, run)
-        print(f"mul{'/sqr' if do_sqr else ''} {label}: exact "
+        counted(f"mul/sqr {label}", expect, run, forbid)
+        print(f"mul/sqr {label}: exact "
               f"({'full compare' if full else f'residues mod {len(ps)} 61-bit primes'})")
         dx, dy = on_card(x, bits), on_card(y, bits)
         e2e[f"mul_{label}_ms"] = wall_ms(lambda: mul(x, y), reps)
         e2e[f"mul_{label}_device_ms"] = time_ms(lambda: mpn_mul_flagship(dx, dy, tplan), reps,
                                                 1 if reps > 1 else 0)
-        if do_sqr:
-            e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
-            e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps)
+        e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
+        e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps,
+                                                1 if reps > 1 else 0)
         print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
 
-    drive(SMALL_BITS, "2e6", even, True, True, primes, 5)
-    drive(PLAN_BITS, "2e7", even, False, True, primes, 3)
-    drive(ODD_SMALL_BITS, "3162277", odd, True, True, primes, 5)
-    drive(ODD_BITS, "1e7", odd, False, True, primes, 3)
-    drive(REC_BITS, "1e8", rec, False, False, primes, 3)
-    drive(HUGE_BITS, "1e9", rec, False, False, primes[:2], 1)
+    # the default plans: the dense NTT-CRT pointwise at every size
+    drive(SMALL_BITS, "2e6", (9, 8, 256), even_ntt, True, primes, 5, no_school)
+    drive(ODD_BITS, "1e7", (12, 1, 256), odd_ntt, False, primes, 3, no_school)
+    drive(PLAN_BITS, "2e7", (12, 2, 512), even_ntt, False, primes, 3, no_school)
+    drive(REC_BITS, "1e8", (13, 2, 1024), even_ntt, False, primes, 3, no_school)
+    drive(HUGE_BITS, "1e9", (15, 1, 2048), odd_ntt, False, primes[:2], 1, no_school)
+    e2e["peak_memory_1e9_gib"] = peaks["mul/sqr 1e9"]
+    # MPIR_FFT_NTT=0: the A/B plans, the schoolbook (even and odd w) and the
+    # recursive mulmod (inner Lp 32 at 10^8; at 10^9 an L 4096 ring, the
+    # width the default plans also recurse on above ~1.05x10^9 bits)
+    with ntt_off():
+        drive(SMALL_BITS, "2e6_ntt0", (10, 2, 128), even, True, primes, 5, ntt)
+        drive(ODD_SMALL_BITS, "3162277_ntt0", (11, 1, 128), odd, True, primes, 5, ntt)
+        drive(ODD_BITS, "1e7_ntt0", (12, 1, 256), odd, False, primes, 3, ntt)
+        drive(PLAN_BITS, "2e7_ntt0", (12, 2, 512), even, False, primes, 3, ntt)
+        drive(REC_BITS, "1e8_ntt0", (11, 24, 3072), rec, False, primes, 3, ntt)
+        drive(HUGE_BITS, "1e9_ntt0", (14, 4, 4096), rec, False, primes[:2], 1, ntt)
+    e2e["peak_memory_1e9_ntt0_gib"] = peaks["mul/sqr 1e9_ntt0"]
 
     for n_bits in MULMOD_N:
         mp = mulmod_plan(n_bits)
         print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: {mp} m={mp.m} Lp={mp.Lp}")
         p_n = (1 << n_bits) + 1
         x, y = rnd.randrange(p_n), rnd.randrange(p_n)
-        got = counted(f"mulmod_int 2^{n_bits.bit_length() - 1}", rec_flat,
-                      lambda: mulmod_int(x, y, n_bits))
+        got = counted(f"mulmod_int 2^{n_bits.bit_length() - 1}", rec_flat_ntt,
+                      lambda: mulmod_int(x, y, n_bits), no_school)
         want = mod_fermat(x * y if n_bits == MULMOD_N[0] else mul(x, y), n_bits)
         assert got == want, f"mulmod_int at N = {n_bits}"
         print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: exact (against "
@@ -491,11 +630,11 @@ def main() -> int:
     # -- 5. report ------------------------------------------------------------
     table = []
     for r in rows.values():
-        bms, by = bound(r["nbytes"], r["ops"])
+        bms, by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
         table.append(dict(name=r["name"], route=r["route"], source=r["source"],
                           replaces=r["replaces"], launches=launches_total[r["name"]],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                          bound_ms=bms, bound_by=by, library_ms=None))
+                          bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
     assert {r["name"] for r in table} == set(kernels.LAUNCHES)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

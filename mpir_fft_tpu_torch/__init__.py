@@ -7,13 +7,17 @@ module has one counterpart under the same name there, which is the
 reference the port is tested against.  Plain functions on int32 tensors
 with an explicit device; the hand-written Hopper kernels live in `csrc/`,
 are built by `kernels/` at first use, and are launched by the wrappers in
-`ops/fused.py` and `ops/pointwise_fused.py`.
+`ops/fused.py`, `ops/pointwise_fused.py` and `ops/ntt.py`.  The NTT's int8
+GEMMs are torch._int_mm.
 
 What the port serves today: `models.mul.mul` / `sqr` for every plan the
-planner picks (odd and even `w`; the schoolbook pointwise where 2L <= 4096,
-the recursive Fermat mulmod above), through full-length transforms, and
-`mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet:
-the NTT-CRT leaf, truncation, the MFA and the staged/out-of-core drivers.
+planner picks -- the reference's default plans, or with MPIR_FFT_NTT=0 its
+A/B plans -- (odd and even `w`; the dense NTT-CRT pointwise for
+power-of-two L <= 2048, the schoolbook for other L <= 2048, the recursive
+Fermat mulmod above), through full-length transforms, and `mulmod_int`,
+the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet: the NTT's
+4-step tier 2 (L in (2048, 8192], recursing instead), truncation, the MFA
+and the staged/out-of-core drivers.
 
     from mpir_fft_tpu_torch.models.mul import mul
     mul(a, b)                      # exact product, on "cuda" by default
@@ -25,4 +29,4 @@ the NTT-CRT leaf, truncation, the MFA and the staged/out-of-core drivers.
 from mpir_fft_tpu_torch.ops.mulmod import mulmod_int
 
 __all__ = ["mulmod_int"]
-__version__ = "0.2.0"
+__version__ = "0.3.0"

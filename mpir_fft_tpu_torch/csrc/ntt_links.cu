@@ -1,0 +1,238 @@
+// Link kernels of the dense small-prime NTT-CRT pointwise product mod
+// 2^(16M)+1 (ops/ntt.py mulmod_ntt): the elementwise chains between its
+// int8 GEMMs, each one pass over device memory.
+//
+// Replaces: mpir_fft_tpu/ops/ntt.py
+//   input_planes  <- _input_planes (ntt.py:698, pallas_call :719)
+//   mid_planes    <- _mid_planes   (ntt.py:730, pallas_call :749)
+//   garner_carry  <- _garner_carry (ntt.py:465, pallas_call :527), raw_k = 2
+// Plain versions: ops/ntt.py input_planes_plain, mid_planes_plain,
+// garner_carry_plain -- the same integer sequences, so the outputs agree
+// digit for digit (and input_planes / mid_planes bit for bit with the
+// reference's kernels: their outputs are functions of exact residues).
+//
+// Tier 1 only: the primes 12289, 40961, 61441 (== 1 mod 4096, M <= 2048),
+// two signed-int8 planes per value, lo at column i and hi at column M + i.
+// Each kernel is templated on its prime(s), so every `%` is by a
+// compile-time constant (a multiply-high, no division).
+//
+// What bounds them on an H100: device memory.  Per digit, input_planes
+// reads 4 bytes and writes 3 x 2; mid_planes reads 2 x 8 and writes 2;
+// garner_carry reads 3 x 8 and writes 4.  Design: input_planes and
+// mid_planes take four digits per thread (16-byte loads, 4-byte stores of
+// four int8 planes), a grid-stride loop over all rows; garner_carry is
+// row-local (digit i takes pieces of coefficients i, i-1, i-2, then a carry
+// from digit i-1), so one CTA per row keeps the row's coefficients in
+// shared memory (M <= 2048: 16 KB as int64, 8 KB of digit sums).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kP1 = 12289, kP2 = 40961, kP3 = 61441;
+constexpr int kMaxM = 2048;
+// Garner constants: p1^-1 mod p2, p1^-1 mod p3, p2^-1 mod p3, p1 p2
+constexpr unsigned kInv12 = 5853, kInv13 = 46082, kInv23 = 3;
+constexpr long long kQ = static_cast<long long>(kP1) * kP2;
+static_assert(static_cast<long long>(kP1) * kInv12 % kP2 == 1, "inv12");
+static_assert(static_cast<long long>(kP1) * kInv13 % kP3 == 1, "inv13");
+static_assert(static_cast<long long>(kP2) * kInv23 % kP3 == 1, "inv23");
+
+constexpr int kThreads = 256;
+
+// v mod P in [0, P) (C's % truncates toward zero)
+template <int P>
+__device__ __forceinline__ int mod_nonneg(int v) {
+  const int r = v % P;
+  return r < 0 ? r + P : r;
+}
+
+// the centered representative of v mod P, in [-(P-1)/2, (P-1)/2]
+template <int P>
+__device__ __forceinline__ int mod_center(int v) {
+  const int r = mod_nonneg<P>(v);
+  return r > P / 2 ? r - P : r;
+}
+
+// raw plane sums (S0, S1), |S_j| <= 2^26 -> S0 + 256 S1 mod P in [0, P);
+// S1 is reduced first so the sum stays int32-exact
+template <int P>
+__device__ __forceinline__ int fold(int s0, int s1) {
+  return mod_nonneg<P>(s0 + (mod_nonneg<P>(s1) << 8));
+}
+
+// the balanced int8 planes of a centered residue rc: rc = lo + 256 hi
+__device__ __forceinline__ signed char plane_lo(int rc) {
+  return static_cast<signed char>(((rc + 128) & 255) - 128);
+}
+__device__ __forceinline__ signed char plane_hi(int rc) {
+  return static_cast<signed char>((rc - (((rc + 128) & 255) - 128)) >> 8);
+}
+
+// four centered residues -> their lo planes at lo[0..3], hi planes at hi[0..3]
+__device__ __forceinline__ void store_planes4(const int (&rc)[4], signed char* lo,
+                                              signed char* hi) {
+  char4 l, h;
+  l.x = plane_lo(rc[0]); l.y = plane_lo(rc[1]); l.z = plane_lo(rc[2]); l.w = plane_lo(rc[3]);
+  h.x = plane_hi(rc[0]); h.y = plane_hi(rc[1]); h.z = plane_hi(rc[2]); h.w = plane_hi(rc[3]);
+  *reinterpret_cast<char4*>(lo) = l;
+  *reinterpret_cast<char4*>(hi) = h;
+}
+
+template <int P>
+__device__ __forceinline__ void planes_of(const int (&v)[4], signed char* lo, signed char* hi) {
+  const int rc[4] = {mod_center<P>(v[0]), mod_center<P>(v[1]), mod_center<P>(v[2]),
+                     mod_center<P>(v[3])};
+  store_planes4(rc, lo, hi);
+}
+
+// x (B, M) int32 digits -> out (3, B, 2M) int8: the balanced carry pass
+// (m_j = (x_j + 2^15) >> 16; xb_i = x_i - 2^16 m_i + m_(i-1), the top
+// carry wrapping negated into digit 0), then per prime the planes of the
+// centered residue of xb.
+__global__ void __launch_bounds__(kThreads)
+input_planes_kernel(const int* __restrict__ x, signed char* __restrict__ out, long long B,
+                    int M) {
+  const int per_row = M / 4;
+  const long long groups = B * per_row;
+  const long long slab = B * 2LL * M;
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; g < groups;
+       g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = g / per_row;
+    const int i0 = static_cast<int>(g - row * per_row) * 4;
+    const int* xr = x + row * M;
+    const int4 v4 = *reinterpret_cast<const int4*>(xr + i0);
+    const int v[4] = {v4.x, v4.y, v4.z, v4.w};
+    int m_prev = (xr[i0 == 0 ? M - 1 : i0 - 1] + (1 << 15)) >> mf::DIGIT_BITS;
+    if (i0 == 0) m_prev = -m_prev;
+    int xb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = (v[j] + (1 << 15)) >> mf::DIGIT_BITS;
+      xb[j] = v[j] - mf::shl(m, mf::DIGIT_BITS) + m_prev;
+      m_prev = m;
+    }
+    signed char* o = out + row * 2LL * M + i0;
+    planes_of<kP1>(xb, o, o + M);
+    planes_of<kP2>(xb, o + slab, o + slab + M);
+    planes_of<kP3>(xb, o + 2 * slab, o + 2 * slab + M);
+  }
+}
+
+// sa, sb (B, 2M) int32 raw forward sums -> out (B, 2M) int8: both folded
+// and centered, multiplied mod P, the product's planes.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+mid_planes_kernel(const int* __restrict__ sa, const int* __restrict__ sb,
+                  signed char* __restrict__ out, long long B, int M) {
+  const int per_row = M / 4;
+  const long long groups = B * per_row;
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; g < groups;
+       g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = g / per_row;
+    const long long at = row * 2LL * M + static_cast<int>(g - row * per_row) * 4;
+    const int4 a0 = *reinterpret_cast<const int4*>(sa + at);
+    const int4 a1 = *reinterpret_cast<const int4*>(sa + at + M);
+    const int4 b0 = *reinterpret_cast<const int4*>(sb + at);
+    const int4 b1 = *reinterpret_cast<const int4*>(sb + at + M);
+    const int fa[4] = {fold<P>(a0.x, a1.x), fold<P>(a0.y, a1.y), fold<P>(a0.z, a1.z),
+                       fold<P>(a0.w, a1.w)};
+    const int fb[4] = {fold<P>(b0.x, b1.x), fold<P>(b0.y, b1.y), fold<P>(b0.z, b1.z),
+                       fold<P>(b0.w, b1.w)};
+    int prod[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)   // centered factors: |product| < 2^30
+      prod[j] = (fa[j] > P / 2 ? fa[j] - P : fa[j]) * (fb[j] > P / 2 ? fb[j] - P : fb[j]);
+    planes_of<P>(prod, out + at, out + at + M);
+  }
+}
+
+// s1, s2, s3 (B, 2M) int32 raw inverse sums of the three primes -> out
+// (B, M) int32 bounded redundant digits.  Per coefficient: the residues
+// r_j in [0, p_j), Garner's c = v1 + p1 v2 + p1 p2 v3 (v3 centered, so
+// |c| < P/2 < 2^44); digit sums s_i = c_i mod 2^16 + (c_(i-1) >> 16 mod
+// 2^16) + (c_(i-2) >> 32), pieces past the top wrapping negated; then one
+// carry pass.  One CTA per row.
+__global__ void __launch_bounds__(kThreads)
+garner_carry_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
+                    const int* __restrict__ s3, int* __restrict__ out, int M) {
+  extern __shared__ long long c[];                   // M coefficients
+  int* s = reinterpret_cast<int*>(c + M);            // M digit sums
+  const long long row = blockIdx.x;
+  const int* r1p = s1 + row * 2LL * M;
+  const int* r2p = s2 + row * 2LL * M;
+  const int* r3p = s3 + row * 2LL * M;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    const int v1 = fold<kP1>(r1p[i], r1p[M + i]);
+    const int r2 = fold<kP2>(r2p[i], r2p[M + i]);
+    const int r3 = fold<kP3>(r3p[i], r3p[M + i]);
+    const unsigned v2 = static_cast<unsigned>(mod_nonneg<kP2>(r2 - v1)) * kInv12 % kP2;
+    const unsigned t = static_cast<unsigned>(mod_nonneg<kP3>(r3 - v1)) * kInv13 % kP3;
+    int v3 = static_cast<int>(
+        static_cast<unsigned>(mod_nonneg<kP3>(static_cast<int>(t) - static_cast<int>(v2))) *
+        kInv23 % kP3);
+    if (v3 > kP3 / 2) v3 -= kP3;
+    c[i] = v1 + static_cast<long long>(kP1) * v2 + kQ * v3;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    int c1 = static_cast<int>((c[i == 0 ? M - 1 : i - 1] >> 16) & 0xFFFF);
+    if (i < 1) c1 = -c1;
+    int c2 = static_cast<int>(c[i >= 2 ? i - 2 : M - 2 + i] >> 32);
+    if (i < 2) c2 = -c2;
+    s[i] = static_cast<int>(c[i] & 0xFFFF) + c1 + c2;
+  }
+  __syncthreads();
+  int* outr = out + row * M;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) outr[i] = mf::carry_digit(s, i, M);
+}
+
+bool bad_m(int M) { return M < 4 || M > kMaxM || (M & (M - 1)) != 0; }
+
+unsigned stream_blocks(long long groups) {
+  const long long b = (groups + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(b < (1LL << 20) ? b : (1LL << 20));
+}
+
+}  // namespace
+
+// x (B, M) int32, out (3, B, 2M) int8; rows 16-byte aligned.
+MF_EXPORT int mf_input_planes(const void* x, void* out, long long B, int M, void* stream) {
+  if (bad_m(M) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  input_planes_kernel<<<stream_blocks(B * (M / 4)), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), static_cast<signed char*>(out), B, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sa, sb (B, 2M) int32, out (B, 2M) int8; prime: index 0..2 into the
+// tier-1 primes.
+MF_EXPORT int mf_mid_planes(const void* sa, const void* sb, void* out, long long B, int M,
+                            int prime, void* stream) {
+  if (bad_m(M) || B < 0 || prime < 0 || prime > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const unsigned blocks = stream_blocks(B * (M / 4));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int* a = static_cast<const int*>(sa);
+  const int* b = static_cast<const int*>(sb);
+  signed char* o = static_cast<signed char*>(out);
+  if (prime == 0) mid_planes_kernel<kP1><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
+  else if (prime == 1) mid_planes_kernel<kP2><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
+  else mid_planes_kernel<kP3><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s1, s2, s3 (B, 2M) int32 (primes 12289, 40961, 61441 in that order),
+// out (B, M) int32.
+MF_EXPORT int mf_garner_carry(const void* s1, const void* s2, const void* s3, void* out,
+                              long long B, int M, void* stream) {
+  if (bad_m(M) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int));
+  garner_carry_kernel<<<static_cast<unsigned>(B), mf::row_threads(M, kThreads), smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(s1), static_cast<const int*>(s2), static_cast<const int*>(s3),
+      static_cast<int*>(out), M);
+  return static_cast<int>(cudaGetLastError());
+}

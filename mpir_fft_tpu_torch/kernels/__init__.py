@@ -13,7 +13,8 @@ code.  Nothing here falls back to the plain torch versions: those are taken
 by the wrappers only for CPU tensors.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it (a plain
-integer each, bumped by the wrapper right after a successful launch)."""
+integer each, bumped by the wrapper right after a successful launch), and
+the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm"."""
 
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ LIB_STEM = "libmpir_fft_kernels"
 LAUNCHES = {
     "ladder": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
+    "input_planes": 0, "mid_planes": 0, "garner_carry": 0,
+    "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
 
 
@@ -130,6 +133,12 @@ _SIGNATURES = {
     "mf_sqrt2_top_inv": (_P, _P, _LL, _LL, _I, _LL, _I, _P),
     # x, out, B, C, L, w, inverse, kmax, stream
     "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _P),
+    # x, out (3 primes' planes), B, M, stream
+    "mf_input_planes": (_P, _P, _LL, _I, _P),
+    # sa, sb, out, B, M, prime index, stream
+    "mf_mid_planes": (_P, _P, _P, _LL, _I, _I, _P),
+    # s1, s2, s3, out, B, M, stream
+    "mf_garner_carry": (_P, _P, _P, _P, _LL, _I, _P),
 }
 
 

@@ -7,14 +7,17 @@ inverse-transform with the divide-by-2^lg_conv + normalize tail, combine
 with carries.
 
 Every plan runs the full-length flat transform pair, odd w through the
-sqrt2 top layer; the pointwise takes the schoolbook base where it serves
-the ring and the recursive Fermat mulmod elsewhere (the 10^8..10^9-bit
-plans).  A full convolution is exact for every valid plan (`validate`
-requires j1 + j2 - 1 <= conv_len), so truncation and the MFA only save
-work; they are not ported yet, nor is the NTT leaf.  The staged driver
-(`_staged_flagship`, mpir_fft_tpu/models/mul.py:402) is not needed here:
-80 GB of device memory holds the 10^9-bit spectra unstaged (~2 GB
-stacked).
+sqrt2 top layer.  The pointwise (ops/mulmod.py mulmod) takes the dense
+small-prime NTT-CRT for power-of-two rings L <= 2048 -- the reference's
+default plans put every size from ~7.6x10^5 to ~10^9 bits there -- the
+schoolbook for other L <= 2048 (and for all of them under
+MPIR_FFT_NTT=0), and the recursive Fermat mulmod for wider rings.  A full
+convolution is exact for every valid plan (`validate` requires
+j1 + j2 - 1 <= conv_len), so truncation and the MFA only save work; they
+are not ported yet.  The staged driver (`_staged_flagship`,
+mpir_fft_tpu/models/mul.py:402) is not needed here: 80 GB of device memory
+holds the 10^9-bit spectra unstaged (16.6 GiB peak on an NVIDIA H100 80GB
+HBM3 at 700 W, chip_smoke.py).
 
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never

@@ -11,6 +11,9 @@ mpir_fft_tpu/ops/fused.py), each beside its plain torch version.
 | fused_sqrt2_top_fwd        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_fwd              |
 | fused_sqrt2_top_inv        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_inv              |
 
+The NTT's link kernels (csrc/ntt_links.cu) are wrapped in ops/ntt.py, beside
+the integer helpers their plain versions are built from.
+
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
 it launches its kernel or raises.  The plain versions compute exactly what
 the kernels compute (same integer sequence, so equal digits), and are what
@@ -75,9 +78,10 @@ def ladder_groups(C: int, L: int, kind: str) -> list[tuple[int, int]]:
     return groups
 
 
-def _require(x: torch.Tensor, what: str, ndim: int | None = None) -> None:
-    if x.dtype != torch.int32:
-        raise TypeError(f"{what}: int32 digits required, got {x.dtype}")
+def _require(x: torch.Tensor, what: str, ndim: int | None = None,
+             dtype: torch.dtype = torch.int32) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: {dtype} input required, got {x.dtype}")
     if ndim is not None and x.ndim != ndim:
         raise ValueError(f"{what}: {ndim}-D input required, got shape {tuple(x.shape)}")
     if not x.is_contiguous():

@@ -7,8 +7,9 @@ coefficients of b = N/m bits; the product mod 2^N+1 is the NEGACYCLIC
 convolution of the coefficient sequences (2^(mb) == 2^N == -1), computed by
 weighted FFTs over an inner ring W' >= 2b + depth + 6 (ops/negacyclic.py).
 The pointwise products mod 2^W'+1 recurse through mulmod(), so the
-flagship's pointwise on rings the schoolbook cannot serve (2L > 4096, the
-10^8..10^9-bit plans) runs this path once over the whole coefficient batch.
+flagship's pointwise on rings the base leaf does not serve (L > 2048,
+pointwise.leaf_serves) runs this path once over the whole coefficient
+batch.
 
 Signs: negacyclic coefficients are signed.  The inner ring keeps headroom
 (|c_j| < 2^(2b+depth+5) < p'/2), so a residue v_j lifts directly:
@@ -28,25 +29,14 @@ import torch
 
 from .limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod, normmod_div, shift_mod
 from .negacyclic import fft_negacyclic, ifft_negacyclic
-from .pointwise import base_serves, mulmod_base
+from .ntt import ntt_supported
+from .pointwise import _ref_base_serves, leaf_serves, mulmod_base
 from .split import fft_combine_bits, fft_split_bits
 
 # crossover in ring bits below which the direct base multiply beats a
 # recursion level (the reference package's value; its role matches the
 # reference's limbs < 250 delegation, mul_fft.c:3135-3139)
 MULMOD_BASE_MAX_BITS = 131072
-
-# the reference's NTT transform-length ceiling (mpir_fft_tpu/ops/ntt.py
-# NTT_MAX_M); mulmod_plan's pricing reads it through _ntt_supported
-NTT_MAX_M = 8192
-
-
-def _ntt_supported(M: int) -> bool:
-    """Copy of the reference's ntt_supported (ntt.py:102-103): a pure
-    function of M, part of mulmod_plan's pricing whether or not an NTT leaf
-    runs, so the port's plans equal the reference's."""
-    return 4 <= M <= NTT_MAX_M and (M & (M - 1)) == 0
-
 
 @dataclasses.dataclass(frozen=True)
 class MulmodPlan:
@@ -95,9 +85,9 @@ def mulmod_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
         plan = MulmodPlan(N, d, b, Wp, Wp // npp)
         Lp = plan.Lp
         fft_cost = 3 * m * Lp * (d + 1) * 3
-        if Wp <= MULMOD_BASE_MAX_BITS and base_serves(Lp):
+        if Wp <= MULMOD_BASE_MAX_BITS and _ref_base_serves(Lp):
             pw_cost = m * (2 * Lp) ** 2 // 8
-            if _ntt_supported(Lp):
+            if ntt_supported(Lp):
                 pw_cost //= 10
         else:
             # another recursion level: a whole extra pipeline
@@ -203,18 +193,19 @@ def mulmod_fft(x: torch.Tensor, y: torch.Tensor, plan: MulmodPlan) -> torch.Tens
 def mulmod(x: torch.Tensor, y: torch.Tensor, N: int, depth: int | None = None,
            canonical: bool = False) -> torch.Tensor:
     """(x * y) mod 2^N+1 with automatic algorithm choice (ref
-    fft_mulmod_2expp1, mul_fft.c:3125-3167): the schoolbook base below the
-    crossover on rings it serves, the recursive negacyclic FFT otherwise.
-    Batched over leading dims of the [..., N/16] digit vectors.
+    fft_mulmod_2expp1, mul_fft.c:3125-3167): the base leaf (dense NTT-CRT
+    or schoolbook, ops/pointwise.py) for L <= 2048 digits, the recursive
+    negacyclic FFT above.  The reference's base also serves the
+    power-of-two L in (2048, 8192] with its 4-step NTT tier, which is not
+    ported: those rings recurse here, to the same values.  Batched over
+    leading dims of the [..., N/16] digit vectors.
 
     Inputs may be redundant (|digit| <= ~2^17) or canonical; with
     canonical=False the base path returns bounded redundant digits (the
     recursive path always returns canonical digits)."""
     L = N // DIGIT_BITS
     assert x.shape[-1] == y.shape[-1] == L
-    plan = None
-    if N > MULMOD_BASE_MAX_BITS or not base_serves(L):
-        plan = mulmod_plan(N, depth)
+    plan = None if leaf_serves(L) else mulmod_plan(N, depth)
     if plan is None:
         return mulmod_base(x, y, canonical=canonical)
     return mulmod_fft(x, y, plan)

@@ -16,7 +16,7 @@ import torch
 
 from .. import kernels
 from .fused import _require
-from .pointwise import base_serves, conv_base_plain
+from .pointwise import SCHOOLBOOK_MAX_CHUNKS, conv_base_plain
 
 
 def mulmod_base_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,7 +29,7 @@ def mulmod_base_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv_base: operands differ: {tuple(a.shape)} on {a.device} "
                          f"vs {tuple(b.shape)} on {b.device}")
     B, L = a.shape
-    if not base_serves(L):
+    if 2 * L > SCHOOLBOOK_MAX_CHUNKS:
         raise ValueError(f"conv_base: L={L} exceeds the int32 accumulation bound")
     if a.device.type == "cpu":
         return conv_base_plain(a, b)

@@ -7,10 +7,9 @@ width W = n*w bits, each input coefficient may hold
 bits so that accumulated pointwise sums never overflow mod p.  Plain plans
 use m = 2n; sqrt2 plans use m = 4n (the sqrt2 trick).
 
-The one difference from the reference: `plan_cost` prices the pointwise as
-the schoolbook leaf, because the NTT leaf is not ported
-(ops/pointwise.NTT_AVAILABLE).  That is the reference's own pricing under
-MPIR_FFT_NTT=0, so the plans are the reference's plans there."""
+`plan_cost` is the reference's, tier-2 NTT factor included, and reads
+MPIR_FFT_NTT at call time as the reference does, so the plans equal the
+reference's with the variable unset (its default plans) and with it 0."""
 
 from __future__ import annotations
 
@@ -19,7 +18,8 @@ import math
 
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS
 from mpir_fft_tpu_torch.ops.mulmod import MULMOD_BASE_MAX_BITS
-from mpir_fft_tpu_torch.ops.pointwise import base_serves
+from mpir_fft_tpu_torch.ops.ntt import TIER1_MAX_M, ntt_supported
+from mpir_fft_tpu_torch.ops.pointwise import _use_ntt
 
 
 def cdiv(a: int, b: int) -> int:
@@ -105,14 +105,17 @@ def plan_for_depth(bits_a: int, bits_b: int, depth: int, sqrt2: bool = False) ->
 
 
 def plan_cost(plan: MulPlan) -> float:
-    """Rough work model: transform passes + pointwise.  The pointwise is
-    priced as the schoolbook where the base serves the ring, else as the
-    recursive Fermat mulmod (the reference's constants)."""
+    """Rough work model: transform passes + pointwise (copied from the
+    reference, params.py:136-170).  The pointwise unit cost depends on the
+    path that serves the ring: the NTT-CRT (0.1 dense tier, 0.45 its 4-step
+    tier 2), the schoolbook (1.0), the recursive Fermat mulmod (0.3)."""
     L = plan.W // DIGIT_BITS
     t = plan.trunc
     fft_cost = 3 * t * L * plan.lg_conv * 3
     pw_unit = t * (2 * L) ** 2 // 8
-    if plan.W <= MULMOD_BASE_MAX_BITS and base_serves(L):
+    if plan.W <= MULMOD_BASE_MAX_BITS and ntt_supported(L) and _use_ntt():
+        pw_cost = pw_unit * (0.1 if L <= TIER1_MAX_M else 0.45)
+    elif plan.W <= MULMOD_BASE_MAX_BITS and 2 * L <= 4096:
         pw_cost = pw_unit * 1.0          # schoolbook
     else:
         pw_cost = pw_unit * 0.3          # recursive Fermat mulmod

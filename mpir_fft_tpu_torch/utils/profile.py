@@ -8,8 +8,9 @@ default 10^7, 10^8 and 10^9):
   * the plan (and the inner mulmod plan where the pointwise recurses);
   * the flagship's device time, digits on the card (CUDA events, median);
   * a torch.profiler window over R mpn_mul_flagship calls after a warm-up:
-    device time per call by kernel (the port's kernels by name, PyTorch's
-    own ops -- split, stack, combine, the sign lift -- as "torch ops"), and
+    device time per call by kernel (the port's kernels by name, the NTT's
+    int8 GEMMs as "int8_gemm", PyTorch's other ops -- split, stack,
+    combine, the sign lift -- as "torch ops"), and
     the device's busy and idle share of the window;
   * the host-clock split of mul() into its steps: planner, digits_from_int
     of both operands, host-to-device copies, the synchronised flagship call
@@ -34,7 +35,7 @@ from mpir_fft_tpu_torch import kernels
 from mpir_fft_tpu_torch.models.mul import _select_plan, mpn_mul_flagship
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.mulmod import mulmod_plan
-from mpir_fft_tpu_torch.ops.pointwise import base_serves
+from mpir_fft_tpu_torch.ops.pointwise import leaf_serves
 from mpir_fft_tpu_torch.utils.params import cdiv
 
 SEED = 20261016
@@ -46,6 +47,10 @@ KERNEL_NAMES = (
     ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
     ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
+    ("input_planes_kernel", "input_planes"), ("mid_planes_kernel", "mid_planes"),
+    ("garner_carry_kernel", "garner_carry"),
+    # torch._int_mm's cuBLASLt kernels (the NTT's transform GEMMs)
+    ("gemm", "int8_gemm"), ("imma", "int8_gemm"),
 )
 
 
@@ -118,7 +123,7 @@ def profile_size(bits: int, reps: int) -> dict:
             by_kernel[k] = by_kernel.get(k, 0.0) + ev.device_time_total / 1e3 / reps
     busy = sum(by_kernel.values())
     W = plan.W
-    inner = mulmod_plan(W) if not base_serves(W // DIGIT_BITS) else None
+    inner = None if leaf_serves(W // DIGIT_BITS) else mulmod_plan(W)
     return {
         "bits": bits,
         "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,

@@ -34,9 +34,21 @@ from mpir_fft_tpu_torch.ops.fused import (
     twiddle_half_rows_plain,
 )
 from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.ntt import (
+    PRIMES,
+    _blocks,
+    _dot_raw,
+    garner_carry,
+    garner_carry_plain,
+    input_planes,
+    input_planes_plain,
+    mid_planes,
+    mid_planes_plain,
+    mulmod_ntt,
+)
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
-from mpir_fft_tpu_torch.utils.params import plan_for_depth
+from mpir_fft_tpu_torch.utils.params import choose_params, plan_for_depth
 
 pytestmark = pytest.mark.cuda
 
@@ -211,3 +223,67 @@ def test_mulmod_int_on_gpu(dev, N):
     assert mulmod_int(a, b, N, device=dev) == a * b % p
     for x, y in ((p - 1, p - 1), (p - 1, b), (0, b), ((1 << N) - 1, a)):
         assert mulmod_int(x, y, N, device=dev) == x * y % p
+
+
+@pytest.mark.parametrize("B", [17, 4096])
+@pytest.mark.parametrize("M", [4, 128, 2048])
+def test_ntt_links_match_plain(dev, B, M):
+    """input_planes, mid_planes and garner_carry against their plain
+    versions, each on the previous link's real output: identical."""
+    rng = np.random.default_rng(8)
+    x = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    y = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    pa = _launched("input_planes", lambda: input_planes(x))
+    pb = input_planes(y)
+    assert torch.equal(pa.cpu(), input_planes_plain(x.cpu()))
+    parts = []
+    for j, (p, F, G) in enumerate(_blocks(M, dev)):
+        sa, sb = _dot_raw(pa[j], F), _dot_raw(pb[j], F)
+        assert torch.equal(sa, (pa[j].double() @ F.double()).int())    # exact: sums < 2^27
+        pp = _launched("mid_planes", lambda: mid_planes(sa, sb, p))
+        assert torch.equal(pp.cpu(), mid_planes_plain(sa.cpu(), sb.cpu(), p))
+        parts.append(_dot_raw(pp, G))
+    d = _launched("garner_carry", lambda: garner_carry(*parts))
+    assert torch.equal(d.cpu(), garner_carry_plain(*(s.cpu() for s in parts)))
+    assert int(d.abs().max()) < (1 << 16) + (1 << 12)
+    if B == 17:
+        want = mulmod_ntt(x.cpu(), y.cpu(), canonical=True)
+        assert torch.equal(mulmod_ntt(x, y, canonical=True).cpu(), want)
+
+
+def test_mul_default_ntt_plan_on_gpu(dev):
+    """A default plan whose pointwise is the dense NTT: the three links and
+    the GEMMs launch, the schoolbook does not."""
+    bits = 120000
+    assert choose_params(bits, bits, sqrt2=True).W // 16 == 64
+    rnd = random.Random(bits)
+    a, b = rnd.getrandbits(bits) | (1 << (bits - 1)), rnd.getrandbits(bits)
+    kernels.reset_launches()
+    assert mul(a, b, device=dev) == a * b
+    assert sqr(a, device=dev) == a * a
+    got = dict(kernels.LAUNCHES)
+    for name in ("input_planes", "mid_planes", "garner_carry", "int8_gemm"):
+        assert got[name] > 0, name
+    assert got["conv_base"] == 0
+    assert got["int8_gemm"] == 9 + 6          # mul: 2 x 3 forward + 3 inverse; sqr: 3 + 3
+
+
+def test_ntt_wrappers_reject(dev):
+    x = torch.zeros((32, 64), dtype=torch.int32, device=dev)
+    s = torch.zeros((32, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        input_planes(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        input_planes(torch.zeros((32, 128), dtype=torch.int32, device=dev)[:, ::2])
+    with pytest.raises(ValueError):
+        input_planes(x.view(-1)[1:1 + 31 * 64].view(31, 64))     # rows not 16-byte aligned
+    with pytest.raises(TypeError):
+        mid_planes(s.to(torch.int8), s, PRIMES[0])
+    with pytest.raises(ValueError):
+        mid_planes(s, s[:, ::2].contiguous(), PRIMES[0])
+    with pytest.raises(ValueError):
+        mid_planes(s.t(), s.t(), PRIMES[0])
+    with pytest.raises(ValueError):
+        garner_carry(s, s, s[:16])
+    with pytest.raises(TypeError):
+        garner_carry(s, s.float(), s)

@@ -1,7 +1,8 @@
 """The port's drivers (models/mul.py) end to end on the CPU path: exact
 against Python ints, and digit for digit against the JAX flagship run with
-the same plan under MPIR_FFT_NTT=0 (the schoolbook leaf the port serves):
-even and odd w, and plans whose pointwise recurses (2L > 4096).
+the same plan under MPIR_FFT_NTT=0 (the schoolbook / recursive leaf; the
+default NTT plans are held in tests/test_torch_ntt.py): even and odd w,
+and plans whose pointwise recurses (2L > 4096).
 
 The JAX driver runs as mpn_mul_flagship under a fresh jax.jit, not through
 mul(): mul() consults the TPU tune cache, and its jit cache is keyed by

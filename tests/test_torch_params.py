@@ -1,8 +1,9 @@
 """The port's host-side copies (planner, digit conversion, oracles) and its
 interop helpers, pinned to their originals in the JAX package.
 
-The port has no NTT leaf (ops/pointwise.NTT_AVAILABLE is False), so its
-planner must give exactly the reference's plans under MPIR_FFT_NTT=0."""
+Both planners read MPIR_FFT_NTT at call time: the port's plans must equal
+the reference's with the variable unset (its default plans, NTT leaf) and
+with it 0 (the schoolbook / recursive pricing)."""
 
 import dataclasses
 
@@ -11,10 +12,11 @@ import pytest
 import torch
 
 from mpir_fft_tpu.ops import limb as jlimb
+from mpir_fft_tpu.ops import mulmod as jmm
 from mpir_fft_tpu.utils import oracle as joracle
 from mpir_fft_tpu.utils import params as jparams
 from mpir_fft_tpu_torch.ops import limb as tlimb
-from mpir_fft_tpu_torch.ops.pointwise import NTT_AVAILABLE
+from mpir_fft_tpu_torch.ops import mulmod as tmm
 from mpir_fft_tpu_torch.utils import oracle as toracle
 from mpir_fft_tpu_torch.utils import params as tparams
 from mpir_fft_tpu_torch.utils.interop import (
@@ -30,10 +32,14 @@ SIZES = [
 ]
 
 
-@pytest.fixture
-def ref_pricing(monkeypatch):
-    """The reference planner priced as the port's pointwise leaf."""
-    monkeypatch.setenv("MPIR_FFT_NTT", "1" if NTT_AVAILABLE else "0")
+@pytest.fixture(params=["default", "0"])
+def ref_pricing(request, monkeypatch):
+    """MPIR_FFT_NTT unset (the default plans) or 0, for both planners."""
+    if request.param == "default":
+        monkeypatch.delenv("MPIR_FFT_NTT", raising=False)
+    else:
+        monkeypatch.setenv("MPIR_FFT_NTT", request.param)
+    return request.param
 
 
 def _same_plan(tp, jp):
@@ -51,13 +57,41 @@ def test_choose_params_matches_reference(ref_pricing, bits_a, bits_b):
         assert tparams.plan_cost(tp) == jparams.plan_cost(jp)
 
 
+# (depth, w, L, conv) of the plans chip_smoke.py drives
+SLICE_PLANS = {
+    "default": {2_000_000: (9, 8, 256, 2048), 10_000_000: (12, 1, 256, 16384),
+                20_000_000: (12, 2, 512, 16384), 100_000_000: (13, 2, 1024, 32768),
+                1_000_000_000: (15, 1, 2048, 131072)},
+    "0": {3_162_277: (11, 1, 128, 8192), 100_000_000: (11, 24, 3072, 8192)},
+}
+
+
 def test_slice_plans(ref_pricing):
-    """The plans chip_smoke.py drives: even w, schoolbook-served, full length."""
-    for bits, (depth, w, L, conv) in {2_000_000: (10, 2, 128, 4096),
-                                      20_000_000: (12, 2, 512, 16384)}.items():
+    """The plans chip_smoke.py drives: the default plans (dense NTT leaf,
+    L <= 2048) and, under MPIR_FFT_NTT=0, odd-w schoolbook and recursive."""
+    for bits, (depth, w, L, conv) in SLICE_PLANS[ref_pricing].items():
         p = tparams.choose_params(bits, bits, sqrt2=True)
         assert (p.depth, p.w, p.W // 16, p.conv_len) == (depth, w, L, conv)
         assert p.j1 + p.j2 - 1 <= p.conv_len
+
+
+SWEEP = sorted({int(b) for b in np.logspace(5, np.log10(4e9), 60)})
+
+
+def test_plan_sweep_matches_reference(ref_pricing):
+    """~60 log-spaced sizes from 10^5 to 4x10^9 bits, balanced and 3:1."""
+    for bits in SWEEP:
+        for bits_b in (bits, bits // 3):
+            jp = jparams.choose_params(bits, bits_b, sqrt2=True)
+            tp = tparams.choose_params(bits, bits_b, sqrt2=True)
+            _same_plan(tp, jp)
+            assert tparams.plan_cost(tp) == jparams.plan_cost(jp)
+
+
+def test_mulmod_plan_sweep_matches_reference(ref_pricing):
+    for e in range(14, 28):
+        N = 1 << e
+        assert dataclasses.asdict(tmm.mulmod_plan(N)) == dataclasses.asdict(jmm.mulmod_plan(N))
 
 
 @pytest.mark.parametrize("depth", [3, 5, 8])

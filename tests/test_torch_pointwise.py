@@ -1,6 +1,7 @@
 """Pointwise leaf of the port (ops/pointwise.py, ops/pointwise_fused.py,
 ops/mulmod.py) against the JAX package under MPIR_FFT_NTT=0 -- the
-schoolbook leaf the port serves -- and Python-int oracles.
+schoolbook leaf; the NTT leaf is held in tests/test_torch_ntt.py -- and
+Python-int oracles.
 
 The conv's plain version is held against the reference's Pallas schoolbook
 kernel (mulmod_base_fused, interpret mode) after normmod.  Exact."""
@@ -77,7 +78,8 @@ def test_mulmod_base_matches_reference(ntt_off, rng, L):
 
 def test_base_serves_matches_reference(ntt_off):
     for L in (1, 64, 126, 2047, 2048, 2049, 4096):
-        assert tpw.base_serves(L) == jpw.base_serves(L)
+        assert tpw._ref_base_serves(L) == jpw.base_serves(L)
+        assert tpw.leaf_serves(L) == (L <= 2048)
 
 
 def test_mulmod_base_branch_and_limits(rng):
