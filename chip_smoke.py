@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the eleven kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the eighteen kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -28,7 +28,17 @@
        L % 4 != 0 row (L 71);
      transform_small, forward and inverse -- (8192, 256, 32) and
        (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits under
-       MPIR_FFT_NTT=0.
+       MPIR_FFT_NTT=0;
+     the 4-step tier (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise,
+       ntt4_inv_twiddle, ntt4_residues, garner_residues, and its GEMM) on
+       the 2x10^9-bit plan's whole pointwise batch (131072, 4096), each link
+       fed the previous one's real output, the plain versions compared
+       slice by slice (four slices of 32768 rows: they do not fit beside
+       the kernels' tensors whole); ntt4_fused at the mulmod_int 2^29
+       ring's batch (32768, 4096).  Then an A/B record on the same
+       (131072, 4096) operands: mulmod_ntt's 4-step tier against the
+       recursive mulmod_fft at mulmod_plan(65536), equal after normmod, both
+       timed.
    Canonical outputs must be equal; the NTT links' outputs identical;
    other redundant outputs equal after normmod (they come out identical
    digit for digit) and inside their bounds.  Each kernel's bound_ms is the
@@ -40,15 +50,17 @@
    and at the power-of-two plans conv_base must not have:
      mul/sqr at the default plans (dense NTT pointwise): 2x10^6 (full
        compare with Python's a*b), 10^7 (odd w), 2x10^7, 10^8 and 10^9
-       (odd w, unstaged; residues mod 61-bit primes);
+       (odd w, unstaged; residues mod 61-bit primes); 2x10^9 (depth 15,
+       w 2, L 4096: the 4-step tier, chunked; peak memory at most 32 GiB);
      under MPIR_FFT_NTT=0, its A/B plans, with no NTT kernel launched:
        2x10^6 and 2x10^7 (even-w schoolbook; 2x10^6 full compare),
        3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
        (the recursive Fermat mulmod: inner Lp 32, and at 10^9 L 4096
        rings with inner Lp 72);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
-       NTT), against Python's product folded mod 2^N+1 and against the
-       port's own mul, folded.
+       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier), against
+       Python's product folded mod 2^N+1 (2^22) or the port's own mul,
+       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused).
    For each: the plan, the launches, host-clock and CUDA-event times, and
    torch.cuda.max_memory_allocated().
 5. Prints the kernel table as one JSON line, the card's line again, and the
@@ -74,7 +86,10 @@ ODD_SMALL_BITS = 3_162_277
 ODD_BITS = 10_000_000
 REC_BITS = 100_000_000
 HUGE_BITS = 1_000_000_000
-MULMOD_N = (1 << 22, 1 << 24)
+T2_BITS = 2_000_000_000
+MULMOD_N = (1 << 22, 1 << 24, 1 << 29)
+MAX_PEAK_GIB_2E9 = 32.0
+SLICES = 4          # the plain 4-step links are held slice by slice
 
 # the least time the card could take (H100 SXM, NVIDIA data sheet and
 # Hopper white paper): HBM3 at 3.35 TB/s; 64 INT32 lanes per SM x 132 SMs x
@@ -109,6 +124,19 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), its device ms) for one run (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -211,12 +239,16 @@ def main() -> int:
         fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups, ladder_plain,
         ladder_stages, normmod_rows_plain, sqrt2_top_fwd_plain, sqrt2_top_inv_plain,
         transform_plain, twiddle_half_rows_plain)
-    from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int
-    from mpir_fft_tpu_torch.ops.mulmod import mulmod, mulmod_plan
+    from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
+    from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
-        _blocks, _dot_raw, garner_carry, garner_carry_plain, input_planes, input_planes_plain,
-        mid_planes, mid_planes_plain)
-    from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, leaf_serves
+        _blocks, _dot_raw, _ntt4_blocks, _ntt4_shape, garner_carry, garner_carry_plain,
+        garner_residues, garner_residues_plain, input_planes, input_planes_plain, mid_planes,
+        mid_planes_plain, mulmod_ntt, ntt4_fused, ntt4_fused_plain, ntt4_fwd_twiddle,
+        ntt4_fwd_twiddle_plain, ntt4_input_planes, ntt4_input_planes_plain, ntt4_inv_twiddle,
+        ntt4_inv_twiddle_plain, ntt4_pointwise, ntt4_pointwise_plain, ntt4_residues,
+        ntt4_residues_plain)
+    from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
 
@@ -505,6 +537,158 @@ def main() -> int:
                   f"{ms:.3f} ms (plain {pms:.3f} ms)")
         del x
     torch.cuda.empty_cache()
+
+    # the 4-step tier at the 2x10^9-bit plan's pointwise batch: each link on
+    # the previous one's real output (all three primes), the plain versions
+    # held slice by slice, the kernels timed on the whole batch
+    tplan = choose_params(T2_BITS, T2_BITS, sqrt2=True)
+    tB, tM = tplan.conv_len, tplan.W // DIGIT_BITS
+    m1, m2 = _ntt4_shape(tM)
+    print(f"plan 2x10^9: {tplan} L={tM} conv={tB}")
+    assert (tplan.depth, tplan.w, tM, tB) == (15, 2, 4096, 131072), tplan
+    step = tB // SLICES
+    BM = tB * tM
+
+    def by_slices(what, got, plain, cut=lambda t, b0, b1: t[b0:b1]):
+        """got (the kernel's output over tB b-rows) against plain(b0, b1) on
+        SLICES row slices: identical; returns the plain ms summed."""
+        total = 0.0
+        for b0 in range(0, tB, step):
+            want, ms = timed(lambda: plain(b0, b0 + step))
+            identical((what, b0), cut(got, b0, b0 + step), want)
+            total += ms
+            del want
+        return total
+
+    src4 = "mpir_fft_tpu_torch/csrc/ntt4.cu"
+    x = rand((tB, tM), -(1 << 17), 1 << 17)
+    y = rand((tB, tM), -(1 << 17), 1 << 17)
+    pa = ntt4_input_planes(x)
+    pms = by_slices("ntt4_input_planes", pa, lambda b0, b1: ntt4_input_planes_plain(x[b0:b1]),
+                    lambda t, b0, b1: t[:, b0 * m2:b1 * m2])
+    ms = time_ms(lambda: ntt4_input_planes(x), 5, 1)
+    add_row("ntt4_input_planes", src4, "mpir_fft_tpu/ops/ntt.py:821", 0, ms, pms, 13 * BM, 10 * BM)
+    print(f"ntt4_input_planes {tuple(x.shape)} -> {tuple(pa.shape)}: planes identical "
+          f"(plain in {SLICES} slices); {ms:.3f} ms (plain {pms:.3f} ms)")
+    pb = ntt4_input_planes(y)
+    res = []
+    for j, blk in enumerate(_ntt4_blocks(tM, dev)):
+        p = blk.p
+        S1 = _dot_raw(pa[j], blk.F1)
+        if j == 0:
+            rows2, K = S1.shape
+            sl = slice(0, step * m2)    # the GEMM against an exact float64 product (sums < 2^23)
+            torch.cuda.synchronize()
+            assert torch.equal(S1[sl], (pa[j][sl].double() @ blk.F1.double()).int()), "int8_gemm"
+            ms = time_ms(lambda: _dot_raw(pa[j], blk.F1), 5, 1)
+            pms = sum(timed(lambda: (pa[j][b0 * m2:(b0 + step) * m2].double()
+                                     @ blk.F1.double()).int())[1] for b0 in range(0, tB, step))
+            add_row("int8_gemm", "mpir_fft_tpu_torch/ops/ntt.py", "mpir_fft_tpu/ops/ntt.py:884",
+                    0, ms, pms, rows2 * K + K * K + 4 * rows2 * K, 2 * rows2 * K * K,
+                    library_ms=ms, ops_per_s=INT8_OPS_PER_S)
+            print(f"int8_gemm 4-step ({rows2}, {K}) @ ({K}, {K}): exact; {ms:.3f} ms "
+                  f"(float64 matmul {pms:.3f} ms, in {SLICES} slices)")
+        pl2 = ntt4_fwd_twiddle(S1, p, tM)
+        pms = by_slices("ntt4_fwd_twiddle", pl2,
+                        lambda b0, b1: ntt4_fwd_twiddle_plain(S1[b0 * m2:b1 * m2], p, tM),
+                        lambda t, b0, b1: t[b0 * m1:b1 * m1])
+        if j == 0:
+            ms = time_ms(lambda: ntt4_fwd_twiddle(S1, p, tM), 5, 1)
+            add_row("ntt4_fwd_twiddle", src4, "mpir_fft_tpu/ops/ntt.py:783", 0, ms, pms,
+                    15 * BM, 8 * BM)
+            print(f"ntt4_fwd_twiddle {tuple(S1.shape)} -> {tuple(pl2.shape)} p={p}: planes "
+                  f"identical (all primes); {ms:.3f} ms (plain {pms:.3f} ms)")
+        del S1
+        Sa = _dot_raw(pl2, blk.F2)
+        del pl2
+        Sb = _dot_raw(ntt4_fwd_twiddle(_dot_raw(pb[j], blk.F1), p, tM), blk.F2)
+        pp = ntt4_pointwise(Sa, Sb, p, tM)
+        pms = by_slices("ntt4_pointwise", pp,
+                        lambda b0, b1: ntt4_pointwise_plain(Sa[b0 * m1:b1 * m1],
+                                                            Sb[b0 * m1:b1 * m1], p, tM),
+                        lambda t, b0, b1: t[b0 * m1:b1 * m1])
+        if j == 0:
+            ms = time_ms(lambda: ntt4_pointwise(Sa, Sb, p, tM), 5, 1)
+            add_row("ntt4_pointwise", src4, "mpir_fft_tpu/ops/ntt.py:783", 0, ms, pms,
+                    27 * BM, 10 * BM)
+            print(f"ntt4_pointwise 2 x {tuple(Sa.shape)} p={p}: planes identical (all primes); "
+                  f"{ms:.3f} ms (plain {pms:.3f} ms)")
+        del Sa, Sb
+        S3 = _dot_raw(pp, blk.G2)
+        del pp
+        pl4 = ntt4_inv_twiddle(S3, p, tM)
+        pms = by_slices("ntt4_inv_twiddle", pl4,
+                        lambda b0, b1: ntt4_inv_twiddle_plain(S3[b0 * m1:b1 * m1], p, tM),
+                        lambda t, b0, b1: t[b0 * m2:b1 * m2])
+        if j == 0:
+            ms = time_ms(lambda: ntt4_inv_twiddle(S3, p, tM), 5, 1)
+            add_row("ntt4_inv_twiddle", src4, "mpir_fft_tpu/ops/ntt.py:783", 0, ms, pms,
+                    15 * BM, 8 * BM)
+            print(f"ntt4_inv_twiddle {tuple(S3.shape)} -> {tuple(pl4.shape)} p={p}: planes "
+                  f"identical (all primes); {ms:.3f} ms (plain {pms:.3f} ms)")
+        del S3
+        S4 = _dot_raw(pl4, blk.G1)
+        del pl4
+        r = ntt4_residues(S4, p, tM)
+        pms = by_slices("ntt4_residues", r,
+                        lambda b0, b1: ntt4_residues_plain(S4[b0 * m2:b1 * m2], p, tM))
+        if j == 0:
+            ms = time_ms(lambda: ntt4_residues(S4, p, tM), 5, 1)
+            add_row("ntt4_residues", src4, "mpir_fft_tpu/ops/ntt.py:783", 0, ms, pms,
+                    16 * BM, 4 * BM)
+            print(f"ntt4_residues {tuple(S4.shape)} -> {tuple(r.shape)} p={p}: residues "
+                  f"identical (all primes); {ms:.3f} ms (plain {pms:.3f} ms)")
+        del S4
+        res.append(r)
+    del pa, pb, r
+    d = garner_residues(*res)
+    pms = by_slices("garner_residues", d,
+                    lambda b0, b1: garner_residues_plain(*(r[b0:b1] for r in res)))
+    top = int(d.abs().max())
+    assert top < NTT_DIGIT_BOUND, ("garner_residues", top)
+    ms = time_ms(lambda: garner_residues(*res), 5, 1)
+    add_row("garner_residues", "mpir_fft_tpu_torch/csrc/ntt_links.cu",
+            "mpir_fft_tpu/ops/ntt.py:465", 0, ms, pms, 16 * BM, 20 * BM)
+    print(f"garner_residues 3 x {tuple(res[0].shape)}: digits identical, max |d| {top} < "
+          f"2^16 + 2^12; {ms:.3f} ms (plain {pms:.3f} ms)")
+    del res
+    torch.cuda.empty_cache()
+
+    # A/B record: the 4-step leaf against the recursive route on the same operands
+    mp65 = mulmod_plan(DIGIT_BITS * tM)
+    got4 = normmod(d)
+    del d
+    torch.cuda.empty_cache()
+    rec = mulmod_fft(x, y, mp65)
+    identical("4-step leaf vs recursive mulmod_fft", got4, rec)
+    del got4, rec
+    torch.cuda.empty_cache()
+    ab4 = time_ms(lambda: mulmod_ntt(x, y), 3, 1)
+    abr = time_ms(lambda: mulmod_fft(x, y, mp65), 2, 1)
+    print(f"A/B (record, not a claim) on ({tB}, {tM}): mulmod_ntt 4-step {ab4:.3f} ms, "
+          f"mulmod_fft at {mp65} (m {mp65.m}, Lp {mp65.Lp}) {abr:.3f} ms; equal after normmod")
+    del x, y
+    torch.cuda.empty_cache()
+
+    # the fused kernel at its main-path batch: the mulmod_int 2^29 ring's
+    fplan = mulmod_plan(MULMOD_N[-1])
+    fB = fplan.m
+    assert (fB, fplan.Lp) == (32768, 4096), fplan
+    x = rand((fB, tM), -(1 << 17), 1 << 17)
+    y = rand((fB, tM), -(1 << 17), 1 << 17)
+    fr = ntt4_fused(x, y)
+    want, pms = timed(lambda: ntt4_fused_plain(x, y))
+    identical("ntt4_fused", fr, want)
+    identical("ntt4_fused square", ntt4_fused(x, x), ntt4_fused_plain(x, x))
+    del want, fr
+    ms = time_ms(lambda: ntt4_fused(x, y), 3, 1)
+    fmacs = 3 * 6 * 9 * fB * tM * m1        # 18 block products of 9 M m multiply-adds per row
+    add_row("ntt4_fused", src4, "mpir_fft_tpu/ops/ntt.py:1115", 0, ms, pms, 20 * fB * tM,
+            2 * fmacs, ops_per_s=INT8_OPS_PER_S)
+    print(f"ntt4_fused ({fB}, {tM}) -> 3 x ({fB}, {tM}): residues identical to the plain "
+          f"pipeline (product and square); {ms:.3f} ms (plain {pms:.3f} ms)")
+    del x, y
+    torch.cuda.empty_cache()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the main path, counted per size --------------------------------------
@@ -552,6 +736,12 @@ def main() -> int:
     rec = ("ladder", "twiddle_half", "transform_small", "conv_base", "normmod", "canonicalize")
     rec_flat_ntt = ("ladder", "twiddle_half", "normmod", "canonicalize") + ntt
     no_school = ("conv_base",)
+    ntt4 = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
+            "ntt4_residues", "garner_residues", "int8_gemm")
+    even_ntt4 = ("ladder", "normmod", "canonicalize") + ntt4
+    # the 4-step leaf, not the recursive route nor the dense tier
+    no_rec = ("conv_base", "transform_small", "twiddle_half", "input_planes", "mid_planes",
+              "garner_carry", "ntt4_fused")
 
     def residues_agree(prod, x, y, ps):
         return all(prod % p == (x % p) * (y % p) % p for p in ps)
@@ -559,7 +749,7 @@ def main() -> int:
     def drive(bits, label, want_plan, expect, full, ps, reps, forbid=()):
         tplan = choose_params(bits, bits, sqrt2=True)
         L = tplan.W // DIGIT_BITS
-        inner = None if leaf_serves(L) else mulmod_plan(tplan.W)
+        inner = inner_plan(tplan.W)
         print(f"{label} plan: {tplan} L={L} conv={tplan.conv_len}"
               + (f"; inner {inner}" if inner else ""))
         assert (tplan.depth, tplan.w, L) == want_plan, (label, tplan)
@@ -591,9 +781,12 @@ def main() -> int:
     drive(REC_BITS, "1e8", (13, 2, 1024), even_ntt, False, primes, 3, no_school)
     drive(HUGE_BITS, "1e9", (15, 1, 2048), odd_ntt, False, primes[:2], 1, no_school)
     e2e["peak_memory_1e9_gib"] = peaks["mul/sqr 1e9"]
+    drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec)
+    e2e["peak_memory_2e9_gib"] = peaks["mul/sqr 2e9"]
+    assert peaks["mul/sqr 2e9"] <= MAX_PEAK_GIB_2E9, peaks["mul/sqr 2e9"]
     # MPIR_FFT_NTT=0: the A/B plans, the schoolbook (even and odd w) and the
-    # recursive mulmod (inner Lp 32 at 10^8; at 10^9 an L 4096 ring, the
-    # width the default plans also recurse on above ~1.05x10^9 bits)
+    # recursive mulmod (inner Lp 32 at 10^8; at 10^9 L 4096 rings, which the
+    # 4-step tier serves with the NTT on)
     with ntt_off():
         drive(SMALL_BITS, "2e6_ntt0", (10, 2, 128), even, True, primes, 5, ntt)
         drive(ODD_SMALL_BITS, "3162277_ntt0", (11, 1, 128), odd, True, primes, 5, ntt)
@@ -603,23 +796,51 @@ def main() -> int:
         drive(HUGE_BITS, "1e9_ntt0", (14, 4, 4096), rec, False, primes[:2], 1, ntt)
     e2e["peak_memory_1e9_ntt0_gib"] = peaks["mul/sqr 1e9_ntt0"]
 
-    for n_bits in MULMOD_N:
+    def mulmod_case(n_bits, label, expect, forbid, xy=None, want=None):
+        """mulmod_int at N = n_bits, counted; operands (x, y) drawn unless
+        given; want: the value to hold it against (else the product,
+        folded)."""
+        lg = n_bits.bit_length() - 1
         mp = mulmod_plan(n_bits)
-        print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: {mp} m={mp.m} Lp={mp.Lp}")
+        print(f"mulmod_int N=2^{lg}{label}: {mp} m={mp.m} Lp={mp.Lp}")
         p_n = (1 << n_bits) + 1
-        x, y = rnd.randrange(p_n), rnd.randrange(p_n)
-        got = counted(f"mulmod_int 2^{n_bits.bit_length() - 1}", rec_flat_ntt,
-                      lambda: mulmod_int(x, y, n_bits), no_school)
-        want = mod_fermat(x * y if n_bits == MULMOD_N[0] else mul(x, y), n_bits)
-        assert got == want, f"mulmod_int at N = {n_bits}"
-        print(f"mulmod_int N=2^{n_bits.bit_length() - 1}: exact (against "
-              f"{'Python' if n_bits == MULMOD_N[0] else 'the port'}'s product, folded)")
-        label = f"mulmod_2^{n_bits.bit_length() - 1}"
+        x, y = xy or (rnd.randrange(p_n), rnd.randrange(p_n))
+        got = counted(f"mulmod_int 2^{lg}{label}", expect, lambda: mulmod_int(x, y, n_bits), forbid)
+        if want is None:
+            want = mod_fermat(x * y if n_bits == MULMOD_N[0] else mul(x, y), n_bits)
+        assert got == want, f"mulmod_int at N = {n_bits}{label}"
+        print(f"mulmod_int N=2^{lg}{label}: exact (against "
+              f"{'Python' if n_bits == MULMOD_N[0] else 'the port'}'s product, folded"
+              f"{'; the linked run' if xy else ''})")
+        key = f"mulmod_2^{lg}{label.replace(' ', '_')}"
         dx = torch.from_numpy(digits_from_int(x, n_bits // DIGIT_BITS)).to(dev)
         dy = torch.from_numpy(digits_from_int(y, n_bits // DIGIT_BITS)).to(dev)
-        e2e[f"{label}_ms"] = wall_ms(lambda: mulmod_int(x, y, n_bits), 3)
-        e2e[f"{label}_device_ms"] = time_ms(lambda: mulmod(dx, dy, n_bits, canonical=True), 3)
-        print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
+        reps = 1 if n_bits > MULMOD_N[1] else 3
+        e2e[f"{key}_ms"] = wall_ms(lambda: mulmod_int(x, y, n_bits), reps)
+        e2e[f"{key}_device_ms"] = time_ms(lambda: mulmod(dx, dy, n_bits, canonical=True), reps)
+        print(f"{key} times: " + json.dumps({k: v for k, v in e2e.items() if key in k}))
+        return mp, x, y, want
+
+    for n_bits in MULMOD_N[:2]:
+        mulmod_case(n_bits, "", rec_flat_ntt, no_school)
+    # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
+    mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "twiddle_half", "normmod",
+                                                   "canonicalize") + ntt4,
+                                 tuple(k for k in no_rec if k != "twiddle_half"))
+    assert (mp.m, mp.Lp) == (32768, 4096), mp
+    old = os.environ.get("MPIR_FFT_NTT_FUSED")
+    os.environ["MPIR_FFT_NTT_FUSED"] = "1"
+    try:
+        mulmod_case(MULMOD_N[2], " fused", ("ladder", "normmod", "canonicalize", "ntt4_fused",
+                                            "garner_residues"),
+                    ("ntt4_input_planes", "int8_gemm", "conv_base", "transform_small",
+                     "input_planes"),
+                    (x, y), want)
+    finally:
+        if old is None:
+            del os.environ["MPIR_FFT_NTT_FUSED"]
+        else:
+            os.environ["MPIR_FFT_NTT_FUSED"] = old
 
     print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
           "events, digits on the card): " + json.dumps(e2e))

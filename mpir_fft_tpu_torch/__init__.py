@@ -12,12 +12,11 @@ GEMMs are torch._int_mm.
 
 What the port serves today: `models.mul.mul` / `sqr` for every plan the
 planner picks -- the reference's default plans, or with MPIR_FFT_NTT=0 its
-A/B plans -- (odd and even `w`; the dense NTT-CRT pointwise for
-power-of-two L <= 2048, the schoolbook for other L <= 2048, the recursive
-Fermat mulmod above), through full-length transforms, and `mulmod_int`,
-the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet: the NTT's
-4-step tier 2 (L in (2048, 8192], recursing instead), truncation, the MFA
-and the staged/out-of-core drivers.
+A/B plans -- (odd and even `w`; the NTT-CRT pointwise for power-of-two
+L <= 8192, dense up to 2048 and 4-step above, the schoolbook for other
+L <= 2048, the recursive Fermat mulmod for the rest), through full-length
+transforms, and `mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.
+Not ported yet: truncation, the MFA and the staged/out-of-core drivers.
 
     from mpir_fft_tpu_torch.models.mul import mul
     mul(a, b)                      # exact product, on "cuda" by default

@@ -1,57 +1,65 @@
-// Link kernels of the dense small-prime NTT-CRT pointwise product mod
-// 2^(16M)+1 (ops/ntt.py mulmod_ntt): the elementwise chains between its
-// int8 GEMMs, each one pass over device memory.
+// Link kernels of the NTT-CRT pointwise product mod 2^(16M)+1 (ops/ntt.py
+// mulmod_ntt): the dense tier's elementwise chains between its int8 GEMMs,
+// each one pass over device memory, and Garner's CRT for both tiers.
 //
 // Replaces: mpir_fft_tpu/ops/ntt.py
-//   input_planes  <- _input_planes (ntt.py:698, pallas_call :719)
-//   mid_planes    <- _mid_planes   (ntt.py:730, pallas_call :749)
-//   garner_carry  <- _garner_carry (ntt.py:465, pallas_call :527), raw_k = 2
+//   input_planes     <- _input_planes (ntt.py:698, pallas_call :719)
+//   mid_planes       <- _mid_planes   (ntt.py:730, pallas_call :749)
+//   garner_carry     <- _garner_carry (ntt.py:465, pallas_call :527), raw_k = 2
+//   garner_residues  <- _garner_carry (ntt.py:465, pallas_call :527), raw_k = None
+//                       (the 4-step tier's three residue rows)
 // Plain versions: ops/ntt.py input_planes_plain, mid_planes_plain,
-// garner_carry_plain -- the same integer sequences, so the outputs agree
-// digit for digit (and input_planes / mid_planes bit for bit with the
-// reference's kernels: their outputs are functions of exact residues).
+// garner_carry_plain, garner_residues_plain -- the same integer sequences,
+// so the outputs agree digit for digit (and input_planes / mid_planes bit
+// for bit with the reference's kernels: their outputs are functions of
+// exact residues).
 //
-// Tier 1 only: the primes 12289, 40961, 61441 (== 1 mod 4096, M <= 2048),
-// two signed-int8 planes per value, lo at column i and hi at column M + i.
-// Each kernel is templated on its prime(s), so every `%` is by a
-// compile-time constant (a multiply-high, no division).
+// Dense tier (input_planes, mid_planes, garner_carry): the primes 12289,
+// 40961, 61441 (== 1 mod 4096, M <= 2048), two signed-int8 planes per
+// value, lo at column i and hi at column M + i.  garner_residues takes the
+// 4-step tier's primes 65537, 114689, 163841 (M = 4096, 8192).  Each kernel
+// is templated on its prime(s) (ntt_common.cuh).
 //
 // What bounds them on an H100: device memory.  Per digit, input_planes
 // reads 4 bytes and writes 3 x 2; mid_planes reads 2 x 8 and writes 2;
-// garner_carry reads 3 x 8 and writes 4.  Design: input_planes and
-// mid_planes take four digits per thread (16-byte loads, 4-byte stores of
-// four int8 planes), a grid-stride loop over all rows; garner_carry is
-// row-local (digit i takes pieces of coefficients i, i-1, i-2, then a carry
-// from digit i-1), so one CTA per row keeps the row's coefficients in
-// shared memory (M <= 2048: 16 KB as int64, 8 KB of digit sums).
-#include "common.cuh"
+// garner_carry reads 3 x 8 and writes 4, garner_residues 3 x 4 and 4.
+// Design: input_planes and mid_planes take four digits per thread (16-byte
+// loads, 4-byte stores of four int8 planes), a grid-stride loop over all
+// rows; the Garner kernels are row-local (digit i takes pieces of
+// coefficients i, i-1, i-2, then a carry from digit i-1), so one CTA per
+// row keeps the row's coefficients in shared memory (12 M bytes: int64
+// coefficients and int32 digit sums; 96 KB at M = 8192, above the default
+// 48 KB, so that launch raises the kernel's dynamic shared-memory limit).
+#include "ntt_common.cuh"
 
 namespace {
 
+using mf::mod_center;
+using mf::mod_nonneg;
+
 constexpr int kP1 = 12289, kP2 = 40961, kP3 = 61441;
 constexpr int kMaxM = 2048;
-// Garner constants: p1^-1 mod p2, p1^-1 mod p3, p2^-1 mod p3, p1 p2
-constexpr unsigned kInv12 = 5853, kInv13 = 46082, kInv23 = 3;
-constexpr long long kQ = static_cast<long long>(kP1) * kP2;
-static_assert(static_cast<long long>(kP1) * kInv12 % kP2 == 1, "inv12");
-static_assert(static_cast<long long>(kP1) * kInv13 % kP3 == 1, "inv13");
-static_assert(static_cast<long long>(kP2) * kInv23 % kP3 == 1, "inv23");
+
+// The prime triples and their Garner constants: p1^-1 mod p2, p1^-1 mod
+// p3, p2^-1 mod p3.
+struct Tier1 {
+  static constexpr int P1 = kP1, P2 = kP2, P3 = kP3;
+  static constexpr int Inv12 = 5853, Inv13 = 46082, Inv23 = 3;
+};
+struct Tier2 {
+  static constexpr int P1 = 65537, P2 = 114689, P3 = 163841;
+  static constexpr int Inv12 = 38232, Inv13 = 109229, Inv23 = 54617;
+};
+template <class T>
+constexpr bool garner_ok() {
+  return static_cast<long long>(T::P1) * T::Inv12 % T::P2 == 1 &&
+         static_cast<long long>(T::P1) * T::Inv13 % T::P3 == 1 &&
+         static_cast<long long>(T::P2) * T::Inv23 % T::P3 == 1;
+}
+static_assert(garner_ok<Tier1>(), "tier-1 Garner constants");
+static_assert(garner_ok<Tier2>(), "tier-2 Garner constants");
 
 constexpr int kThreads = 256;
-
-// v mod P in [0, P) (C's % truncates toward zero)
-template <int P>
-__device__ __forceinline__ int mod_nonneg(int v) {
-  const int r = v % P;
-  return r < 0 ? r + P : r;
-}
-
-// the centered representative of v mod P, in [-(P-1)/2, (P-1)/2]
-template <int P>
-__device__ __forceinline__ int mod_center(int v) {
-  const int r = mod_nonneg<P>(v);
-  return r > P / 2 ? r - P : r;
-}
 
 // raw plane sums (S0, S1), |S_j| <= 2^26 -> S0 + 256 S1 mod P in [0, P);
 // S1 is reduced first so the sum stays int32-exact
@@ -146,12 +154,36 @@ mid_planes_kernel(const int* __restrict__ sa, const int* __restrict__ sb,
   }
 }
 
-// s1, s2, s3 (B, 2M) int32 raw inverse sums of the three primes -> out
-// (B, M) int32 bounded redundant digits.  Per coefficient: the residues
-// r_j in [0, p_j), Garner's c = v1 + p1 v2 + p1 p2 v3 (v3 centered, so
-// |c| < P/2 < 2^44); digit sums s_i = c_i mod 2^16 + (c_(i-1) >> 16 mod
-// 2^16) + (c_(i-2) >> 32), pieces past the top wrapping negated; then one
-// carry pass.  One CTA per row.
+// Residues r_j in [0, p_j) of one coefficient -> Garner's signed
+// c = v1 + p1 v2 + p1 p2 v3 with v3 centered, so |c| < P/2 (2^43.8 for the
+// tier-1 primes, 2^49.1 for the tier-2 ones).
+template <class T>
+__device__ __forceinline__ long long garner_coeff(int v1, int r2, int r3) {
+  const int v2 = mf::mul_mod<T::P2>(mod_nonneg<T::P2>(r2 - v1), T::Inv12);
+  const int t = mf::mul_mod<T::P3>(mod_nonneg<T::P3>(r3 - v1), T::Inv13);
+  int v3 = mf::mul_mod<T::P3>(mod_nonneg<T::P3>(t - v2), T::Inv23);
+  if (v3 > T::P3 / 2) v3 -= T::P3;
+  return v1 + static_cast<long long>(T::P1) * v2 + static_cast<long long>(T::P1) * T::P2 * v3;
+}
+
+// The row's coefficients c (shared memory) -> out row: digit sums
+// s_i = c_i mod 2^16 + (c_(i-1) >> 16 mod 2^16) + (c_(i-2) >> 32), pieces
+// past the top wrapping negated (|s_i| < 2^18.2), then one carry pass.
+__device__ __forceinline__ void spread_carry_row(const long long* c, int* s, int* outr, int M) {
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    int c1 = static_cast<int>((c[i == 0 ? M - 1 : i - 1] >> 16) & 0xFFFF);
+    if (i < 1) c1 = -c1;
+    int c2 = static_cast<int>(c[i >= 2 ? i - 2 : M - 2 + i] >> 32);
+    if (i < 2) c2 = -c2;
+    s[i] = static_cast<int>(c[i] & 0xFFFF) + c1 + c2;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < M; i += blockDim.x) outr[i] = mf::carry_digit(s, i, M);
+}
+
+// s1, s2, s3 (B, 2M) int32 raw inverse sums of the three tier-1 primes ->
+// out (B, M) int32 bounded redundant digits: fold each to its residue,
+// Garner, spread and carry.  One CTA per row.
 __global__ void __launch_bounds__(kThreads)
 garner_carry_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
                     const int* __restrict__ s3, int* __restrict__ out, int M) {
@@ -161,37 +193,28 @@ garner_carry_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
   const int* r1p = s1 + row * 2LL * M;
   const int* r2p = s2 + row * 2LL * M;
   const int* r3p = s3 + row * 2LL * M;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int v1 = fold<kP1>(r1p[i], r1p[M + i]);
-    const int r2 = fold<kP2>(r2p[i], r2p[M + i]);
-    const int r3 = fold<kP3>(r3p[i], r3p[M + i]);
-    const unsigned v2 = static_cast<unsigned>(mod_nonneg<kP2>(r2 - v1)) * kInv12 % kP2;
-    const unsigned t = static_cast<unsigned>(mod_nonneg<kP3>(r3 - v1)) * kInv13 % kP3;
-    int v3 = static_cast<int>(
-        static_cast<unsigned>(mod_nonneg<kP3>(static_cast<int>(t) - static_cast<int>(v2))) *
-        kInv23 % kP3);
-    if (v3 > kP3 / 2) v3 -= kP3;
-    c[i] = v1 + static_cast<long long>(kP1) * v2 + kQ * v3;
-  }
+  for (int i = threadIdx.x; i < M; i += blockDim.x)
+    c[i] = garner_coeff<Tier1>(fold<kP1>(r1p[i], r1p[M + i]), fold<kP2>(r2p[i], r2p[M + i]),
+                               fold<kP3>(r3p[i], r3p[M + i]));
   __syncthreads();
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    int c1 = static_cast<int>((c[i == 0 ? M - 1 : i - 1] >> 16) & 0xFFFF);
-    if (i < 1) c1 = -c1;
-    int c2 = static_cast<int>(c[i >= 2 ? i - 2 : M - 2 + i] >> 32);
-    if (i < 2) c2 = -c2;
-    s[i] = static_cast<int>(c[i] & 0xFFFF) + c1 + c2;
-  }
+  spread_carry_row(c, s, out + row * M, M);
+}
+
+// r1, r2, r3 (B, M) int32 residues of the three tier-2 primes -> out
+// (B, M) int32 bounded redundant digits.  One CTA per row.
+__global__ void __launch_bounds__(kThreads)
+garner_residues_kernel(const int* __restrict__ r1, const int* __restrict__ r2,
+                       const int* __restrict__ r3, int* __restrict__ out, int M) {
+  extern __shared__ long long c[];
+  int* s = reinterpret_cast<int*>(c + M);
+  const long long at = static_cast<long long>(blockIdx.x) * M;
+  for (int i = threadIdx.x; i < M; i += blockDim.x)
+    c[i] = garner_coeff<Tier2>(r1[at + i], r2[at + i], r3[at + i]);
   __syncthreads();
-  int* outr = out + row * M;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) outr[i] = mf::carry_digit(s, i, M);
+  spread_carry_row(c, s, out + at, M);
 }
 
 bool bad_m(int M) { return M < 4 || M > kMaxM || (M & (M - 1)) != 0; }
-
-unsigned stream_blocks(long long groups) {
-  const long long b = (groups + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < (1LL << 20) ? b : (1LL << 20));
-}
 
 }  // namespace
 
@@ -199,7 +222,7 @@ unsigned stream_blocks(long long groups) {
 MF_EXPORT int mf_input_planes(const void* x, void* out, long long B, int M, void* stream) {
   if (bad_m(M) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  input_planes_kernel<<<stream_blocks(B * (M / 4)), kThreads, 0,
+  input_planes_kernel<<<mf::stream_blocks(B * (M / 4), kThreads), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(x), static_cast<signed char*>(out), B, M);
   return static_cast<int>(cudaGetLastError());
@@ -211,7 +234,7 @@ MF_EXPORT int mf_mid_planes(const void* sa, const void* sb, void* out, long long
                             int prime, void* stream) {
   if (bad_m(M) || B < 0 || prime < 0 || prime > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const unsigned blocks = stream_blocks(B * (M / 4));
+  const unsigned blocks = mf::stream_blocks(B * (M / 4), kThreads);
   const auto st = static_cast<cudaStream_t>(stream);
   const int* a = static_cast<const int*>(sa);
   const int* b = static_cast<const int*>(sb);
@@ -233,6 +256,23 @@ MF_EXPORT int mf_garner_carry(const void* s1, const void* s2, const void* s3, vo
   garner_carry_kernel<<<static_cast<unsigned>(B), mf::row_threads(M, kThreads), smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(s1), static_cast<const int*>(s2), static_cast<const int*>(s3),
+      static_cast<int*>(out), M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r1, r2, r3 (B, M) int32 residues in [0, p) of the primes 65537, 114689,
+// 163841 in that order, out (B, M) int32; M = 4096 or 8192.
+MF_EXPORT int mf_garner_residues(const void* r1, const void* r2, const void* r3, void* out,
+                                 long long B, int M, void* stream) {
+  if ((M != 4096 && M != 8192) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int));
+  const cudaError_t err = mf::set_smem(reinterpret_cast<const void*>(garner_residues_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  garner_residues_kernel<<<static_cast<unsigned>(B), kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(r1), static_cast<const int*>(r2), static_cast<const int*>(r3),
       static_cast<int*>(out), M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,8 @@ LAUNCHES = {
     "ladder": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
     "input_planes": 0, "mid_planes": 0, "garner_carry": 0,
+    "ntt4_input_planes": 0, "ntt4_fwd_twiddle": 0, "ntt4_pointwise": 0, "ntt4_inv_twiddle": 0,
+    "ntt4_residues": 0, "garner_residues": 0, "ntt4_fused": 0,
     "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
 
@@ -139,6 +141,18 @@ _SIGNATURES = {
     "mf_mid_planes": (_P, _P, _P, _LL, _I, _I, _P),
     # s1, s2, s3, out, B, M, stream
     "mf_garner_carry": (_P, _P, _P, _P, _LL, _I, _P),
+    # r1, r2, r3 (tier-2 residues), out, B, M, stream
+    "mf_garner_residues": (_P, _P, _P, _P, _LL, _I, _P),
+    # x, out (3 primes' planes), B, M, stream
+    "mf_ntt4_input_planes": (_P, _P, _LL, _I, _P),
+    # S, table, out, B, R, C, prime index, inverse, stream
+    "mf_ntt4_twiddle": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # sa, sb, out, rows, C, prime index, stream
+    "mf_ntt4_pointwise": (_P, _P, _P, _LL, _I, _I, _P),
+    # S, out, B, M, prime index, stream
+    "mf_ntt4_residues": (_P, _P, _LL, _I, _I, _P),
+    # a, b, tables, out (3 primes' residues), B, M, stream
+    "mf_ntt4_fused": (_P, _P, _P, _P, _LL, _I, _P),
 }
 
 

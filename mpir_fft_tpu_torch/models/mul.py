@@ -7,11 +7,12 @@ inverse-transform with the divide-by-2^lg_conv + normalize tail, combine
 with carries.
 
 Every plan runs the full-length flat transform pair, odd w through the
-sqrt2 top layer.  The pointwise (ops/mulmod.py mulmod) takes the dense
-small-prime NTT-CRT for power-of-two rings L <= 2048 -- the reference's
-default plans put every size from ~7.6x10^5 to ~10^9 bits there -- the
+sqrt2 top layer.  The pointwise (ops/mulmod.py mulmod) takes the
+small-prime NTT-CRT for power-of-two rings L <= 8192 (the dense tier up to
+2048, where the reference's default plans put every size from ~7.6x10^5
+to ~10^9 bits; the 4-step tier above, e.g. L 4096 at 2x10^9 bits), the
 schoolbook for other L <= 2048 (and for all of them under
-MPIR_FFT_NTT=0), and the recursive Fermat mulmod for wider rings.  A full
+MPIR_FFT_NTT=0), and the recursive Fermat mulmod for the rest.  A full
 convolution is exact for every valid plan (`validate` requires
 j1 + j2 - 1 <= conv_len), so truncation and the MFA only save work; they
 are not ported yet.  The staged driver (`_staged_flagship`,

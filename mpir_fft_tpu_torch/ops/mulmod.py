@@ -7,9 +7,9 @@ coefficients of b = N/m bits; the product mod 2^N+1 is the NEGACYCLIC
 convolution of the coefficient sequences (2^(mb) == 2^N == -1), computed by
 weighted FFTs over an inner ring W' >= 2b + depth + 6 (ops/negacyclic.py).
 The pointwise products mod 2^W'+1 recurse through mulmod(), so the
-flagship's pointwise on rings the base leaf does not serve (L > 2048,
-pointwise.leaf_serves) runs this path once over the whole coefficient
-batch.
+flagship's pointwise on rings the base leaf does not serve (inner_plan:
+N > MULMOD_BASE_MAX_BITS, or not pointwise.base_serves(L)) runs this path
+once over the whole coefficient batch.
 
 Signs: negacyclic coefficients are signed.  The inner ring keeps headroom
 (|c_j| < 2^(2b+depth+5) < p'/2), so a residue v_j lifts directly:
@@ -30,7 +30,7 @@ import torch
 from .limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod, normmod_div, shift_mod
 from .negacyclic import fft_negacyclic, ifft_negacyclic
 from .ntt import ntt_supported
-from .pointwise import _ref_base_serves, leaf_serves, mulmod_base
+from .pointwise import base_serves, mulmod_base
 from .split import fft_combine_bits, fft_split_bits
 
 # crossover in ring bits below which the direct base multiply beats a
@@ -85,7 +85,7 @@ def mulmod_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
         plan = MulmodPlan(N, d, b, Wp, Wp // npp)
         Lp = plan.Lp
         fft_cost = 3 * m * Lp * (d + 1) * 3
-        if Wp <= MULMOD_BASE_MAX_BITS and _ref_base_serves(Lp):
+        if Wp <= MULMOD_BASE_MAX_BITS and base_serves(Lp):
             pw_cost = m * (2 * Lp) ** 2 // 8
             if ntt_supported(Lp):
                 pw_cost //= 10
@@ -190,22 +190,30 @@ def mulmod_fft(x: torch.Tensor, y: torch.Tensor, plan: MulmodPlan) -> torch.Tens
     return normmod(folded)
 
 
+def inner_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
+    """The recursion plan mulmod() takes for an N-bit ring, or None where
+    the base leaf serves it: N <= MULMOD_BASE_MAX_BITS and
+    pointwise.base_serves(N / 16) (the reference's selector,
+    mpir_fft_tpu/ops/mulmod.py:232)."""
+    if N <= MULMOD_BASE_MAX_BITS and base_serves(N // DIGIT_BITS):
+        return None
+    return mulmod_plan(N, depth)
+
+
 def mulmod(x: torch.Tensor, y: torch.Tensor, N: int, depth: int | None = None,
            canonical: bool = False) -> torch.Tensor:
     """(x * y) mod 2^N+1 with automatic algorithm choice (ref
-    fft_mulmod_2expp1, mul_fft.c:3125-3167): the base leaf (dense NTT-CRT
-    or schoolbook, ops/pointwise.py) for L <= 2048 digits, the recursive
-    negacyclic FFT above.  The reference's base also serves the
-    power-of-two L in (2048, 8192] with its 4-step NTT tier, which is not
-    ported: those rings recurse here, to the same values.  Batched over
-    leading dims of the [..., N/16] digit vectors.
+    fft_mulmod_2expp1, mul_fft.c:3125-3167): the base leaf (NTT-CRT or
+    schoolbook, ops/pointwise.py) where inner_plan is None, the recursive
+    negacyclic FFT above.  Batched over leading dims of the [..., N/16]
+    digit vectors.
 
     Inputs may be redundant (|digit| <= ~2^17) or canonical; with
     canonical=False the base path returns bounded redundant digits (the
     recursive path always returns canonical digits)."""
     L = N // DIGIT_BITS
     assert x.shape[-1] == y.shape[-1] == L
-    plan = None if leaf_serves(L) else mulmod_plan(N, depth)
+    plan = inner_plan(N, depth)
     if plan is None:
         return mulmod_base(x, y, canonical=canonical)
     return mulmod_fft(x, y, plan)

@@ -2,12 +2,15 @@
 mpir_fft_tpu/ops/pointwise.py).
 
 The preferred leaf is the small-prime NTT-CRT (ops/ntt.py) for power-of-two
-L <= 2048; with MPIR_FFT_NTT=0 (read at call time, as the reference does),
-and for every other L, the schoolbook: a ring element's digits split into
-base-2^8 chunks and the product is the negacyclic convolution of the chunk
-vectors (mod 2^(8*2L)+1 == p), exact in int32 for 2L <= 4096 chunks.
-`negacyclic_conv_chunks` is the schoolbook's plain torch version; on a GPU
-tensor it runs as the kernel of ops/pointwise_fused.py."""
+L <= 8192 (the dense tier up to 2048, the 4-step tier above); with
+MPIR_FFT_NTT=0 (read at call time, as the reference does), and for every
+other L, the schoolbook: a ring element's digits split into base-2^8 chunks
+and the product is the negacyclic convolution of the chunk vectors
+(mod 2^(8*2L)+1 == p), exact in int32 for 2L <= 4096 chunks.
+`base_serves(L)` is the one rule for which rings the leaf serves; mulmod()
+recurses on the rest.  `negacyclic_conv_chunks` is the schoolbook's plain
+torch version; on a GPU tensor it runs as the kernel of
+ops/pointwise_fused.py."""
 
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import os
 import torch
 
 from .limb import _wrap_inject, normmod
-from .ntt import TIER1_MAX_M, mulmod_ntt, ntt_supported
+from .ntt import mulmod_ntt, ntt_supported
 
 CHUNK_BITS = 8
 CHUNK_MASK = (1 << CHUNK_BITS) - 1
@@ -67,40 +70,30 @@ def _use_ntt() -> bool:
     return os.environ.get("MPIR_FFT_NTT", "1").lower() not in ("0", "off", "false")
 
 
-def _ref_base_serves(L: int) -> bool:
-    """The reference's answer to "can mulmod_base serve an L-digit ring?"
-    (pointwise.py:75-83, copied verbatim): the NTT for power-of-two L <= 8192
-    (MPIR_FFT_NTT on), the schoolbook for 2L <= 4096.  Only the pricing of
-    ops/mulmod.py mulmod_plan reads it, so that the port's inner plans equal
-    the reference's; what the port's leaf serves is leaf_serves."""
+def base_serves(L: int) -> bool:
+    """Can mulmod_base serve an L-digit ring?  The NTT for power-of-two
+    L <= 8192 (MPIR_FFT_NTT on), the schoolbook for 2L <= 4096; every other
+    ring goes through the recursive Fermat mulmod (the reference's
+    base_serves, pointwise.py:75-83)."""
     return (ntt_supported(L) and _use_ntt()) or 2 * L <= SCHOOLBOOK_MAX_CHUNKS
-
-
-def leaf_serves(L: int) -> bool:
-    """Does the port's mulmod_base serve an L-digit ring?  Every L <= 2048:
-    the dense NTT tier (power-of-two L, MPIR_FFT_NTT on) or the schoolbook
-    (2L <= 4096).  Wider rings go through the recursive Fermat mulmod,
-    including the power-of-two L in (2048, 8192] the reference gives its
-    4-step NTT tier (not ported: ROADMAP queue 1 item 5)."""
-    return L <= TIER1_MAX_M
 
 
 def mulmod_base(a: torch.Tensor, b: torch.Tensor, canonical: bool = True) -> torch.Tensor:
     """(a * b) mod 2^(16L)+1 on digit vectors [..., L] (broadcast).
 
-    Serves L <= 2048 (leaf_serves): power-of-two L with MPIR_FFT_NTT on
+    Serves the rings of base_serves(L): power-of-two L with MPIR_FFT_NTT on
     takes the NTT-CRT (mulmod_ntt), everything else the schoolbook.  Inputs
-    may be redundant signed digits (|digit| <= ~2^17, the transform invariant):
-    the schoolbook's chunk products then stay below 2^18 and its
+    may be redundant signed digits (|digit| <= ~2^17, the transform
+    invariant): the schoolbook's chunk products then stay below 2^18 and its
     accumulation below 2L * 2^18, exact in int32 for 2L <= 4096.  With
     canonical=False the result is bounded redundant digits (|digit| <
     ~2^20), which the inverse transform consumes directly."""
     from .pointwise_fused import mulmod_base_fused
 
     L = a.shape[-1]
-    if not leaf_serves(L):
-        raise NotImplementedError(f"mulmod_base: L={L} > {TIER1_MAX_M}; mulmod() recurses "
-                                  "for such rings (NTT tier 2: ROADMAP queue 1 item 5)")
+    if not base_serves(L):
+        raise ValueError(f"mulmod_base: no base path serves L={L}; mulmod() recurses "
+                         "for such rings")
     if ntt_supported(L) and _use_ntt():
         return mulmod_ntt(a, b, canonical=canonical)
     shape = torch.broadcast_shapes(a.shape, b.shape)

@@ -34,8 +34,7 @@ import torch
 from mpir_fft_tpu_torch import kernels
 from mpir_fft_tpu_torch.models.mul import _select_plan, mpn_mul_flagship
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
-from mpir_fft_tpu_torch.ops.mulmod import mulmod_plan
-from mpir_fft_tpu_torch.ops.pointwise import leaf_serves
+from mpir_fft_tpu_torch.ops.mulmod import inner_plan
 from mpir_fft_tpu_torch.utils.params import cdiv
 
 SEED = 20261016
@@ -47,6 +46,10 @@ KERNEL_NAMES = (
     ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
     ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
+    ("ntt4_input_planes_kernel", "ntt4_input_planes"),
+    ("ntt4_fwd_twiddle_kernel", "ntt4_fwd_twiddle"), ("ntt4_pointwise_kernel", "ntt4_pointwise"),
+    ("ntt4_inv_twiddle_kernel", "ntt4_inv_twiddle"), ("ntt4_residues_kernel", "ntt4_residues"),
+    ("ntt4_fused_kernel", "ntt4_fused"), ("garner_residues_kernel", "garner_residues"),
     ("input_planes_kernel", "input_planes"), ("mid_planes_kernel", "mid_planes"),
     ("garner_carry_kernel", "garner_carry"),
     # torch._int_mm's cuBLASLt kernels (the NTT's transform GEMMs)
@@ -123,7 +126,7 @@ def profile_size(bits: int, reps: int) -> dict:
             by_kernel[k] = by_kernel.get(k, 0.0) + ev.device_time_total / 1e3 / reps
     busy = sum(by_kernel.values())
     W = plan.W
-    inner = None if leaf_serves(W // DIGIT_BITS) else mulmod_plan(W)
+    inner = inner_plan(W)
     return {
         "bits": bits,
         "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,

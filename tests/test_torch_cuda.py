@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from mpir_fft_tpu_torch import kernels, mulmod_int
-from mpir_fft_tpu_torch.models.mul import mpn_mul_flagship, mul, sqr
+from mpir_fft_tpu_torch.models.mul import mpn_mul_flagship, mpn_sqr_flagship, mul, sqr
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
     canonicalize_plain_torch,
@@ -36,15 +36,31 @@ from mpir_fft_tpu_torch.ops.fused import (
 from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.ntt import (
     PRIMES,
+    PRIMES_T2,
     _blocks,
     _dot_raw,
+    _ntt4_blocks,
     garner_carry,
     garner_carry_plain,
+    garner_residues,
+    garner_residues_plain,
     input_planes,
     input_planes_plain,
     mid_planes,
     mid_planes_plain,
     mulmod_ntt,
+    ntt4_fused,
+    ntt4_fused_plain,
+    ntt4_fwd_twiddle,
+    ntt4_fwd_twiddle_plain,
+    ntt4_input_planes,
+    ntt4_input_planes_plain,
+    ntt4_inv_twiddle,
+    ntt4_inv_twiddle_plain,
+    ntt4_pointwise,
+    ntt4_pointwise_plain,
+    ntt4_residues,
+    ntt4_residues_plain,
 )
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
@@ -287,3 +303,116 @@ def test_ntt_wrappers_reject(dev):
         garner_carry(s, s, s[:16])
     with pytest.raises(TypeError):
         garner_carry(s, s.float(), s)
+
+
+@pytest.mark.parametrize("B", [17, 4096])
+@pytest.mark.parametrize("M", [4096, 8192])
+def test_ntt4_links_match_plain(dev, B, M):
+    """The 4-step tier's links and Garner's residue form against their
+    plain versions (run on the same card), each on the previous link's
+    real output: identical."""
+    rng = np.random.default_rng(9)
+    x = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    y = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    pa = _launched("ntt4_input_planes", lambda: ntt4_input_planes(x))
+    pb = ntt4_input_planes(y)
+    assert torch.equal(pa, ntt4_input_planes_plain(x))
+    res = []
+    for j, blk in enumerate(_ntt4_blocks(M, dev)):
+        p = blk.p
+        S1 = _dot_raw(pa[j], blk.F1)
+        assert torch.equal(S1, (pa[j].double() @ blk.F1.double()).int())    # exact: sums < 2^23
+        pl2 = _launched("ntt4_fwd_twiddle", lambda: ntt4_fwd_twiddle(S1, p, M))
+        assert torch.equal(pl2, ntt4_fwd_twiddle_plain(S1, p, M))
+        Sa = _dot_raw(pl2, blk.F2)
+        Sb = _dot_raw(ntt4_fwd_twiddle(_dot_raw(pb[j], blk.F1), p, M), blk.F2)
+        pp = _launched("ntt4_pointwise", lambda: ntt4_pointwise(Sa, Sb, p, M))
+        assert torch.equal(pp, ntt4_pointwise_plain(Sa, Sb, p, M))
+        assert torch.equal(ntt4_pointwise(Sa, Sa, p, M), ntt4_pointwise_plain(Sa, Sa, p, M))
+        S3 = _dot_raw(pp, blk.G2)
+        pl4 = _launched("ntt4_inv_twiddle", lambda: ntt4_inv_twiddle(S3, p, M))
+        assert torch.equal(pl4, ntt4_inv_twiddle_plain(S3, p, M))
+        S4 = _dot_raw(pl4, blk.G1)
+        r = _launched("ntt4_residues", lambda: ntt4_residues(S4, p, M))
+        assert torch.equal(r, ntt4_residues_plain(S4, p, M))
+        res.append(r)
+    d = _launched("garner_residues", lambda: garner_residues(*res))
+    assert torch.equal(d, garner_residues_plain(*res))
+    assert int(d.abs().max()) < (1 << 16) + (1 << 12)
+    if B == 17:
+        want = mulmod_ntt(x.cpu(), y.cpu(), canonical=True)
+        assert torch.equal(mulmod_ntt(x, y, canonical=True).cpu(), want)
+
+
+@pytest.mark.parametrize("B", [17, 1024])
+@pytest.mark.parametrize("M", [4096, 8192])
+def test_ntt4_fused_matches_plain(dev, B, M):
+    """The fused kernel's three residue rows against its plain version, a
+    product and a square."""
+    rng = np.random.default_rng(10)
+    x = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    y = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    got = _launched("ntt4_fused", lambda: ntt4_fused(x, y))
+    assert torch.equal(got, ntt4_fused_plain(x, y))
+    assert torch.equal(ntt4_fused(x, x), ntt4_fused_plain(x, x))
+
+
+def test_ntt4_wrappers_reject(dev):
+    x = torch.zeros((32, 4096), dtype=torch.int32, device=dev)
+    S = torch.zeros((32 * 64, 192), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ntt4_input_planes(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        ntt4_input_planes(x.view(-1)[1:1 + 31 * 4096].view(31, 4096))     # rows not 16-byte aligned
+    with pytest.raises(ValueError):
+        ntt4_fwd_twiddle(S, PRIMES[0], 4096)
+    with pytest.raises(ValueError):
+        ntt4_fwd_twiddle(S.t(), PRIMES_T2[0], 4096)
+    with pytest.raises(ValueError):
+        ntt4_pointwise(S, S[:64], PRIMES_T2[0], 4096)
+    with pytest.raises(ValueError):
+        ntt4_residues(S[:, :96].contiguous(), PRIMES_T2[0], 4096)
+    with pytest.raises(ValueError):
+        garner_residues(x, x, x[:16])
+    with pytest.raises(ValueError):
+        ntt4_fused(x, x.cpu())
+
+
+@pytest.mark.parametrize("bits,L", [(524200, 4096), (1048500, 8192)])
+def test_mul_tier2_plans_on_gpu(dev, bits, L):
+    """plan_for_depth(bits, bits, 3) (L 4096, L 8192; conv 32): exact, the
+    pointwise on the 4-step tier (18 GEMMs for a product, 12 for a square),
+    nothing recursive."""
+    plan = plan_for_depth(bits, bits, 3, sqrt2=True)
+    assert plan.W // 16 == L
+    rnd = random.Random(bits)
+    a = rnd.getrandbits(bits) | (1 << (bits - 1))
+    b = rnd.getrandbits(bits) | (1 << (bits - 1))
+    da = torch.from_numpy(digits_from_int(a, -(-bits // 16))).to(dev)
+    db = torch.from_numpy(digits_from_int(b, -(-bits // 16))).to(dev)
+    kernels.reset_launches()
+    assert int_from_digits(mpn_mul_flagship(da, db, plan).cpu().numpy()) == a * b
+    got = dict(kernels.LAUNCHES)
+    for name in ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
+                 "ntt4_residues", "garner_residues"):
+        assert got[name] > 0, name
+    assert got["int8_gemm"] == 18
+    for name in ("transform_small", "twiddle_half", "conv_base", "input_planes", "ntt4_fused"):
+        assert got[name] == 0, name
+    kernels.reset_launches()
+    assert int_from_digits(mpn_sqr_flagship(da, plan).cpu().numpy()) == a * a
+    assert kernels.LAUNCHES["int8_gemm"] == 12 and kernels.LAUNCHES["ntt4_input_planes"] == 1
+
+
+def test_mulmod_int_fused_on_gpu(dev, monkeypatch):
+    """MPIR_FFT_NTT_FUSED=1: the L 4096 ring of N = 65536 through the fused
+    kernel, exact."""
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "1")
+    N = 65536
+    p = (1 << N) + 1
+    rnd = random.Random(N)
+    a, b = rnd.getrandbits(N), rnd.getrandbits(N)
+    kernels.reset_launches()
+    for x, y in ((a, b), (p - 1, p - 1), ((1 << N) - 1, a)):
+        assert mulmod_int(x, y, N, device=dev) == x * y % p
+    assert kernels.LAUNCHES["ntt4_fused"] == 3 and kernels.LAUNCHES["ntt4_input_planes"] == 0

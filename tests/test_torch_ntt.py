@@ -206,10 +206,14 @@ def test_mulmod_ntt_square_and_broadcast():
 
 def test_mulmod_ntt_rejects():
     x = torch.zeros((2, 4096), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tntt.mulmod_ntt(x, x)                       # tier 2: not ported
+    assert torch.equal(tntt.mulmod_ntt(x, x), x)    # tier 2 (4-step) computes
     with pytest.raises(ValueError):
         tntt.mulmod_ntt(x[:, :48], x[:, :48])       # not a power of two
+    wide = torch.zeros((2, 16384), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tntt.mulmod_ntt(wide, wide)                 # above NTT_MAX_M
+    with pytest.raises(ValueError):
+        tntt.mulmod_ntt(x[:, :3072], x[:, :3072])   # in the 4-step range, not a power of two
     with pytest.raises(TypeError):
         tntt.input_planes(torch.zeros((2, 8), dtype=torch.int64))
     with pytest.raises(ValueError):
@@ -234,23 +238,26 @@ def test_mulmod_base_dispatch(monkeypatch, ntt):
     assert np.array_equal(got.numpy(), np.asarray(want))
     tpw.mulmod_base(T(a[:, :24]), T(b[:, :24]))      # not a power of two: schoolbook
     assert len(calls) == (ntt == "1")
-    assert tpw._ref_base_serves(4096) == (ntt == "1") == jpw.base_serves(4096)
-    assert tpw.leaf_serves(2048) and not tpw.leaf_serves(4096)
+    for L in (4096, 8192):                            # the 4-step tier's rings
+        assert tpw.base_serves(L) == (ntt == "1") == jpw.base_serves(L)
+    assert tpw.base_serves(2048) and not tpw.base_serves(16384)
 
 
-def test_tier2_ring_recurses():
-    """N = 65536 (L 4096): the reference's base serves it with the 4-step
-    tier; the port's mulmod recurses through mulmod_fft, to the same value."""
+def test_tier2_ring_recurses(monkeypatch):
+    """N = 65536 (L 4096): the base serves it with the 4-step tier, as the
+    reference's does, to the value of the recursive mulmod_fft and the
+    oracle."""
+    monkeypatch.delenv("MPIR_FFT_NTT", raising=False)
     N = 65536
-    assert tpw._ref_base_serves(N // 16) and not tpw.leaf_serves(N // 16)
+    assert tpw.base_serves(N // 16) and tmm.inner_plan(N) is None
+    calls = _spy_ntt(monkeypatch)
     rng = np.random.default_rng(12)
     x = rng.integers(-(1 << 17), 1 << 17, (2, N // 16)).astype(np.int32)
     y = rng.integers(-(1 << 17), 1 << 17, (2, N // 16)).astype(np.int32)
-    got = tmm.mulmod(T(x), T(y), N).numpy()
+    got = tmm.mulmod(T(x), T(y), N, canonical=True).numpy()
+    assert calls == [(2, N // 16)]
     _oracle_rows(got, x, y, N // 16)
-    assert np.array_equal(got, normmod(T(got)).numpy())       # mulmod_fft: canonical
-    with pytest.raises(NotImplementedError):
-        tpw.mulmod_base(T(x), T(y))
+    assert np.array_equal(got, tmm.mulmod_fft(T(x), T(y), tmm.mulmod_plan(N)).numpy())
 
 
 # ---------------------------------------------------------------------------

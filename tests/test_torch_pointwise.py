@@ -76,10 +76,14 @@ def test_mulmod_base_matches_reference(ntt_off, rng, L):
     assert int(red.abs().max()) < 1 << 20
 
 
-def test_base_serves_matches_reference(ntt_off):
-    for L in (1, 64, 126, 2047, 2048, 2049, 4096):
-        assert tpw._ref_base_serves(L) == jpw.base_serves(L)
-        assert tpw.leaf_serves(L) == (L <= 2048)
+def test_base_serves_matches_reference(monkeypatch):
+    """The port's one predicate equals the reference's under both settings
+    of MPIR_FFT_NTT."""
+    for ntt in ("1", "0"):
+        monkeypatch.setenv("MPIR_FFT_NTT", ntt)
+        for L in (1, 64, 126, 2047, 2048, 2049, 3072, 4096, 8192, 16384):
+            assert tpw.base_serves(L) == jpw.base_serves(L), (ntt, L)
+        assert tpw.base_serves(8192) == (ntt == "1")
 
 
 def test_mulmod_base_branch_and_limits(rng):
