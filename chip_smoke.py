@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the eighteen kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -17,6 +17,16 @@
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
        without a tail;
+     mfa_cols -- the column pass of the 10^7 x 7x10^6-bit plan (depth 12,
+       w 1, trunc_mfa 8896): the stacked halves' (2 x 64, 128, 256)
+       columns, forward full and fft_trunc1 at trunc2 11, then the inverse
+       full and ifft_trunc1 at 11 on those spectra, raw digits identical to
+       the plain version (the truncate.py recursion; its sub-transforms
+       would launch kernels on the card, so it runs on the host's CPU, and
+       its time is a CPU time);
+     ladder_pe -- the last group of the 10^9 x 10^8-bit plan's column
+       transforms (L 2048, columns of 256: K 4, h 1, the stacked operands'
+       512 columns) with the real cross-twiddle table, forward and inverse;
      input_planes, mid_planes, garner_carry, int8_gemm -- the dense
        NTT-CRT pointwise of the 10^8-bit (32768 x 1024) and 10^9-bit
        (131072 x 2048) plans, each link fed the previous one's real output;
@@ -57,6 +67,18 @@
        3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
        (the recursive Fermat mulmod: inner Lp 32, and at 10^9 L 4096
        rings with inner Lp 72);
+     mul at four unbalanced default plans that truncate the MFA
+       (trunc_mfa < conv_len): 10^7 x 7x10^6 (full compare; the column
+       kernel, the whole-row transform, the odd-w top layer), 6.3x10^7 x
+       5x10^6 (odd w, L 512: columns of (128, 512) exceed the column kernel
+       and take the ladder with its table, as at L 2048), 3.98x10^8 x
+       1.99x10^8 (even w, L 2048) and 10^9 x 10^8 (odd w, L 2048; peak
+       memory at most 24 GiB), residues; at each an A/B record against the
+       full-length flat pair (the same plan with trunc_mfa = conv_len), the
+       two interleaved in one run, products identical; the balanced sizes
+       above must launch neither mfa_cols nor ladder_pe;
+     mul(a, b, driver=k) for the six other drivers at 2x10^6 x 1.4x10^6
+       bits, full compare (mfa and mfa_trunc through the column kernel);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
        NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
@@ -71,6 +93,7 @@ Any failure raises and exits nonzero before the result line."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import random
@@ -88,7 +111,15 @@ REC_BITS = 100_000_000
 HUGE_BITS = 1_000_000_000
 T2_BITS = 2_000_000_000
 MULMOD_N = (1 << 22, 1 << 24, 1 << 29)
+# unbalanced products whose default plans truncate the MFA (trunc_mfa <
+# conv_len), and the drivers' size
+UNB_SMALL = (10_000_000, 7_000_000)
+UNB_MID = (63_095_734, 5_011_872)
+UNB_EVEN = (398_107_170, 199_053_585)
+UNB_HUGE = (1_000_000_000, 100_000_000)
+DRIVER_BITS = (2_000_000, 1_400_000)
 MAX_PEAK_GIB_2E9 = 32.0
+MAX_PEAK_GIB_UNB_HUGE = 24.0
 SLICES = 4          # the plain 4-step links are held slice by slice
 
 # the least time the card could take (H100 SXM, NVIDIA data sheet and
@@ -124,6 +155,27 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def ab_ms(fa, fb, reps: int) -> tuple[float, float]:
+    """Median device ms of fa() and fb(), interleaved a, b, b, a in each of
+    reps rounds after one warm-up each (CUDA events)."""
+    fa()
+    fb()
+    ta, tb = [], []
+    for _ in range(reps):
+        for fn, acc in ((fa, ta), (fb, tb), (fb, tb), (fa, ta)):
+            acc.append(timed(fn)[1])
+    return statistics.median(ta), statistics.median(tb)
+
+
+def flat_plan(plan):
+    """A copy of a truncating plan whose trunc_mfa is conv_len: the
+    flagship then runs the full-length flat sqrt2 pair and the pointwise on
+    every row, the path every plan took before the truncated MFA."""
+    class Flat(type(plan)):
+        trunc_mfa = property(lambda self: self.conv_len)
+    return Flat(**dataclasses.asdict(plan))
 
 
 def timed(fn):
@@ -219,6 +271,23 @@ def mod_fermat(x: int, N: int) -> int:
     return r
 
 
+def mfa_cols_ops(sched, B: int, L: int) -> int:
+    """Digit operations of one column-kernel launch over B columns: each op
+    of its schedule (ops/fused.py mfa_cols_schedule) times the rows it
+    passes over -- a sub-transform of C rows log2(C) stages of C rows --
+    one operation per digit and row pass, the convention of the ladder's
+    rows."""
+    from mpir_fft_tpu_torch.ops import fused as f
+
+    rows = 0
+    for op, lo, n, k, e1, e2, w, pe in sched:
+        rows += {f._OP_FFT: (n.bit_length() - 1) * n, f._OP_IFFT: (n.bit_length() - 1) * n,
+                 f._OP_TOP_FWD: n + k, f._OP_FOLD: e1 - k, f._OP_DOUBLE: n, f._OP_RESTORE: n,
+                 f._OP_PE_DIV: n, f._OP_TAIL0: 2 * (n - k), f._OP_TAIL1: 2 * (n - k),
+                 f._OP_BFLY_INV: 2 * k, f._OP_OUT1: k}[op]
+    return rows * B * L
+
+
 def main() -> int:
     import torch
 
@@ -232,13 +301,13 @@ def main() -> int:
 
     from mpir_fft_tpu_torch import kernels, mulmod_int
     from mpir_fft_tpu_torch.models.mul import (
-        mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
+        DRIVERS, mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
         _affine_half_exps, canonicalize_plain_torch, fused_butterfly_ladder,
-        fused_canonicalize_plain, fused_normmod_div, fused_sqrt2_top_fwd,
+        fused_canonicalize_plain, fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd,
         fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups, ladder_plain,
-        ladder_stages, normmod_rows_plain, sqrt2_top_fwd_plain, sqrt2_top_inv_plain,
-        transform_plain, twiddle_half_rows_plain)
+        ladder_stages, mfa_col_fits, mfa_cols_plain, mfa_cols_schedule, normmod_rows_plain,
+        sqrt2_top_fwd_plain, sqrt2_top_inv_plain, transform_plain, twiddle_half_rows_plain)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
@@ -248,6 +317,7 @@ def main() -> int:
         ntt4_fwd_twiddle_plain, ntt4_input_planes, ntt4_input_planes_plain, ntt4_inv_twiddle,
         ntt4_inv_twiddle_plain, ntt4_pointwise, ntt4_pointwise_plain, ntt4_residues,
         ntt4_residues_plain)
+    from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
     from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
@@ -404,6 +474,69 @@ def main() -> int:
         print(f"sqrt2_top_inv {tuple(x.shape)} norm_div={nd}: raw digits identical: {same}; "
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
     del x
+
+    # the MFA column pass of the 10^7 x 7x10^6-bit plan: the stacked halves'
+    # columns, forward full and fft_trunc1, then the inverse of each on its
+    # spectra; the plain version on the host's CPU (see the docstring)
+    uplan = choose_params(*UNB_SMALL, sqrt2=True)
+    uW, uL, n1, n2 = uplan.W, uplan.W // DIGIT_BITS, uplan.n1, uplan.n2
+    k2 = (uplan.trunc_mfa - uplan.conv_len // 2) // n1
+    print(f"plan 10^7 x 7x10^6: {uplan} L={uL} n1={n1} n2={n2} trunc_mfa={uplan.trunc_mfa}")
+    assert (uplan.depth, uplan.w, uL, uplan.trunc_mfa, n1, n2, k2) == \
+        (12, 1, 256, 8896, 64, 128, 11), uplan
+    assert mfa_col_fits(n2, uL)
+    x = rand((2 * n1, n2, uL), -(1 << 17), 1 << 17)
+    spectra = {}
+    for kind, trunc2, src in (("fwd", n2, None), ("fwd", k2, None),
+                              ("inv", n2, ("fwd", n2)), ("inv", k2, ("fwd", k2))):
+        one = trunc2 < n2
+        xin = x if src is None else spectra[src]
+        got = fused_mfa_cols(kind, xin, uplan.w, uW, n1, trunc2, one)
+        xh = xin.cpu()
+        t0 = time.perf_counter()
+        want = mfa_cols_plain(kind, xh, uplan.w, uW, n1, trunc2, one)
+        pms = (time.perf_counter() - t0) * 1e3
+        identical(("mfa_cols", kind, trunc2), got.cpu(), want)
+        spectra[(kind, trunc2)] = got
+        ms = time_ms(lambda: fused_mfa_cols(kind, xin, uplan.w, uW, n1, trunc2, one), 10, 2)
+        ops = mfa_cols_ops(mfa_cols_schedule(kind, n2, uplan.w * n1, trunc2, one), 2 * n1, uL)
+        add_row("mfa_cols", "mpir_fft_tpu_torch/csrc/mfa_cols.cu", "mpir_fft_tpu/ops/fused.py:200",
+                0, ms, pms, 8 * xin.numel(), ops)
+        print(f"mfa_cols {kind} {tuple(xin.shape)} trunc2={trunc2}{' (trunc1)' if one else ''}: "
+              f"raw digits identical; {ms:.3f} ms (plain, on the host CPU, {pms:.1f} ms); "
+              f"{ops / xin.numel():.1f} digit ops per digit")
+    del x, spectra, xh, want
+
+    # the ladder with its last-stage table: the group at the end (forward)
+    # and start (inverse) of the 10^9 x 10^8-bit plan's column transforms --
+    # columns of n2 at L 2048 exceed the column kernel and take the ladder --
+    # over the stacked operands' 2 n1 columns, with their cross exponents
+    hup = choose_params(*UNB_HUGE, sqrt2=True)
+    hW, hL, hn1, hn2 = hup.W, hup.W // DIGIT_BITS, hup.n1, hup.n2
+    print(f"plan 10^9 x 10^8: {hup} L={hL} n1={hn1} n2={hn2} trunc_mfa={hup.trunc_mfa}")
+    assert (hup.depth, hup.w, hL, hup.trunc_mfa, hn1, hn2) == (15, 1, 2048, 67840, 256, 256), hup
+    assert not mfa_col_fits(hn2, hL)
+    D2 = hn2.bit_length() - 1
+    cross = _block_cross_exps(2 * hn1, 0, hn1 - 1, hn2, hup.w, hW, dev)
+    for kind, (l, kg) in (("fwd", ladder_groups(hn2, hL, "fwd")[-1]),
+                          ("inv", ladder_groups(hn2, hL, "inv")[0])):
+        assert l + kg == D2
+        K = 1 << kg
+        steps = tuple((hup.w * hn1) << (l + j) for j in range(kg))
+        x = rand((2 * hn1 * (hn2 // K), K, 1, hL), -(1 << 17), 1 << 17)
+        pe = cross.to(torch.int32).reshape(-1, K // 2, 2).contiguous()
+        err, same = compare(("ladder_pe", kind), fused_butterfly_ladder(kind, x, steps, hW, pe),
+                            ladder_plain(kind, x, steps, hW, pe))
+        assert same, ("ladder_pe", kind, "raw digits differ")
+        ms = time_ms(lambda: fused_butterfly_ladder(kind, x, steps, hW, pe), 10, 2)
+        pms = time_ms(lambda: ladder_plain(kind, x, steps, hW, pe), 2)
+        add_row("ladder_pe", "mpir_fft_tpu_torch/csrc/ladder.cu", "mpir_fft_tpu/ops/fused.py:268",
+                err, ms, pms, 8 * x.numel() + 4 * pe.numel(), kg * x.numel())
+        print(f"ladder_pe {kind} {tuple(x.shape)} (group {l}+{kg} of {D2}): raw digits "
+              f"identical; {ms:.3f} ms (plain {pms:.3f} ms)")
+        del x, pe
+    del cross
+    torch.cuda.empty_cache()
 
     # the dense NTT-CRT pointwise of the 10^8 and 10^9 default plans: each
     # link on the previous one's real output, the GEMMs between them
@@ -746,32 +879,54 @@ def main() -> int:
     def residues_agree(prod, x, y, ps):
         return all(prod % p == (x % p) * (y % p) % p for p in ps)
 
-    def drive(bits, label, want_plan, expect, full, ps, reps, forbid=()):
-        tplan = choose_params(bits, bits, sqrt2=True)
+    def drive(bits, label, want_plan, expect, full, ps, reps, forbid=(), bits_b=None):
+        """mul (and, balanced, sqr) at bits x bits_b (default: bits) through
+        the flagship, counted and timed.  want_plan: (depth, w, L), or for
+        an unbalanced size (depth, w, L, trunc_mfa) with trunc_mfa <
+        conv_len: the truncated MFA."""
+        bits_b = bits_b or bits
+        tplan = choose_params(bits, bits_b, sqrt2=True)
         L = tplan.W // DIGIT_BITS
         inner = inner_plan(tplan.W)
-        print(f"{label} plan: {tplan} L={L} conv={tplan.conv_len}"
+        print(f"{label} plan: {tplan} L={L} conv={tplan.conv_len} trunc_mfa={tplan.trunc_mfa}"
               + (f"; inner {inner}" if inner else ""))
-        assert (tplan.depth, tplan.w, L) == want_plan, (label, tplan)
-        x, y = operand(bits), operand(bits)
+        got_plan = (tplan.depth, tplan.w, L, tplan.trunc_mfa)[:len(want_plan)]
+        assert got_plan == want_plan, (label, tplan)
+        unbalanced = bits_b != bits
+        assert (tplan.trunc_mfa < tplan.conv_len) == unbalanced, (label, tplan)
+        if not unbalanced:
+            forbid = tuple(forbid) + ("mfa_cols", "ladder_pe")
+        x, y = operand(bits), operand(bits_b)
 
         def run():
             pr = mul(x, y)
             assert (pr == x * y) if full else residues_agree(pr, x, y, ps), f"mul {label}"
-            assert pr.bit_length() in (2 * bits - 1, 2 * bits)
-            sq = sqr(x)
-            assert (sq == x * x) if full else residues_agree(sq, x, x, ps), f"sqr {label}"
+            assert pr.bit_length() in (bits + bits_b - 1, bits + bits_b)
+            if not unbalanced:
+                sq = sqr(x)
+                assert (sq == x * x) if full else residues_agree(sq, x, x, ps), f"sqr {label}"
 
-        counted(f"mul/sqr {label}", expect, run, forbid)
-        print(f"mul/sqr {label}: exact "
+        what = "mul" if unbalanced else "mul/sqr"
+        counted(f"{what} {label}", expect, run, forbid)
+        print(f"{what} {label}: exact "
               f"({'full compare' if full else f'residues mod {len(ps)} 61-bit primes'})")
-        dx, dy = on_card(x, bits), on_card(y, bits)
+        dx, dy = on_card(x, bits), on_card(y, bits_b)
         e2e[f"mul_{label}_ms"] = wall_ms(lambda: mul(x, y), reps)
-        e2e[f"mul_{label}_device_ms"] = time_ms(lambda: mpn_mul_flagship(dx, dy, tplan), reps,
-                                                1 if reps > 1 else 0)
-        e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
-        e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps,
-                                                1 if reps > 1 else 0)
+        if unbalanced:
+            # A/B record (not a claim): the truncated MFA against the flat pair
+            fp = flat_plan(tplan)
+            assert fp.trunc_mfa == fp.conv_len and fp.trunc == tplan.trunc
+            assert torch.equal(mpn_mul_flagship(dx, dy, tplan), mpn_mul_flagship(dx, dy, fp)), label
+            (e2e[f"mul_{label}_device_ms"],
+             e2e[f"mul_{label}_flat_pair_device_ms"]) = ab_ms(
+                lambda: mpn_mul_flagship(dx, dy, tplan), lambda: mpn_mul_flagship(dx, dy, fp), reps)
+        else:
+            e2e[f"mul_{label}_device_ms"] = time_ms(lambda: mpn_mul_flagship(dx, dy, tplan), reps,
+                                                    1 if reps > 1 else 0)
+        if not unbalanced:
+            e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
+            e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps,
+                                                    1 if reps > 1 else 0)
         print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
 
     # the default plans: the dense NTT-CRT pointwise at every size
@@ -784,6 +939,36 @@ def main() -> int:
     drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec)
     e2e["peak_memory_2e9_gib"] = peaks["mul/sqr 2e9"]
     assert peaks["mul/sqr 2e9"] <= MAX_PEAK_GIB_2E9, peaks["mul/sqr 2e9"]
+    # unbalanced default plans: the truncated MFA (trunc_mfa < conv_len)
+    drive(UNB_SMALL[0], "1e7x7e6", (12, 1, 256, 8896),
+          ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt,
+          True, primes, 3, no_school, bits_b=UNB_SMALL[1])
+    drive(UNB_MID[0], "6.3e7x5e6", (13, 1, 512, 17280),
+          ("ladder_pe", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
+           "canonicalize") + ntt,
+          False, primes, 3, no_school + ("mfa_cols",), bits_b=UNB_MID[1])
+    drive(UNB_EVEN[0], "3.98e8x1.99e8", (14, 2, 2048, 36736),
+          ("ladder_pe", "ladder", "normmod", "canonicalize") + ntt,
+          False, primes[:2], 1, no_school + ("mfa_cols",), bits_b=UNB_EVEN[1])
+    drive(UNB_HUGE[0], "1e9x1e8", (15, 1, 2048, 67840),
+          ("ladder_pe", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
+           "canonicalize") + ntt,
+          False, primes[:2], 1, no_school + ("mfa_cols",), bits_b=UNB_HUGE[1])
+    e2e["peak_memory_1e9x1e8_gib"] = peaks["mul 1e9x1e8"]
+    assert peaks["mul 1e9x1e8"] <= MAX_PEAK_GIB_UNB_HUGE, peaks["mul 1e9x1e8"]
+    # the six other drivers, exact, at their own plans
+    xa, xb = operand(DRIVER_BITS[0]), operand(DRIVER_BITS[1])
+    for kind in sorted(DRIVERS):
+        if kind == "flagship":
+            continue
+        got = counted(f"mul driver={kind} 2e6x1.4e6", ("canonicalize",),
+                      lambda: mul(xa, xb, driver=kind))
+        assert got == xa * xb, f"driver {kind}"
+        if kind.startswith("mfa"):
+            assert kernels.LAUNCHES["mfa_cols"] + kernels.LAUNCHES["ladder_pe"] > 0, kind
+        e2e[f"mul_driver_{kind}_ms"] = wall_ms(lambda: mul(xa, xb, driver=kind), 3)
+    print("drivers at 2e6x1.4e6: exact (full compare); times: "
+          + json.dumps({k: v for k, v in e2e.items() if "driver" in k}))
     # MPIR_FFT_NTT=0: the A/B plans, the schoolbook (even and odd w) and the
     # recursive mulmod (inner Lp 32 at 10^8; at 10^9 L 4096 rings, which the
     # 4-step tier serves with the NTT on)
@@ -821,12 +1006,13 @@ def main() -> int:
         print(f"{key} times: " + json.dumps({k: v for k, v in e2e.items() if key in k}))
         return mp, x, y, want
 
+    no_mfa = ("mfa_cols", "ladder_pe")
     for n_bits in MULMOD_N[:2]:
-        mulmod_case(n_bits, "", rec_flat_ntt, no_school)
+        mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa)
     # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
     mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "twiddle_half", "normmod",
                                                    "canonicalize") + ntt4,
-                                 tuple(k for k in no_rec if k != "twiddle_half"))
+                                 tuple(k for k in no_rec if k != "twiddle_half") + no_mfa)
     assert (mp.m, mp.Lp) == (32768, 4096), mp
     old = os.environ.get("MPIR_FFT_NTT_FUSED")
     os.environ["MPIR_FFT_NTT_FUSED"] = "1"
@@ -834,7 +1020,7 @@ def main() -> int:
         mulmod_case(MULMOD_N[2], " fused", ("ladder", "normmod", "canonicalize", "ntt4_fused",
                                             "garner_residues"),
                     ("ntt4_input_planes", "int8_gemm", "conv_base", "transform_small",
-                     "input_planes"),
+                     "input_planes") + no_mfa,
                     (x, y), want)
     finally:
         if old is None:

@@ -41,18 +41,38 @@ __device__ __forceinline__ int carry_digit(const int* v, int i, int L) {
   return (v[i] & DIGIT_MASK) + (i == 0 ? -c : c);
 }
 
-// Digit i of shift_mod(v, s) with a per-row exponent s in [0, 2W), the
-// sequence of limb.shift_mod's tensor path: s = (neg ? W : 0) + 16 kd + b,
-// a rotation by kd, the sub-digit shift by b (a carry pass at b == 0), the
-// sign.
-__device__ __forceinline__ int shift_mod_digit(const int* v, int i, long long s, int L) {
+// Digit i of shift_mod(A + sgn * B, s), s in [0, 2W), sgn in {-1, 0, 1}
+// (B unread at sgn 0): the sequence of limb.shift_mod's tensor path on the
+// row combination, formed on the fly at the two rotated source digits:
+// s = (neg ? W : 0) + 16 kd + b, a rotation by kd (wrapped digits negated),
+// the sub-digit shift by b (a carry pass at b == 0), the sign.
+__device__ __forceinline__ int shift_comb_digit(const int* A, const int* B, int sgn, int i,
+                                                long long s, int L) {
   const long long W = 16LL * L;
   const bool neg = s >= W;
   const int r = static_cast<int>(neg ? s - W : s);
   const int kd = r >> 4;
   const int ip = i == 0 ? L - 1 : i - 1;
-  const int d = shift_bits_digit(rot_digit(v, i, kd, L), rot_digit(v, ip, kd, L), i, r & 15);
+  const int si = i >= kd ? i - kd : L - kd + i;
+  const int sp = ip >= kd ? ip - kd : L - kd + ip;
+  int vi = A[si], vp = A[sp];
+  if (sgn > 0) {
+    vi += B[si];
+    vp += B[sp];
+  } else if (sgn < 0) {
+    vi -= B[si];
+    vp -= B[sp];
+  }
+  const int d = shift_bits_digit(i >= kd ? vi : -vi, ip >= kd ? vp : -vp, i, r & 15);
   return neg ? -d : d;
+}
+
+// Digit i of shift_mod(v, s) with a per-row exponent s in [0, 2W): the
+// sequence of limb.shift_mod's tensor path, s = (neg ? W : 0) + 16 kd + b, a
+// rotation by kd, the sub-digit shift by b (a carry pass at b == 0), the
+// sign -- shift_comb_digit on v alone, the one routine that holds it.
+__device__ __forceinline__ int shift_mod_digit(const int* v, int i, long long s, int L) {
+  return shift_comb_digit(v, nullptr, 0, i, s, L);
 }
 
 // Digit i of one radix-2 butterfly on the rows A, B (shared memory) with the

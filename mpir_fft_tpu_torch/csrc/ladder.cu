@@ -10,10 +10,15 @@
 // (q, q+m), m = K >> (j+1), with twiddle 2^e, e = (qm*h + hpos) * steps[j]:
 //   fwd (j = 0..k-1):  s = a + b,            t = (a - b) * 2^e
 //   inv (j = k-1..0):  u = b / 2^e,  a' = a + u,  b' = a - u
-// carry-free, then one carry_pass over the block.  A twiddle is the
-// exponent decomposition e = (neg ? W : 0) + 16 kd + b: a negacyclic digit
-// rotation by kd (direct indexing here; the TPU needed a barrel shifter),
-// the sub-digit shift by b, the sign.
+// carry-free, then one carry_pass over the block.  With a table pe (N, K/2,
+// 2) int32 (only for h == 1, a group ending at the transform's last stage:
+// the MFA's cross twiddles, fused.py:268-273, :430-432), the innermost stage
+// (m == 1) also takes pair p's exponents pe0, pe1:
+//   fwd:  s = (a + b) * 2^pe0,   t = (a - b) * 2^(e + pe1)
+//   inv:  a' = a / 2^pe0,  u = b / 2^(e + pe1),  a' + u,  a' - u
+// A twiddle is the exponent decomposition e = (neg ? W : 0) + 16 kd + b: a
+// negacyclic digit rotation by kd (direct indexing here; the TPU needed a
+// barrel shifter), the sub-digit shift by b, the sign.
 //
 // What bounds it on an H100: device memory.  Each launch reads and writes
 // the whole array once (8 bytes per digit); the twiddles are a few integer
@@ -36,7 +41,7 @@ struct Steps {
 
 __global__ void __launch_bounds__(kThreads)
 ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k,
-              int h, int L, int inverse, Steps steps) {
+              int h, int L, int inverse, Steps steps, const int* __restrict__ pe) {
   extern __shared__ int smem[];
   int* cur = smem;
   int* nxt = smem + K * L;
@@ -65,6 +70,22 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k,
       const int qa = (p / m) * 2 * m + qm;
       const int qb = qa + m;
       const long long e = ((static_cast<long long>(qm) * h + hpos) * step) % W2;
+      if (pe != nullptr && m == 1) {
+        const int* pp = pe + (n * (K / 2) + p) * 2;
+        const long long e0 = pp[0], e1 = (e + pp[1]) % W2;
+        const int* A = cur + qa * L;
+        const int* B = cur + qb * L;
+        if (!inverse) {
+          nxt[qa * L + i] = mf::shift_comb_digit(A, B, 1, i, e0, L);
+          nxt[qb * L + i] = mf::shift_comb_digit(A, B, -1, i, e1, L);
+        } else {
+          const int a = mf::shift_mod_digit(A, i, (W2 - e0) % W2, L);
+          const int u = mf::shift_mod_digit(B, i, (W2 - e1) % W2, L);
+          nxt[qa * L + i] = a + u;
+          nxt[qb * L + i] = a - u;
+        }
+        continue;
+      }
       mf::butterfly_digit(cur + qa * L, cur + qb * L, i, L, e, inverse, nxt + qa * L + i,
                           nxt + qb * L + i);
     }
@@ -88,9 +109,12 @@ MF_EXPORT const char* mf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// pe: null, or (N, K/2, 2) int32 exponents in [0, 2W) for the innermost
+// stage (h must be 1).
 MF_EXPORT int mf_ladder(const void* x, void* out, long long N, int K, int h, int L,
-                        int inverse, const void* steps_host, int k, void* stream) {
-  if (k < 1 || k > kMaxStages || K != (1 << k) || h < 1 || L < 1)
+                        int inverse, const void* steps_host, int k, const void* pe,
+                        void* stream) {
+  if (k < 1 || k > kMaxStages || K != (1 << k) || h < 1 || L < 1 || (pe != nullptr && h != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long grid = N * h;
   if (grid == 0) return 0;
@@ -103,6 +127,7 @@ MF_EXPORT int mf_ladder(const void* x, void* out, long long N, int K, int h, int
   if (err != cudaSuccess) return static_cast<int>(err);
   ladder_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), K, k, h, L, inverse, st);
+      static_cast<const int*>(x), static_cast<int*>(out), K, k, h, L, inverse, st,
+      static_cast<const int*>(pe));
   return static_cast<int>(cudaGetLastError());
 }

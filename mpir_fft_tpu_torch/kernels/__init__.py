@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 LIB_STEM = "libmpir_fft_kernels"
 
 LAUNCHES = {
-    "ladder": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
+    "ladder": 0, "ladder_pe": 0, "mfa_cols": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
     "input_planes": 0, "mid_planes": 0, "garner_carry": 0,
     "ntt4_input_planes": 0, "ntt4_fwd_twiddle": 0, "ntt4_pointwise": 0, "ntt4_inv_twiddle": 0,
@@ -118,8 +118,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
 _SIGNATURES = {
-    # x, out, N, K, h, L, inverse, steps (host long long[k]), k, stream
-    "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P),
+    # x, out, N, K, h, L, inverse, steps (host long long[k]), k,
+    # pe (device int32 (N, K/2, 2) or null), stream
+    "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P, _P),
+    # x, out, schedule (device int64 [nops, 8]), nops, B, n2, L, n1 mask,
+    # cross-twiddle w, kmax, warps, stream
+    "mf_mfa_cols": (_P, _P, _P, _I, _LL, _I, _I, _LL, _LL, _I, _I, _P),
     # a, b, out, B, L, stream
     "mf_conv_base": (_P, _P, _P, _LL, _I, _P),
     # x, out, scratch (2*B*L ints for L > mf_normmod_row_max(), else null),

@@ -1,24 +1,35 @@
 """Integer multiplication drivers (counterpart of mpir_fft_tpu/models/mul.py;
-ref new_mpn_mul6, mul_fft.c:3573-3668).
+ref new_mpn_mul* mul_fft.c:3190-3668).
 
-The flagship skeleton: split both operands into ring coefficients,
-forward-transform (both stacked in one transform), pointwise-multiply,
-inverse-transform with the divide-by-2^lg_conv + normalize tail, combine
-with carries.
+Every driver splits both operands into ring coefficients, forward-
+transforms, pointwise-multiplies, inverse-transforms, scales by
+2^-lg_conv and normalizes, and combines with carries.  They differ in the
+transform pair (`DRIVERS`, the reference's six generations plus the
+flagship):
 
-Every plan runs the full-length flat transform pair, odd w through the
-sqrt2 top layer.  The pointwise (ops/mulmod.py mulmod) takes the
-small-prime NTT-CRT for power-of-two rings L <= 8192 (the dense tier up to
-2048, where the reference's default plans put every size from ~7.6x10^5
-to ~10^9 bits; the 4-step tier above, e.g. L 4096 at 2x10^9 bits), the
-schoolbook for other L <= 2048 (and for all of them under
-MPIR_FFT_NTT=0), and the recursive Fermat mulmod for the rest.  A full
-convolution is exact for every valid plan (`validate` requires
-j1 + j2 - 1 <= conv_len), so truncation and the MFA only save work; they
-are not ported yet.  The staged driver (`_staged_flagship`,
-mpir_fft_tpu/models/mul.py:402) is not needed here: 80 GB of device memory
-holds the 10^9-bit spectra unstaged (16.6 GiB peak on an NVIDIA H100 80GB
-HBM3 at 700 W, chip_smoke.py).
+  driver        transform pair                      ref
+  radix2        fft_radix2 / ifft_radix2            (baseline)
+  sqrt2         fft_sqrt2 / ifft_sqrt2              new_mpn_mul2, mul_fft.c:3267
+  mfa           fft_radix2_mfa / ifft_radix2_mfa    new_mpn_mul3, mul_fft.c:3339
+  trunc_sqrt2   fft_trunc_sqrt2 / ifft_trunc_sqrt2  new_mpn_mul4, mul_fft.c:3415
+  trunc         fft_trunc / ifft_trunc              new_mpn_mul5, mul_fft.c:3494
+  mfa_trunc     mfa_fft_trunc / mfa_ifft_trunc      new_mpn_mul,  mul_fft.c:3190
+  flagship      mfa_fft_trunc_sqrt2 / mfa_ifft_trunc_sqrt2 with the recursive
+                pointwise                           new_mpn_mul6, mul_fft.c:3573
+
+The flagship truncates at plan.trunc_mfa: where it is below conv_len (an
+unbalanced product: the reference's 9/16 rule rounds every balanced plan up
+to the full length), the forward is the truncated MFA pair, the pointwise
+runs on the first trunc_mfa rows only, and the inverse folds the divide +
+normalize tail in; at the full length both transforms are the flat sqrt2
+pair (odd w through the top layer kernels).  The pointwise (ops/mulmod.py
+mulmod) takes the small-prime NTT-CRT for power-of-two rings L <= 8192, the
+schoolbook for other L <= 2048 (and for all of them under MPIR_FFT_NTT=0),
+and the recursive Fermat mulmod for the rest; the other drivers take the
+leaf (`mulmod_base`) wherever it serves, as the reference's recursive=False.
+The staged driver (`_staged_flagship`, mpir_fft_tpu/models/mul.py:402) is
+not needed here: 80 GB of device memory holds the 10^9-bit spectra unstaged
+(16.6 GiB peak on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py).
 
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never
@@ -28,10 +39,16 @@ from __future__ import annotations
 
 import torch
 
-from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, Ring, digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.limb import (DIGIT_BITS, Ring, digits_from_int, int_from_digits,
+                                         normmod_div)
+from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_radix2_mfa, mfa_fft_trunc,
+                                        mfa_fft_trunc_sqrt2, mfa_ifft_trunc, mfa_ifft_trunc_sqrt2)
 from mpir_fft_tpu_torch.ops.mulmod import mulmod
+from mpir_fft_tpu_torch.ops.pointwise import base_serves, mulmod_base
 from mpir_fft_tpu_torch.ops.split import fft_combine_bits, fft_split_bits
-from mpir_fft_tpu_torch.ops.sqrt2 import fft_sqrt2, ifft_sqrt2
+from mpir_fft_tpu_torch.ops.sqrt2 import fft_sqrt2, fft_trunc_sqrt2, ifft_sqrt2, ifft_trunc_sqrt2
+from mpir_fft_tpu_torch.ops.transforms import fft_radix2, ifft_radix2
+from mpir_fft_tpu_torch.ops.truncate import fft_trunc, ifft_trunc
 from mpir_fft_tpu_torch.utils.interop import digits_to_tensor, tensor_to_digits
 from mpir_fft_tpu_torch.utils.params import MulPlan, cdiv, choose_params
 
@@ -44,18 +61,34 @@ def out_len_digits(plan: MulPlan) -> int:
     return cdiv(plan.bits_a + plan.bits_b, DIGIT_BITS) + 2
 
 
-def _pointwise(fa: torch.Tensor, fb: torch.Tensor, W: int) -> torch.Tensor:
+def _pointwise(fa: torch.Tensor, fb: torch.Tensor, W: int, recursive: bool) -> torch.Tensor:
     """Pointwise product mod 2^W+1 over the whole coefficient batch (ref
     pointwise loop, mul_fft.c:3626-3654): redundant digits in, bounded
-    redundant digits out, no normalization."""
-    return mulmod(fa, fb, W)
+    redundant digits out.  recursive=True is mulmod's choice (the
+    flagship); False takes the leaf wherever base_serves(L), as the
+    reference's other drivers do (models/mul.py:61-74)."""
+    if recursive or not base_serves(W // DIGIT_BITS):
+        return mulmod(fa, fb, W)
+    return mulmod_base(fa, fb, canonical=False)
 
 
-def _finish(c: torch.Tensor, plan: MulPlan, valid: int) -> torch.Tensor:
-    """Combine the first `valid` coefficients (canonical: the inverse
-    already ran the scale + normalize tail) into the product's digits
-    (ref FFT_combine_bits, mul_fft.c:3658-3665)."""
+def _finish(c: torch.Tensor, plan: MulPlan, valid: int, norm_done: bool = False) -> torch.Tensor:
+    """Scale by 2^-lg_conv and canonicalize (unless the inverse already
+    folded that tail in), then combine the first `valid` coefficients into
+    the product's digits (ref FFT_combine_bits, mul_fft.c:3658-3665)."""
+    if not norm_done:
+        c = normmod_div(c, plan.lg_conv, plan.W)
     return fft_combine_bits(c[..., :valid, :], plan.bits1, out_len_digits(plan))
+
+
+def _pad_rows(prod: torch.Tensor, C: int, axis: int = -2) -> torch.Tensor:
+    """prod with zero rows appended along `axis` up to length C."""
+    n = prod.shape[axis]
+    if n == C:
+        return prod
+    shape = list(prod.shape)
+    shape[axis] = C - n
+    return torch.cat([prod, prod.new_zeros(shape)], dim=axis)
 
 
 def _split2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan):
@@ -67,46 +100,132 @@ def _split2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan):
     )
 
 
-def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
-    """The production multiply on digit tensors a [..., La], b [..., Lb]:
-    full-length sqrt2 transforms, pointwise through mulmod.  Returns the
-    canonical product digits [..., out_len_digits(plan)].  Coefficients
-    past j1 + j2 - 1 are zero, so the combine takes only plan.trunc."""
+def mpn_mul_radix2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Plain full-length cyclic FFT multiply."""
+    assert not plan.sqrt2
+    W = plan.W
+    ia, ib = _split2(a, b, plan)
+    prod = _pointwise(fft_radix2(ia, plan.w, W), fft_radix2(ib, plan.w, W), W, False)
+    return _finish(ifft_radix2(prod, plan.w, W), plan, plan.conv_len)
+
+
+def mpn_mul_sqrt2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Length-4n multiply through the sqrt2 transforms, no truncation."""
     assert plan.sqrt2
     W = plan.W
     ia, ib = _split2(a, b, plan)
+    prod = _pointwise(fft_sqrt2(ia, plan.w, W), fft_sqrt2(ib, plan.w, W), W, False)
+    return _finish(ifft_sqrt2(prod, plan.w, W), plan, plan.conv_len)
+
+
+def mpn_mul_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Truncated 1-D multiply at plan.trunc."""
+    assert not plan.sqrt2
+    W, t = plan.W, plan.trunc
+    ia, ib = _split2(a, b, plan)
+    fa = fft_trunc(ia, plan.w, W, t)
+    fb = fft_trunc(ib, plan.w, W, t)
+    prod = _pad_rows(_pointwise(fa[..., :t, :], fb[..., :t, :], W, False), plan.conv_len)
+    return _finish(ifft_trunc(prod, plan.w, W, t), plan, t)
+
+
+def mpn_mul_trunc_sqrt2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Truncated length-4n multiply at plan.trunc."""
+    assert plan.sqrt2
+    W, t = plan.W, plan.trunc
+    ia, ib = _split2(a, b, plan)
+    fa = fft_trunc_sqrt2(ia, plan.w, W, t)
+    fb = fft_trunc_sqrt2(ib, plan.w, W, t)
+    prod = _pad_rows(_pointwise(fa[..., :t, :], fb[..., :t, :], W, False), plan.conv_len)
+    return _finish(ifft_trunc_sqrt2(prod, plan.w, W, t), plan, t)
+
+
+def _as_cells(c: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    return c.reshape(c.shape[:-2] + (plan.n2, plan.n1, c.shape[-1]))
+
+
+def mpn_mul_mfa(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Cyclic multiply through the 2-D MFA transforms (n1 columns of n2)."""
+    assert not plan.sqrt2
+    C, W, n1, n2 = plan.conv_len, plan.W, plan.n1, plan.n2
+    ia, ib = _split2(a, b, plan)
+    fa = fft_radix2_mfa(_as_cells(ia, plan), plan.w, W, n1, n2)
+    fb = fft_radix2_mfa(_as_cells(ib, plan), plan.w, W, n1, n2)
+    c = ifft_radix2_mfa(_pointwise(fa, fb, W, False), plan.w, W, n1, n2)
+    return _finish(c.reshape(c.shape[:-3] + (C, c.shape[-1])), plan, C)
+
+
+def mpn_mul_mfa_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """Truncated MFA multiply: trunc_mfa // n1 kept rows."""
+    assert not plan.sqrt2
+    C, W, n1, n2 = plan.conv_len, plan.W, plan.n1, plan.n2
+    t = plan.trunc_mfa
+    t2 = t // n1
+    ia, ib = _split2(a, b, plan)
+    fa = mfa_fft_trunc(_as_cells(ia, plan), plan.w, W, n1, n2, t2)
+    fb = mfa_fft_trunc(_as_cells(ib, plan), plan.w, W, n1, n2, t2)
+    prod = _pad_rows(_pointwise(fa[..., :t2, :, :], fb[..., :t2, :, :], W, False), n2, -3)
+    c = mfa_ifft_trunc(prod, plan.w, W, n1, n2, t2)
+    return _finish(c.reshape(c.shape[:-3] + (C, c.shape[-1])), plan, t)
+
+
+def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    """The production multiply on digit tensors a [..., La], b [..., Lb]:
+    truncated sqrt2 MFA transforms at t = plan.trunc_mfa (the flat sqrt2
+    pair at t == conv_len), the pointwise on the first t rows.  Returns the
+    canonical product digits [..., out_len_digits(plan)].  Coefficients past
+    j1 + j2 - 1 are zero, so the combine takes only plan.trunc."""
+    assert plan.sqrt2
+    W, n1, t = plan.W, plan.n1, plan.trunc_mfa
+    ia, ib = _split2(a, b, plan)
     if ia.shape == ib.shape:
         # one transform over both stacked operands: double the batch per launch
-        fab = fft_sqrt2(torch.stack([ia, ib]), plan.w, W)
+        fab = mfa_fft_trunc_sqrt2(torch.stack([ia, ib]), plan.w, W, n1, t)
         fa, fb = fab[0], fab[1]
     else:
-        fa = fft_sqrt2(ia, plan.w, W)
-        fb = fft_sqrt2(ib, plan.w, W)
-    prod = _pointwise(fa, fb, W)
-    c = ifft_sqrt2(prod, plan.w, W, norm_div=plan.lg_conv)
-    return _finish(c, plan, plan.trunc)
+        fa = mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)
+        fb = mfa_fft_trunc_sqrt2(ib, plan.w, W, n1, t)
+    prod = _pointwise(fa[..., :t, :], fb[..., :t, :], W, True)
+    del fa, fb
+    c = mfa_ifft_trunc_sqrt2(_pad_rows(prod, plan.conv_len), plan.w, W, n1, t,
+                             norm_div=plan.lg_conv)
+    return _finish(c, plan, plan.trunc, norm_done=True)
 
 
 def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Squaring through the flagship pipeline: one forward transform,
     pointwise fa*fa."""
     assert plan.sqrt2
-    W = plan.W
+    W, n1, t = plan.W, plan.n1, plan.trunc_mfa
     ia = fft_split_bits(a, plan.bits1, plan.conv_len, Ring(plan.n, plan.w).L)
-    fh = fft_sqrt2(ia, plan.w, W)
-    c = ifft_sqrt2(_pointwise(fh, fh, W), plan.w, W, norm_div=plan.lg_conv)
-    return _finish(c, plan, plan.trunc)
+    fh = mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)[..., :t, :]
+    c = mfa_ifft_trunc_sqrt2(_pad_rows(_pointwise(fh, fh, W, True), plan.conv_len),
+                             plan.w, W, n1, t, norm_div=plan.lg_conv)
+    return _finish(c, plan, plan.trunc, norm_done=True)
 
 
-def _select_plan(bits_a: int, bits_b: int) -> MulPlan:
-    """The analytic flagship plan.  (The reference's tune cache holds TPU
+DRIVERS = {
+    "radix2": (mpn_mul_radix2, False),
+    "sqrt2": (mpn_mul_sqrt2, True),
+    "trunc": (mpn_mul_trunc, False),
+    "trunc_sqrt2": (mpn_mul_trunc_sqrt2, True),
+    "mfa": (mpn_mul_mfa, False),
+    "mfa_trunc": (mpn_mul_mfa_trunc, False),
+    "flagship": (mpn_mul_flagship, True),
+}
+
+
+def _select_plan(bits_a: int, bits_b: int, driver: str = "flagship") -> MulPlan:
+    """The analytic plan of a driver.  (The reference's tune cache holds TPU
     measurements only, so the port does not read it.)"""
-    return choose_params(bits_a, bits_b, sqrt2=True)
+    return choose_params(bits_a, bits_b, sqrt2=DRIVERS[driver][1])
 
 
-def mul(a: int, b: int, device="cuda") -> int:
-    """Multiply two nonnegative Python ints through the flagship pipeline
-    on `device`.  Small products are computed on the host."""
+def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
+    """Multiply two nonnegative Python ints through a driver of DRIVERS on
+    `device`.  Small products are computed on the host."""
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver {driver!r}; one of {sorted(DRIVERS)}")
     if a < 0 or b < 0:
         raise ValueError("nonnegative operands only (mpn semantics)")
     if a == 0 or b == 0:
@@ -114,10 +233,10 @@ def mul(a: int, b: int, device="cuda") -> int:
     ba, bb = a.bit_length(), b.bit_length()
     if ba + bb <= _SMALL_THRESHOLD_BITS:
         return a * b
-    plan = _select_plan(ba, bb)
+    plan = _select_plan(ba, bb, driver)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
-    return int_from_digits(tensor_to_digits(mpn_mul_flagship(da, db, plan)))
+    return int_from_digits(tensor_to_digits(DRIVERS[driver][0](da, db, plan)))
 
 
 def sqr(a: int, device="cuda") -> int:

@@ -10,6 +10,7 @@ mpir_fft_tpu/ops/fused.py), each beside its plain torch version.
 | fused_twiddle_half         | csrc/twiddle_half.cu    | fused.fused_twiddle_half               |
 | fused_sqrt2_top_fwd        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_fwd              |
 | fused_sqrt2_top_inv        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_inv              |
+| fused_mfa_cols             | csrc/mfa_cols.cu        | fused.fused_batched_idx (MFA columns)  |
 
 The NTT's link kernels (csrc/ntt_links.cu) are wrapped in ops/ntt.py, beside
 the integer helpers their plain versions are built from.
@@ -27,6 +28,7 @@ whole-transform CTA keeps a whole (C, L) row the same way."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -94,12 +96,16 @@ def _require(x: torch.Tensor, what: str, ndim: int | None = None,
 # 1. butterfly ladder
 # ---------------------------------------------------------------------------
 
-def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int) -> torch.Tensor:
+def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int,
+                 pe: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the ladder: k = len(steps) radix-2 stages on
     xp (N, K, h, L).  Stage j pairs K-indices (q, q+m), m = K >> (j+1), with
     twiddle exponent (qm*h + hpos) * steps[j]; 'fwd' runs j = 0..k-1 DIF
     butterflies, 'inv' runs j = k-1..0 inverse butterflies, carry-free, then
-    one carry_pass."""
+    one carry_pass.  pe (N, K/2, 2), for h == 1 only: the innermost stage
+    (m == 1) also multiplies s by 2^pe0 and t by 2^pe1 ('fwd'), or divides
+    them out before the butterfly ('inv') -- the reference's last-stage
+    table (fused.py:268-273, :430-432)."""
     N, K, h, L = xp.shape
     k = len(steps)
     order = range(k) if kind == "fwd" else range(k - 1, -1, -1)
@@ -111,19 +117,26 @@ def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int) -> torch.Ten
         a, b = xr[:, :, 0], xr[:, :, 1]
         qm = torch.arange(m, device=xp.device, dtype=torch.int64)[:, None]
         e = torch.remainder((qm * h + hpos) * steps[j], 2 * W)[..., None]
+        pes = pet = None
+        if pe is not None and m == 1:
+            pes = pe[..., 0].reshape(N, K // 2, 1, 1, 1)
+            pet = pe[..., 1].reshape(N, K // 2, 1, 1, 1)
         if kind == "fwd":
-            s, t = butterfly_fwd(a, b, e, W)
+            s, t = butterfly_fwd(a, b, e if pet is None else e + pet, W, e_s=pes)
         else:
-            s, t = butterfly_inv(a, b, e, W)
+            s, t = butterfly_inv(a, b, e, W, e_s=pes, e_t=pet)
         x = torch.stack([s, t], dim=2).reshape(N, K, h, L)
     return carry_pass(x)
 
 
-def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int) -> torch.Tensor:
+def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int,
+                           pe: torch.Tensor | None = None) -> torch.Tensor:
     """k = len(steps) consecutive FFT stages in one pass over xp (N, K, h, L),
     K = 2^k: each batch row holds one length-(K*h) DIF block group, position
-    p at K-index p // h, h-index p % h (see ladder_plain for the stages).
-    Output: bounded redundant digits (one carry_pass after the stages)."""
+    p at K-index p // h, h-index p % h (see ladder_plain for the stages and
+    the optional last-stage table pe, int32 (N, K/2, 2) in [0, 2W), h == 1).
+    Output: bounded redundant digits (one carry_pass after the stages).
+    Launches count under "ladder", or "ladder_pe" with a table."""
     if kind not in ("fwd", "inv"):
         raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
     _require(xp, "ladder", ndim=4)
@@ -131,8 +144,13 @@ def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int) ->
     k = len(steps)
     if K != 1 << k or W != DIGIT_BITS * L:
         raise ValueError(f"ladder: K={K} must be 2^len(steps), W={W} must be 16*L")
+    if pe is not None:
+        _require(pe, "ladder pe", ndim=3)
+        if h != 1 or tuple(pe.shape) != (N, K // 2, 2) or pe.device != xp.device:
+            raise ValueError(f"ladder: pe {tuple(pe.shape)} must be ({N}, {K // 2}, 2) on "
+                             f"{xp.device}, for h == 1 (h={h})")
     if xp.device.type == "cpu":
-        return ladder_plain(kind, xp, steps, W)
+        return ladder_plain(kind, xp, steps, W, pe)
     if 2 * K * L * 4 > LADDER_SMEM_BYTES:
         raise ValueError(f"ladder: K={K}, L={L} exceeds the shared-memory block")
     out = torch.empty_like(xp)
@@ -140,9 +158,10 @@ def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int) ->
     with torch.cuda.device(xp.device):
         rc = kernels.lib().mf_ladder(
             xp.data_ptr(), out.data_ptr(), N, K, h, L, int(kind == "inv"),
-            ctypes.cast(st, ctypes.c_void_p), k, kernels.stream_of(xp))
+            ctypes.cast(st, ctypes.c_void_p), k, None if pe is None else pe.data_ptr(),
+            kernels.stream_of(xp))
     kernels.check(rc, "ladder")
-    kernels.LAUNCHES["ladder"] += 1
+    kernels.LAUNCHES["ladder" if pe is None else "ladder_pe"] += 1
     return out
 
 
@@ -394,4 +413,164 @@ def fused_sqrt2_top_inv(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> t
             x.data_ptr(), out.data_ptr(), N, h, L, int(w), s, kernels.stream_of(x))
     kernels.check(rc, "sqrt2_top_inv")
     kernels.LAUNCHES["sqrt2_top_inv"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6. MFA column transforms with their cross twiddles
+# ---------------------------------------------------------------------------
+
+# shared memory one column CTA may take: its (n2, L) column and three scratch
+# rows per warp, all int32; the kernel takes its warp count from here
+MFA_COL_SMEM_BYTES = 200 * 1024
+MFA_COL_WARPS = 8
+
+
+def mfa_col_fits(n2: int, L: int) -> bool:
+    """Does an (n2, L) column, with its warps' scratch rows, fit one column
+    CTA's shared memory?  (128, 256) does (the 10^7-bit plans); (128, 512)
+    and every L 2048 column do not, and take the ladder route."""
+    return (n2 + 3 * MFA_COL_WARPS) * L * 4 <= MFA_COL_SMEM_BYTES
+
+
+def mfa_cols_plain(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: int,
+                   no_zero_tail: bool = False) -> torch.Tensor:
+    """Plain version of the column kernel: the truncated transform of
+    ops/truncate.py (full at trunc2 == n2) of every (n2, L) column of x
+    (B, n2, L) at root w * n1, with the cross twiddles of flat row b's column
+    j1 = b & (n1 - 1) (mfa._block_cross_exps) as its post / pre table."""
+    from .mfa import _block_cross_exps
+    from .truncate import truncated
+
+    B, n2, _ = x.shape
+    pe = _block_cross_exps(B, 0, n1 - 1, n2, w, W, x.device)
+    return truncated(kind, no_zero_tail)(x, w * n1, W, trunc2, pe)
+
+
+# schedule op codes: csrc/mfa_cols.cu's Op, in the same order
+(_OP_FFT, _OP_IFFT, _OP_TOP_FWD, _OP_FOLD, _OP_DOUBLE, _OP_RESTORE, _OP_PE_DIV,
+ _OP_TAIL0, _OP_TAIL1, _OP_BFLY_INV, _OP_OUT1) = range(11)
+
+
+def _sched_fwd(ops: list, lo: int, C: int, w: int, trunc: int, one: bool) -> None:
+    """fft_trunc (one=False) / fft_trunc1 (one=True) of rows [lo, lo+C) with
+    the column's table, as in-place row ops (see mfa_cols_schedule)."""
+    if trunc == C:
+        ops.append((_OP_FFT, lo, C, 0, 0, 0, w, 1))
+        return
+    h = C // 2
+    if trunc <= h:
+        if one:
+            ops.append((_OP_FOLD, lo, h, 0, h, 0, 0, 0))
+        _sched_fwd(ops, lo, h, 2 * w, trunc, one)
+        return
+    ops.append((_OP_TOP_FWD, lo, h, h if one else trunc - h, 0, 0, w, 0))
+    ops.append((_OP_FFT, lo, h, 0, 0, 0, 2 * w, 1))
+    _sched_fwd(ops, lo + h, h, 2 * w, trunc - h, True)
+
+
+def _sched_inv(ops: list, lo: int, C: int, w: int, trunc: int, one: bool, pe: bool,
+               top: bool) -> None:
+    """ifft_trunc (one=False) / ifft_trunc1 (one=True) of rows [lo, lo+C),
+    with the column's table where pe, as in-place row ops.  The functional
+    code's outputs past trunc are its inputs there: RESTORE copies them
+    back from the kernel's input where the in-place ops overwrote them and
+    a caller reads them (ifft_trunc's levels, whose inputs are the
+    column's own rows) or the caller is the top level."""
+    if trunc == C:
+        ops.append((_OP_IFFT, lo, C, 0, 0, 0, w, int(pe)))
+        return
+    h = C // 2
+    lgh, lgC = h.bit_length() - 1, C.bit_length() - 1
+    if not one and trunc <= h:
+        _sched_inv(ops, lo, h, 2 * w, trunc, False, pe, False)
+        ops.append((_OP_DOUBLE, lo, h, 0, 0, 0, 0, 0))
+        return
+    if one and trunc <= h:
+        if pe:
+            ops.append((_OP_PE_DIV, lo, trunc, 0, 0, 0, 0, 0))
+        if trunc < h:
+            ops.append((_OP_FOLD, lo, h, trunc, h, 0, 0, 0))
+        _sched_inv(ops, lo, h, 2 * w, trunc, True, False, False)
+        ops.append((_OP_OUT1, lo, h, trunc, 0, lgC, 0, 0))
+    else:
+        k = trunc - h
+        ops.append((_OP_IFFT, lo, h, 0, 0, 0, 2 * w, int(pe)))
+        ops.append((_OP_TAIL1 if one else _OP_TAIL0, lo, h, k, lgh, lgC, w, 0))
+        if pe:
+            ops.append((_OP_PE_DIV, lo + h, k, 0, 0, 0, 0, 0))
+        _sched_inv(ops, lo + h, h, 2 * w, k, True, False, False)
+        ops.append((_OP_BFLY_INV, lo, h, k, 0, 0, w, 0))
+    if top or not one:
+        ops.append((_OP_RESTORE, lo + trunc, C - trunc, 0, 0, 0, 0, 0))
+
+
+@functools.lru_cache(maxsize=256)
+def mfa_cols_schedule(kind: str, n2: int, w_col: int, trunc2: int,
+                      no_zero_tail: bool) -> tuple:
+    """The column kernel's program: the recursion of the truncated
+    transform (ops/truncate.py) of one (n2, L) column at root w_col, as a
+    host-built list of in-place row ops (kind, lo, n, k, e1, e2, w, pe),
+    each over rows of the column in shared memory:
+      FFT / IFFT (lo, C, w, pe)      a whole sub-transform (ladder groups,
+                                     a carry after each), table at its
+                                     last / first stage
+      TOP_FWD (lo, h, k, w)          s = carry(a+b) for j < k, t = (a-b) z^j
+                                     (a alone past k)
+      FOLD (lo, h, j0, j1)           x_j = carry(x_j + x_{j+h}), j in [j0, j1)
+      DOUBLE (lo, n)                 x_j = carry(2 x_j)
+      RESTORE (lo, n)                x_j = the kernel's input row
+      PE_DIV (lo, n)                 x_j / 2^pe_j
+      TAIL0 / TAIL1 (lo, h, k, lgh, lgC, w)  the inverse's right-input
+                                     reconstruction and left tail, j in [k, h)
+      BFLY_INV (lo, h, k, w)         the cross inverse butterflies, j < k
+      OUT1 (lo, h, trunc, lgC)       ifft_trunc1's left outputs, j < trunc
+    The sequence depends only on (kind, n2, trunc2, flavour): the same
+    integer ops in the same order as the functional version, so the kernel's
+    digits equal mfa_cols_plain's (tests/test_torch_mfa.py runs a torch
+    interpreter of this schedule against it)."""
+    ops: list = []
+    if kind == "fwd":
+        _sched_fwd(ops, 0, n2, w_col, trunc2, no_zero_tail)
+    else:
+        _sched_inv(ops, 0, n2, w_col, trunc2, no_zero_tail, True, True)
+    return tuple(ops)
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule_on(key: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(mfa_cols_schedule(*key), dtype=torch.int64, device=device)
+
+
+def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: int,
+                   no_zero_tail: bool = False) -> torch.Tensor:
+    """The column pass of a 2-D MFA transform in one launch: every (n2, L)
+    column of x (B, n2, L) -- flat row b is column j1 = b & (n1 - 1) of its
+    (n1, n2) block, leading axes flattened into B -- transformed at root
+    w * n1 by the truncated transform of `kind` and flavour at trunc2 rows
+    (full at trunc2 == n2), with the cross twiddles 2^(w revbin(j2) j1)
+    multiplied in at the forward's last stage (divided out at the inverse's
+    first).  One CTA per column, resident in shared memory (mfa_col_fits).
+    Output: bounded redundant digits."""
+    if kind not in ("fwd", "inv"):
+        raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
+    _require(x, "mfa_cols", ndim=3)
+    B, n2, L = x.shape
+    if (B == 0 or n1 < 1 or n1 & (n1 - 1) or B % n1 or n2 < 1 or n2 & (n2 - 1)
+            or not 1 <= trunc2 <= n2 or W != DIGIT_BITS * L):
+        raise ValueError(f"mfa_cols: shape {tuple(x.shape)}, n1={n1}, trunc2={trunc2}, W={W}: "
+                         "B a nonzero multiple of n1, n1 and n2 powers of two, "
+                         "1 <= trunc2 <= n2, W = 16 L required")
+    if x.device.type == "cpu":
+        return mfa_cols_plain(kind, x, w, W, n1, trunc2, no_zero_tail)
+    if not mfa_col_fits(n2, L):
+        raise ValueError(f"mfa_cols: an ({n2}, {L}) column exceeds the shared-memory block")
+    sched = _schedule_on((kind, n2, w * n1, trunc2, bool(no_zero_tail)), x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.lib().mf_mfa_cols(
+            x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.shape[0], B, n2, L,
+            n1 - 1, int(w), ladder_stages(L), MFA_COL_WARPS, kernels.stream_of(x))
+    kernels.check(rc, "mfa_cols")
+    kernels.LAUNCHES["mfa_cols"] += 1
     return out

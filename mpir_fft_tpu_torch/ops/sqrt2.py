@@ -24,8 +24,9 @@ import torch
 
 from .fused import (fused_sqrt2_top_fwd, fused_sqrt2_top_inv, fused_twiddle_half,
                     twiddle_half_rows_plain)
-from .limb import normmod_div
+from .limb import carry_pass, normmod_div
 from .transforms import fft_radix2, ifft_radix2
+from .truncate import _cat, truncated
 
 
 def twiddle_half(x: torch.Tensor, e2, W: int) -> torch.Tensor:
@@ -67,3 +68,94 @@ def ifft_sqrt2(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> torch.Tens
     C, L = x.shape[-2], x.shape[-1]
     halves = ifft_radix2(x.reshape(x.shape[:-2] + (2, C // 2, L)), w, W)
     return fused_sqrt2_top_inv(halves.reshape(x.shape), w, W, norm_div=norm_div)
+
+
+def _sqrt2_top_fwd(x: torch.Tensor, w: int, W: int):
+    """Forward top layer on x [..., C, L] as its halves (s, t): s_j =
+    carry(a_j + b_j), t_j = (a_j - b_j) q^j (ref sqrt2.py:119-131; with b
+    zero past k, s_j = carry(a_j) there, equal mod p to the reference's
+    a_j)."""
+    h = x.shape[-2] // 2
+    top = fused_sqrt2_top_fwd(x.contiguous(), w, W)
+    return top[..., :h, :], top[..., h:, :]
+
+
+def _sqrt2_top_inv(sl: torch.Tensor, orr: torch.Tensor, w: int, W: int, norm_div: int = 0):
+    """Inverse top merge on the first k positions (ref sqrt2.py:134-150):
+    u = oR q^-j, xa = post(sL + u), xb = post(sL - u) for j < k = sl's rows,
+    post = carry_pass or the norm_div tail; one kernel pass."""
+    k = sl.shape[-2]
+    out = fused_sqrt2_top_inv(torch.cat([sl, orr], dim=-2), w, W, norm_div=norm_div)
+    return out[..., :k, :], out[..., k:, :]
+
+
+def _fft_trunc_sqrt2(x: torch.Tensor, w: int, W: int, trunc: int, full, trunc_fn) -> torch.Tensor:
+    """Truncated length-4n forward transform over root sqrt2^w, zero input
+    tail past trunc (ref FFT_radix2_truncate_sqrt2, mul_fft.c:1230-1288), on
+    given inner transforms of a [..., m, L] array at root 2^v: full(y, v)
+    the whole transform, trunc_fn(y, v, t, one) its truncation at t
+    (fft_trunc, or fft_trunc1 with one).  The flat pair below and the MFA
+    pair (ops/mfa.py) differ only in these."""
+    C = x.shape[-2]
+    assert 1 <= trunc <= C
+    if trunc == C:
+        return fft_sqrt2(x, w, W)
+    if w % 2 == 0:
+        return trunc_fn(x, w // 2, trunc, False)
+    h = C // 2
+    if trunc <= h:
+        return _cat(trunc_fn(x[..., :h, :], w, trunc, False), x[..., h:, :])
+    s, t = _sqrt2_top_fwd(x, w, W)
+    return _cat(full(s, w), trunc_fn(t, w, trunc - h, True))
+
+
+def _ifft_trunc_sqrt2(v: torch.Tensor, w: int, W: int, trunc: int, norm_div: int, full,
+                      trunc_fn) -> torch.Tensor:
+    """Inverse of _fft_trunc_sqrt2 (ref IFFT_radix2_truncate_sqrt2,
+    mul_fft.c:1792-1859), zero coefficient tail: C * x on positions < trunc,
+    the rest unspecified; full / trunc_fn the inverse inner transforms.
+    norm_div > 0 folds the drivers' divide-by-2^norm_div + normmod tail into
+    the last pass over each position (the top merge kernel for odd w, one
+    normmod_div pass otherwise)."""
+    C = v.shape[-2]
+    assert 1 <= trunc <= C
+    if trunc == C:
+        return ifft_sqrt2(v, w, W, norm_div=norm_div)
+
+    def nd(x):
+        return normmod_div(x, norm_div, W) if norm_div else x
+
+    if w % 2 == 0:
+        return nd(trunc_fn(v, w // 2, trunc, False))
+    h = C // 2
+    if trunc <= h:
+        left = trunc_fn(v[..., :h, :], w, trunc, False)
+        return _cat(nd(carry_pass(left + left)), v[..., h:, :])
+    k = trunc - h
+    sL = full(v[..., :h, :], w)
+    # the missing right inputs t_j = s_j q^j, unscaled (ref mul_fft.c:2680-
+    # 2691): the division by 2^lg(h) folds into the half-bit exponent, so the
+    # reconstruction is one twiddle pass
+    tail = twiddle_half(sL[..., k:, :], np.arange(k, h, dtype=np.int64) * w
+                        - 2 * (h.bit_length() - 1), W)
+    vr = _cat(v[..., h:trunc, :], tail)
+    del tail
+    oR = trunc_fn(vr, w, k, True)
+    del vr
+    xa, xb = _sqrt2_top_inv(sL[..., :k, :], oR[..., :k, :], w, W, norm_div=norm_div)
+    del oR
+    mid = nd(carry_pass(sL[..., k:, :] + sL[..., k:, :]))
+    return _cat(xa, mid, xb, v[..., trunc:, :])
+
+
+def fft_trunc_sqrt2(x: torch.Tensor, w: int, W: int, trunc: int) -> torch.Tensor:
+    """Truncated length-4n forward transform, zero input tail past trunc,
+    on flat radix-2 inner transforms."""
+    return _fft_trunc_sqrt2(x, w, W, trunc, lambda y, v: fft_radix2(y, v, W),
+                            lambda y, v, t, one: truncated("fwd", one)(y, v, W, t))
+
+
+def ifft_trunc_sqrt2(v: torch.Tensor, w: int, W: int, trunc: int) -> torch.Tensor:
+    """Inverse of fft_trunc_sqrt2: C * x on positions < trunc."""
+    return _ifft_trunc_sqrt2(v, w, W, trunc, 0, lambda y, u: ifft_radix2(y, u, W),
+                             lambda y, u, t, one: truncated("inv", one)(y, u, W, t))

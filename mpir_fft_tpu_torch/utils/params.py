@@ -54,9 +54,31 @@ class MulPlan:
         return self.depth + (2 if self.sqrt2 else 1)
 
     @property
+    def n1(self) -> int:
+        """MFA column count: square-ish split of the length-2n half
+        (ref sqrt blocking, mul_fft.c:3200)."""
+        return 1 << ((self.depth + 1) // 2)
+
+    @property
+    def n2(self) -> int:
+        return (2 * self.n) // self.n1
+
+    @property
     def trunc(self) -> int:
         """Kept outputs: j1 + j2 - 1, rounded to >= 2 even positions."""
         return max(2, 2 * cdiv(self.j1 + self.j2 - 1, 2))
+
+    @property
+    def trunc_mfa(self) -> int:
+        """trunc rounded up to a multiple of n1 (MFA row granularity,
+        ref mul_fft.c:3613), and to the full convolution length when that
+        is >= 9/16 of it: the reference's crossover between the full flat
+        transforms and the truncation recursion (params.py:72-85), kept so
+        that the plans take the same path as the reference's."""
+        t = min(self.conv_len, max(self.n1, self.n1 * cdiv(self.j1 + self.j2 - 1, self.n1)))
+        if 16 * t >= 9 * self.conv_len:
+            return self.conv_len
+        return t
 
 
 def validate(plan: MulPlan):

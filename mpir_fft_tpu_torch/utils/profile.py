@@ -1,17 +1,20 @@
 """Where the time of a multiply goes on the card (counterpart, in part, of
 mpir_fft_tpu/utils/profile.py).
 
-    python -m mpir_fft_tpu_torch.utils.profile [BITS ...] [--reps R]
+    python -m mpir_fft_tpu_torch.utils.profile [SIZE ...] [--reps R]
 
-For each operand size (both operands BITS bits, random from a fixed seed;
-default 10^7, 10^8 and 10^9):
-  * the plan (and the inner mulmod plan where the pointwise recurses);
+For each SIZE -- BITS (both operands BITS bits) or BITS_AxBITS_B (an
+unbalanced product, e.g. 1000000000x100000000); operands random from a
+fixed seed; default 10^7, 10^8 and 10^9:
+  * the plan (its trunc_mfa, and the inner mulmod plan where the pointwise
+    recurses);
   * the flagship's device time, digits on the card (CUDA events, median);
   * a torch.profiler window over R mpn_mul_flagship calls after a warm-up:
     device time per call by kernel (the port's kernels by name, the NTT's
     int8 GEMMs as "int8_gemm", PyTorch's other ops -- split, stack,
-    combine, the sign lift -- as "torch ops"), and
-    the device's busy and idle share of the window;
+    combine, the sign lift, the truncation recursion's glue -- as "torch
+    ops", its five costliest kernels by name beside), the device kernels
+    launched per call, and the device's busy and idle share of the window;
   * the host-clock split of mul() into its steps: planner, digits_from_int
     of both operands, host-to-device copies, the synchronised flagship call
     (after one warm-up call at the size), device-to-host copy,
@@ -42,7 +45,10 @@ SEED = 20261016
 # device kernel name fragment -> the port's kernel (csrc/); the rest are
 # PyTorch's own kernels
 KERNEL_NAMES = (
-    ("ladder_kernel", "ladder"), ("conv_base_kernel", "conv_base"),
+    # the ladder's launches with a last-stage table (ladder_pe) run the same
+    # kernel, so the profile counts them under "ladder"
+    ("ladder_kernel", "ladder"), ("mfa_cols_kernel", "mfa_cols"),
+    ("conv_base_kernel", "conv_base"),
     ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
     ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
@@ -77,19 +83,19 @@ def _events_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_size(bits: int, reps: int) -> dict:
+def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     dev = torch.device("cuda", 0)
-    rnd = random.Random(SEED + bits)
-    a = rnd.getrandbits(bits) | (1 << (bits - 1))
-    b = rnd.getrandbits(bits) | (1 << (bits - 1))
-    L = cdiv(bits, DIGIT_BITS)
+    rnd = random.Random(SEED + bits_a + bits_b)
+    a = rnd.getrandbits(bits_a) | (1 << (bits_a - 1))
+    b = rnd.getrandbits(bits_b) | (1 << (bits_b - 1))
 
     steps = {}
     t = time.perf_counter()
-    plan = _select_plan(bits, bits)
+    plan = _select_plan(bits_a, bits_b)
     steps["planner"] = time.perf_counter() - t
     t = time.perf_counter()
-    ha, hb = digits_from_int(a, L), digits_from_int(b, L)
+    ha = digits_from_int(a, cdiv(bits_a, DIGIT_BITS))
+    hb = digits_from_int(b, cdiv(bits_b, DIGIT_BITS))
     steps["digits_from_int x2"] = time.perf_counter() - t
     t = time.perf_counter()
     da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
@@ -120,23 +126,31 @@ def profile_size(bits: int, reps: int) -> dict:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t) * 1e3
     by_kernel: dict[str, float] = {}
+    torch_ops: dict[str, float] = {}
+    launches = 0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             k = _kernel_of(ev.key)
-            by_kernel[k] = by_kernel.get(k, 0.0) + ev.device_time_total / 1e3 / reps
+            ms = ev.device_time_total / 1e3 / reps
+            by_kernel[k] = by_kernel.get(k, 0.0) + ms
+            launches += ev.count
+            if k == "torch ops":
+                torch_ops[ev.key[:60]] = torch_ops.get(ev.key[:60], 0.0) + ms
     busy = sum(by_kernel.values())
     W = plan.W
     inner = inner_plan(W)
     return {
-        "bits": bits,
+        "bits": [bits_a, bits_b],
         "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
-                 "conv": plan.conv_len},
+                 "conv": plan.conv_len, "trunc_mfa": plan.trunc_mfa},
         "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
         "device_ms": device_ms,
         "profiled_wall_ms_per_call": window_ms / reps,
         "device_busy_ms_per_call": busy,
         "device_idle_share": max(0.0, 1.0 - busy * reps / window_ms),
         "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
+        "device_kernels_per_call": launches / reps,
+        "torch_ops_top5_ms": dict(sorted(torch_ops.items(), key=lambda kv: -kv[1])[:5]),
         "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
         "peak_memory_gib": peak / 2**30,
     }
@@ -144,16 +158,17 @@ def profile_size(bits: int, reps: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("bits", nargs="*", type=int,
-                    default=[10_000_000, 100_000_000, 1_000_000_000])
+    ap.add_argument("sizes", nargs="*", default=["10000000", "100000000", "1000000000"],
+                    help="BITS or BITS_AxBITS_B")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     kernels.lib()                   # build first: no size pays for nvcc
     torch.empty(1, device="cuda")   # nor for creating the CUDA context
-    for bits in args.bits:
-        print(json.dumps(profile_size(bits, args.reps)), flush=True)
+    for size in args.sizes:
+        bits = [int(v) for v in size.split("x")]
+        print(json.dumps(profile_size(bits[0], bits[-1], args.reps)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

@@ -15,18 +15,21 @@ import pytest
 import torch
 
 from mpir_fft_tpu_torch import kernels, mulmod_int
-from mpir_fft_tpu_torch.models.mul import mpn_mul_flagship, mpn_sqr_flagship, mul, sqr
+from mpir_fft_tpu_torch.models.mul import DRIVERS, mpn_mul_flagship, mpn_sqr_flagship, mul, sqr
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
     canonicalize_plain_torch,
     fused_butterfly_ladder,
     fused_canonicalize_plain,
+    fused_mfa_cols,
     fused_normmod_div,
     fused_sqrt2_top_fwd,
     fused_sqrt2_top_inv,
     fused_transform,
     fused_twiddle_half,
     ladder_plain,
+    mfa_col_fits,
+    mfa_cols_plain,
     normmod_rows_plain,
     sqrt2_top_fwd_plain,
     sqrt2_top_inv_plain,
@@ -64,7 +67,7 @@ from mpir_fft_tpu_torch.ops.ntt import (
 )
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
-from mpir_fft_tpu_torch.utils.params import choose_params, plan_for_depth
+from mpir_fft_tpu_torch.utils.params import MulPlan, choose_params, plan_for_depth, validate
 
 pytestmark = pytest.mark.cuda
 
@@ -416,3 +419,91 @@ def test_mulmod_int_fused_on_gpu(dev, monkeypatch):
     for x, y in ((a, b), (p - 1, p - 1), ((1 << N) - 1, a)):
         assert mulmod_int(x, y, N, device=dev) == x * y % p
     assert kernels.LAUNCHES["ntt4_fused"] == 3 and kernels.LAUNCHES["ntt4_input_planes"] == 0
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("B,n1,n2,L,w", [(2 * 64, 64, 128, 256, 1), (2 * 16, 16, 32, 16, 3)])
+def test_mfa_cols_matches_plain(dev, kind, B, n1, n2, L, w):
+    """The column kernel in both flavours, full and truncated at trunc2 in
+    {1, n2/2, n2/2 + 1, n2 - 1}, against its plain version (the truncate.py
+    recursion on the host): identical raw digits.  B spans two copies of
+    the column axis (the stacked operands)."""
+    rng = np.random.default_rng(11)
+    W = 16 * L
+    assert mfa_col_fits(n2, L)
+    x = _rand(rng, (B, n2, L), -(1 << 17), 1 << 17, dev)
+    for trunc2 in (1, n2 // 2, n2 // 2 + 1, n2 - 1, n2):
+        for one in (False, True):
+            xin = x
+            if kind == "fwd" and not one:       # fft_trunc: zero input tail
+                xin = x.clone()
+                xin[:, trunc2:] = 0
+            got = _launched("mfa_cols", lambda: fused_mfa_cols(kind, xin, w, W, n1, trunc2, one))
+            want = mfa_cols_plain(kind, xin.cpu(), w, W, n1, trunc2, one)
+            assert torch.equal(got.cpu(), want), (trunc2, one)
+
+
+def test_mfa_cols_rejects(dev):
+    x = torch.zeros((8, 4, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):          # a column past the shared-memory block
+        fused_mfa_cols("fwd", torch.zeros((2, 256, 512), dtype=torch.int32, device=dev),
+                       1, 16 * 512, 2, 256)
+    with pytest.raises(ValueError):          # zero-size batch
+        fused_mfa_cols("fwd", x[:0], 1, 256, 4, 4)
+    with pytest.raises(TypeError):
+        fused_mfa_cols("fwd", x.to(torch.int64), 1, 256, 4, 4)
+    with pytest.raises(ValueError):          # B not a multiple of n1
+        fused_mfa_cols("fwd", x[:6], 1, 256, 4, 4)
+    with pytest.raises(ValueError):
+        fused_mfa_cols("fwd", x, 1, 256, 4, 5)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("N,K,L,step", [(6, 8, 16, 3), (4, 4, 71, 12), (8, 8, 2048, 1)])
+def test_ladder_pe_matches_plain(dev, kind, N, K, L, step):
+    """The ladder with its last-stage table against ladder_plain: raw digits
+    identical; launches count under ladder_pe."""
+    rng = np.random.default_rng(12)
+    W = 16 * L
+    k = K.bit_length() - 1
+    steps = tuple(step << j for j in range(k))
+    x = _rand(rng, (N, K, 1, L), -(1 << 17), 1 << 17, dev)
+    pe = _rand(rng, (N, K // 2, 2), 0, 2 * W, dev)
+    got = _launched("ladder_pe", lambda: fused_butterfly_ladder(kind, x, steps, W, pe))
+    assert torch.equal(got.cpu(), ladder_plain(kind, x.cpu(), steps, W, pe.cpu()))
+    with pytest.raises(ValueError):           # a table needs h == 1
+        fused_butterfly_ladder(kind, x.reshape(N, K // 2, 2, L), steps[1:], W, pe)
+
+
+# (driver, plan): the CPU test plans, truncated ones included
+DRIVER_PLANS = [
+    ("radix2", plan_for_depth(6000, 6000, 3, False)),
+    ("sqrt2", plan_for_depth(6000, 6000, 3, True)),
+    ("trunc", plan_for_depth(40000, 12000, 8, False)),
+    ("trunc_sqrt2", plan_for_depth(12000, 4000, 3, True)),
+    ("mfa", plan_for_depth(6000, 6000, 3, False)),
+    ("mfa_trunc", validate(MulPlan(6, 2, 32, 50, 10, 1600, 320, False))),
+    ("flagship", plan_for_depth(40000, 12000, 8, True)),
+    ("flagship", plan_for_depth(30000, 6000, 8, True)),
+    ("flagship", validate(MulPlan(6, 2, 32, 120, 16, 3840, 512, True))),
+]
+
+
+@pytest.mark.parametrize("kind,plan", DRIVER_PLANS)
+def test_drivers_exact_on_gpu(dev, kind, plan):
+    rnd = random.Random(plan.bits_a + plan.bits_b)
+    a = rnd.getrandbits(plan.bits_a) | (1 << (plan.bits_a - 1))
+    b = rnd.getrandbits(plan.bits_b) | (1 << (plan.bits_b - 1))
+    da = torch.from_numpy(digits_from_int(a, -(-plan.bits_a // 16))).to(dev)
+    db = torch.from_numpy(digits_from_int(b, -(-plan.bits_b // 16))).to(dev)
+    kernels.reset_launches()
+    assert int_from_digits(DRIVERS[kind][0](da, db, plan).cpu().numpy()) == a * b
+    if kind.startswith("mfa") or (kind == "flagship" and plan.trunc_mfa < plan.conv_len):
+        assert kernels.LAUNCHES["mfa_cols"] + kernels.LAUNCHES["ladder_pe"] > 0
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_mul_driver_on_gpu(dev, driver):
+    rnd = random.Random(7)
+    a, b = rnd.getrandbits(60000) | (1 << 59999), rnd.getrandbits(17000)
+    assert mul(a, b, driver=driver, device=dev) == a * b

@@ -44,7 +44,7 @@ def ref_pricing(request, monkeypatch):
 
 def _same_plan(tp, jp):
     assert dataclasses.asdict(tp) == dataclasses.asdict(jp)
-    for prop in ("n", "W", "conv_len", "lg_conv", "trunc"):
+    for prop in ("n", "W", "conv_len", "lg_conv", "trunc", "n1", "n2", "trunc_mfa"):
         assert getattr(tp, prop) == getattr(jp, prop), prop
 
 
@@ -86,6 +86,29 @@ def test_plan_sweep_matches_reference(ref_pricing):
             tp = tparams.choose_params(bits, bits_b, sqrt2=True)
             _same_plan(tp, jp)
             assert tparams.plan_cost(tp) == jparams.plan_cost(jp)
+
+
+# the unbalanced default plans whose MFA truncates: (bits_a, bits_b) ->
+# (depth, w, L, conv, n1, n2, trunc_mfa)
+TRUNCATED_PLANS = {
+    (10_000_000, 7_000_000): (12, 1, 256, 16384, 64, 128, 8896),
+    (15_276_662, 1_883_378): (12, 1, 256, 16384, 64, 128, 8960),
+    (64_274_188, 5_213_477): (13, 1, 512, 32768, 128, 128, 17536),
+    (398_107_170, 199_053_585): (14, 2, 2048, 65536, 128, 256, 36736),
+    (1_000_000_000, 100_000_000): (15, 1, 2048, 131072, 256, 256, 67840),
+}
+
+
+@pytest.mark.parametrize("bits_a,bits_b", sorted(TRUNCATED_PLANS))
+def test_truncated_plans_match_reference(bits_a, bits_b, monkeypatch):
+    """The plans of the unbalanced sizes the slice serves: the port's n1, n2
+    and trunc_mfa equal the reference's, and trunc_mfa < conv_len."""
+    monkeypatch.delenv("MPIR_FFT_NTT", raising=False)
+    tp = tparams.choose_params(bits_a, bits_b, sqrt2=True)
+    _same_plan(tp, jparams.choose_params(bits_a, bits_b, sqrt2=True))
+    got = (tp.depth, tp.w, tp.W // 16, tp.conv_len, tp.n1, tp.n2, tp.trunc_mfa)
+    assert got == TRUNCATED_PLANS[(bits_a, bits_b)]
+    assert tp.trunc_mfa < tp.conv_len
 
 
 def test_mulmod_plan_sweep_matches_reference(ref_pricing):
