@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the twenty kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty-three kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -27,9 +27,14 @@
      ladder_pe -- the last group of the 10^9 x 10^8-bit plan's column
        transforms (L 2048, columns of 256: K 4, h 1, the stacked operands'
        512 columns) with the real cross-twiddle table, forward and inverse;
+     ladder_pre_half -- the first group of the 10^9-bit plan's zero-top
+       t-leg (1, 8, 8192, 2048), pre_half (0, w), raw digits identical;
      input_planes, mid_planes, garner_carry, int8_gemm -- the dense
        NTT-CRT pointwise of the 10^8-bit (32768 x 1024) and 10^9-bit
        (131072 x 2048) plans, each link fed the previous one's real output;
+       garner_carry_post on each plan's first staged pointwise chunk (32768
+       rows; the post leg K 16 / 8) against the plain Garner then
+       ifft_innermost_body, raw digits identical;
      conv_base -- under MPIR_FFT_NTT=0, the pointwise of the 3,162,277-bit
        (8192, 128) and 2x10^7-bit (16384, 512) plans and the 10^8-bit
        plan's inner rings (2097152, 32);
@@ -44,7 +49,8 @@
        the 2x10^9-bit plan's whole pointwise batch (131072, 4096), each link
        fed the previous one's real output, the plain versions compared
        slice by slice (four slices of 32768 rows: they do not fit beside
-       the kernels' tensors whole); ntt4_fused at the mulmod_int 2^29
+       the kernels' tensors whole), and garner_residues_post on its first
+       staged chunk (16384 rows, K 4); ntt4_fused at the mulmod_int 2^29
        ring's batch (32768, 4096).  Then an A/B record on the same
        (131072, 4096) operands: mulmod_ntt's 4-step tier against the
        recursive mulmod_fft at mulmod_plan(65536), equal after normmod, both
@@ -59,24 +65,33 @@
    read after it; every kernel the path should reach must have launched,
    and at the power-of-two plans conv_base must not have:
      mul/sqr at the default plans (dense NTT pointwise): 2x10^6 (full
-       compare with Python's a*b), 10^7 (odd w), 2x10^7, 10^8 and 10^9
-       (odd w, unstaged; residues mod 61-bit primes); 2x10^9 (depth 15,
-       w 2, L 4096: the 4-step tier, chunked; peak memory at most 32 GiB);
+       compare with Python's a*b), 10^7 (odd w), 2x10^7; from 10^8 up the
+       staged route (flagship_is_staged: the zero-top forward launches
+       ladder_pre_half and no sqrt2_top_fwd, each chunk's Garner takes the
+       inverse leg, garner_*_post > 0 and no plain Garner): 10^8 and 10^9
+       (odd w; residues mod 61-bit primes), 2x10^9 (depth 15, w 2, L 4096:
+       the 4-step tier; peak memory at most 32 GiB);
      under MPIR_FFT_NTT=0, its A/B plans, with no NTT kernel launched:
        2x10^6 and 2x10^7 (even-w schoolbook; 2x10^6 full compare),
        3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
        (the recursive Fermat mulmod: inner Lp 32, and at 10^9 L 4096
-       rings with inner Lp 72);
+       rings with inner Lp 72; staged, the hook never consumed: no
+       garner_*_post, the inverse leg on the ladder);
      mul at four unbalanced default plans that truncate the MFA
        (trunc_mfa < conv_len): 10^7 x 7x10^6 (full compare; the column
        kernel, the whole-row transform, the odd-w top layer), 6.3x10^7 x
        5x10^6 (odd w, L 512: columns of (128, 512) exceed the column kernel
        and take the ladder with its table, as at L 2048), 3.98x10^8 x
        1.99x10^8 (even w, L 2048) and 10^9 x 10^8 (odd w, L 2048; peak
-       memory at most 24 GiB), residues; at each an A/B record against the
-       full-length flat pair (the same plan with trunc_mfa = conv_len), the
-       two interleaved in one run, products identical; the balanced sizes
-       above must launch neither mfa_cols nor ladder_pe;
+       memory at most 24 GiB), residues; the two L 2048 ones staged (the
+       row-IFFT leg per chunk, no Garner post leg); at each an A/B record
+       against the full-length flat pair (the same plan with trunc_mfa =
+       conv_len), the two interleaved in one run, products identical; the
+       balanced sizes above must launch neither mfa_cols nor ladder_pe;
+     at every staged cell an A/B record (not a claim): the staged route
+       against the unstaged mpn_mul_flagship / mpn_sqr_flagship on the same
+       plan and operands, digits identical, device ms interleaved (ab_ms)
+       and the peak memory of one call each;
      mul(a, b, driver=k) for the six other drivers at 2x10^6 x 1.4x10^6
        bits, full compare (mfa and mfa_trunc through the column kernel);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
@@ -301,7 +316,8 @@ def main() -> int:
 
     from mpir_fft_tpu_torch import kernels, mulmod_int
     from mpir_fft_tpu_torch.models.mul import (
-        DRIVERS, mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
+        DRIVERS, _pw_chunk_rows, _staged_flagship, flagship_is_staged, mpn_mul_flagship,
+        mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
         _affine_half_exps, canonicalize_plain_torch, fused_butterfly_ladder,
         fused_canonicalize_plain, fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd,
@@ -320,6 +336,7 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
     from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
+    from mpir_fft_tpu_torch.ops.transforms import ifft_innermost_body, inner_group, inner_steps
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
 
     dev = torch.device("cuda", 0)
@@ -538,6 +555,48 @@ def main() -> int:
     del cross
     torch.cuda.empty_cache()
 
+    # the ladder with its pre_half twiddle: the first group of the 10^9-bit
+    # plan's zero-top t-leg (fft_radix2 of the h split rows with pre_half =
+    # (0, w)), on canonical split digits
+    zplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
+    zW, zL, zh = zplan.W, zplan.W // DIGIT_BITS, zplan.conv_len // 2
+    l, kg = ladder_groups(zh, zL, "fwd")[0]
+    K = 1 << kg
+    steps = tuple(zplan.w << j for j in range(kg))
+    x = rand((1, K, zh // K, zL), 0, 1 << 16)
+    pre = (0, zplan.w)
+    err, same = compare("ladder_pre_half", fused_butterfly_ladder("fwd", x, steps, zW, pre_half=pre),
+                        ladder_plain("fwd", x, steps, zW, pre_half=pre))
+    assert same, ("ladder_pre_half", "raw digits differ")
+    ms = time_ms(lambda: fused_butterfly_ladder("fwd", x, steps, zW, pre_half=pre), 10, 2)
+    pms = time_ms(lambda: ladder_plain("fwd", x, steps, zW, pre_half=pre), 2)
+    add_row("ladder_pre_half", "mpir_fft_tpu_torch/csrc/ladder.cu", "mpir_fft_tpu/ops/fused.py:275",
+            err, ms, pms, 8 * x.numel(), (kg + 2) * x.numel())
+    print(f"ladder_pre_half {tuple(x.shape)} (the 10^9 t-leg's first group, pre_half {pre}): raw "
+          f"digits identical; {ms:.3f} ms (plain {pms:.3f} ms)")
+    del x
+    torch.cuda.empty_cache()
+
+    def garner_post_row(name, fn, plain, parts, pplan, bytes_per_digit, ops_per_digit):
+        """Garner with the staged chunk's post leg (pplan's innermost
+        inverse group) on the first chunk of parts, against the plain
+        Garner then ifft_innermost_body: raw digits identical."""
+        pM = pplan.W // DIGIT_BITS
+        rows = _pw_chunk_rows(pplan)
+        pkg = inner_group(pplan.conv_len // 2, pM)
+        pK, psteps = 1 << pkg, inner_steps(pplan.w, pplan.conv_len // 2, pkg)
+        chunk = [q[:rows] for q in parts]
+        got = fn(*chunk, post=(pK, psteps))
+        identical(name, got, ifft_innermost_body(plain(*chunk), psteps, pplan.W, pK))
+        ms = time_ms(lambda: fn(*chunk, post=(pK, psteps)), 10, 2)
+        pms = time_ms(lambda: ifft_innermost_body(plain(*chunk), psteps, pplan.W, pK), 2)
+        n = rows * pM
+        add_row(name, "mpir_fft_tpu_torch/csrc/ntt_links.cu", "mpir_fft_tpu/ops/ntt.py:493",
+                0, ms, pms, bytes_per_digit * n, (ops_per_digit + pkg) * n)
+        print(f"{name} 3 x {tuple(chunk[0].shape)} (a staged chunk, K {pK}, stages {psteps}): "
+              f"raw digits identical to Garner then ifft_innermost_body; {ms:.3f} ms "
+              f"(plain {pms:.3f} ms)")
+
     # the dense NTT-CRT pointwise of the 10^8 and 10^9 default plans: each
     # link on the previous one's real output, the GEMMs between them
     for bits, want_plan in ((REC_BITS, (13, 2, 1024, 32768)),
@@ -579,6 +638,17 @@ def main() -> int:
                 print(f"int8_gemm ({nB}, {K}) @ ({K}, {K}): exact; {ms:.3f} ms with the "
                       f"column-major block (row-major block {rms:.3f} ms; float64 matmul "
                       f"{pms:.3f} ms)")
+                if bits == HUGE_BITS:
+                    # a record: the GEMM at the row counts of the staged L 2048
+                    # pointwise chunks -- a full chunk, and the last, short
+                    # chunk of each unbalanced plan
+                    counts = [_pw_chunk_rows(nplan), 4096]
+                    for ub in (UNB_EVEN, UNB_HUGE):
+                        up = choose_params(*ub, sqrt2=True)
+                        counts.append(up.trunc_mfa % _pw_chunk_rows(up))
+                    gm = {r: time_ms(lambda: _dot_raw(pa[j][:r], F), 5, 1) for r in counts}
+                    print("int8_gemm at staged chunk rows (record): " + ", ".join(
+                        f"{r} rows {t:.3f} ms ({t / r * 1e3:.3f} us/row)" for r, t in gm.items()))
             pp = mid_planes(sa, sb, p)
             identical(("mid_planes", p), pp, mid_planes_plain(sa, sb, p))
             if j == 0:
@@ -602,7 +672,9 @@ def main() -> int:
                 "mpir_fft_tpu/ops/ntt.py:465", err, ms, pms, 28 * nB * nM, 12 * nB * nM)
         print(f"garner_carry 3 x {tuple(parts[0].shape)}: digits identical, below 2^16 + 2^12; "
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
-        del parts, d
+        del d
+        garner_post_row("garner_carry_post", garner_carry, garner_carry_plain, parts, nplan, 28, 12)
+        del parts
         torch.cuda.empty_cache()
 
     # the schoolbook, half-bit twiddles and whole transforms at the shapes of
@@ -784,6 +856,8 @@ def main() -> int:
             "mpir_fft_tpu/ops/ntt.py:465", 0, ms, pms, 16 * BM, 20 * BM)
     print(f"garner_residues 3 x {tuple(res[0].shape)}: digits identical, max |d| {top} < "
           f"2^16 + 2^12; {ms:.3f} ms (plain {pms:.3f} ms)")
+    garner_post_row("garner_residues_post", garner_residues, garner_residues_plain, res, tplan,
+                    16, 20)
     del res
     torch.cuda.empty_cache()
 
@@ -837,6 +911,15 @@ def main() -> int:
         return torch.from_numpy(digits_from_int(v, cdiv(bits, DIGIT_BITS))).to(dev)
 
     peaks = {}
+    ab_staged = {}
+
+    def peak_gib(fn) -> float:
+        """Peak device memory of one fn() call, GiB (inputs on the card count)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**30
 
     def counted(label, expect, fn, forbid=()):
         """Run fn() with the counters reset; check every expected kernel
@@ -864,6 +947,12 @@ def main() -> int:
     ntt = ("input_planes", "mid_planes", "garner_carry", "int8_gemm")
     even_ntt = ("ladder", "normmod", "canonicalize") + ntt
     odd_ntt = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt
+    # staged zero-top plans: the t-leg's twiddle rides the ladder, no top
+    # layer forward; every chunk's Garner takes the inverse leg
+    posts = ("garner_carry_post", "garner_residues_post")
+    ntt_post = ("input_planes", "mid_planes", "garner_carry_post", "int8_gemm")
+    zerotop = ("ladder", "ladder_pre_half", "canonicalize")
+    no_top = ("sqrt2_top_fwd", "conv_base", "garner_carry", "garner_residues")
     even = ("ladder", "conv_base", "normmod", "canonicalize")
     odd = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "conv_base", "canonicalize")
     rec = ("ladder", "twiddle_half", "transform_small", "conv_base", "normmod", "canonicalize")
@@ -871,7 +960,8 @@ def main() -> int:
     no_school = ("conv_base",)
     ntt4 = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
             "ntt4_residues", "garner_residues", "int8_gemm")
-    even_ntt4 = ("ladder", "normmod", "canonicalize") + ntt4
+    even_ntt4 = ("ladder", "ladder_pre_half", "normmod", "canonicalize",
+                 "garner_residues_post") + tuple(k for k in ntt4 if k != "garner_residues")
     # the 4-step leaf, not the recursive route nor the dense tier
     no_rec = ("conv_base", "transform_small", "twiddle_half", "input_planes", "mid_planes",
               "garner_carry", "ntt4_fused")
@@ -912,31 +1002,59 @@ def main() -> int:
               f"({'full compare' if full else f'residues mod {len(ps)} 61-bit primes'})")
         dx, dy = on_card(x, bits), on_card(y, bits_b)
         e2e[f"mul_{label}_ms"] = wall_ms(lambda: mul(x, y), reps)
+        staged = flagship_is_staged(tplan)
         if unbalanced:
             # A/B record (not a claim): the truncated MFA against the flat pair
             fp = flat_plan(tplan)
             assert fp.trunc_mfa == fp.conv_len and fp.trunc == tplan.trunc
             assert torch.equal(mpn_mul_flagship(dx, dy, tplan), mpn_mul_flagship(dx, dy, fp)), label
-            (e2e[f"mul_{label}_device_ms"],
-             e2e[f"mul_{label}_flat_pair_device_ms"]) = ab_ms(
-                lambda: mpn_mul_flagship(dx, dy, tplan), lambda: mpn_mul_flagship(dx, dy, fp), reps)
+            tr, fl = ab_ms(lambda: mpn_mul_flagship(dx, dy, tplan),
+                           lambda: mpn_mul_flagship(dx, dy, fp), reps)
+            e2e[f"mul_{label}_truncated_device_ms"] = tr
+            e2e[f"mul_{label}_flat_pair_device_ms"] = fl
+        if staged:
+            # A/B record (not a claim): the staged route mul() takes against
+            # the unstaged flagship on the same plan and operands
+            st = _staged_flagship(tplan)
+            assert torch.equal(st(dx, dy), mpn_mul_flagship(dx, dy, tplan)), label
+            ab = ab_staged[f"mul {label}"] = {}
+            ab["staged_ms"], ab["unstaged_ms"] = ab_ms(
+                lambda: st(dx, dy), lambda: mpn_mul_flagship(dx, dy, tplan), reps)
+            ab["staged_peak_gib"] = peak_gib(lambda: st(dx, dy))
+            ab["unstaged_peak_gib"] = peak_gib(lambda: mpn_mul_flagship(dx, dy, tplan))
+            e2e[f"mul_{label}_device_ms"] = ab["staged_ms"]
+            if not unbalanced:
+                assert torch.equal(st(dx), mpn_sqr_flagship(dx, tplan)), label
+                ab = ab_staged[f"sqr {label}"] = {}
+                ab["staged_ms"], ab["unstaged_ms"] = ab_ms(
+                    lambda: st(dx), lambda: mpn_sqr_flagship(dx, tplan), reps)
+                ab["staged_peak_gib"] = peak_gib(lambda: st(dx))
+                ab["unstaged_peak_gib"] = peak_gib(lambda: mpn_sqr_flagship(dx, tplan))
+                e2e[f"sqr_{label}_device_ms"] = ab["staged_ms"]
+        elif unbalanced:
+            e2e[f"mul_{label}_device_ms"] = tr
         else:
             e2e[f"mul_{label}_device_ms"] = time_ms(lambda: mpn_mul_flagship(dx, dy, tplan), reps,
                                                     1 if reps > 1 else 0)
-        if not unbalanced:
-            e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
             e2e[f"sqr_{label}_device_ms"] = time_ms(lambda: mpn_sqr_flagship(dx, tplan), reps,
                                                     1 if reps > 1 else 0)
-        print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k}))
+        if not unbalanced:
+            e2e[f"sqr_{label}_ms"] = wall_ms(lambda: sqr(x), reps)
+        print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k})
+              + ("; staged A/B: " + json.dumps({k: v for k, v in ab_staged.items() if label in k})
+                 if staged else ""))
 
     # the default plans: the dense NTT-CRT pointwise at every size
     drive(SMALL_BITS, "2e6", (9, 8, 256), even_ntt, True, primes, 5, no_school)
     drive(ODD_BITS, "1e7", (12, 1, 256), odd_ntt, False, primes, 3, no_school)
     drive(PLAN_BITS, "2e7", (12, 2, 512), even_ntt, False, primes, 3, no_school)
-    drive(REC_BITS, "1e8", (13, 2, 1024), even_ntt, False, primes, 3, no_school)
-    drive(HUGE_BITS, "1e9", (15, 1, 2048), odd_ntt, False, primes[:2], 1, no_school)
+    # staged from 10^8 up (flagship_is_staged): the zero-top forward
+    drive(REC_BITS, "1e8", (13, 2, 1024), zerotop + ("normmod",) + ntt_post, False, primes, 3,
+          no_top)
+    drive(HUGE_BITS, "1e9", (15, 1, 2048), zerotop + ("sqrt2_top_inv",) + ntt_post, False,
+          primes[:2], 1, no_top)
     e2e["peak_memory_1e9_gib"] = peaks["mul/sqr 1e9"]
-    drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec)
+    drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec + no_top)
     e2e["peak_memory_2e9_gib"] = peaks["mul/sqr 2e9"]
     assert peaks["mul/sqr 2e9"] <= MAX_PEAK_GIB_2E9, peaks["mul/sqr 2e9"]
     # unbalanced default plans: the truncated MFA (trunc_mfa < conv_len)
@@ -947,13 +1065,16 @@ def main() -> int:
           ("ladder_pe", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
            "canonicalize") + ntt,
           False, primes, 3, no_school + ("mfa_cols",), bits_b=UNB_MID[1])
+    # staged and truncated: the row-IFFT leg per chunk, no Garner post leg
     drive(UNB_EVEN[0], "3.98e8x1.99e8", (14, 2, 2048, 36736),
           ("ladder_pe", "ladder", "normmod", "canonicalize") + ntt,
-          False, primes[:2], 1, no_school + ("mfa_cols",), bits_b=UNB_EVEN[1])
+          False, primes[:2], 1, no_school + ("mfa_cols", "ladder_pre_half") + posts,
+          bits_b=UNB_EVEN[1])
     drive(UNB_HUGE[0], "1e9x1e8", (15, 1, 2048, 67840),
           ("ladder_pe", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
            "canonicalize") + ntt,
-          False, primes[:2], 1, no_school + ("mfa_cols",), bits_b=UNB_HUGE[1])
+          False, primes[:2], 1, no_school + ("mfa_cols", "ladder_pre_half") + posts,
+          bits_b=UNB_HUGE[1])
     e2e["peak_memory_1e9x1e8_gib"] = peaks["mul 1e9x1e8"]
     assert peaks["mul 1e9x1e8"] <= MAX_PEAK_GIB_UNB_HUGE, peaks["mul 1e9x1e8"]
     # the six other drivers, exact, at their own plans
@@ -977,8 +1098,12 @@ def main() -> int:
         drive(ODD_SMALL_BITS, "3162277_ntt0", (11, 1, 128), odd, True, primes, 5, ntt)
         drive(ODD_BITS, "1e7_ntt0", (12, 1, 256), odd, False, primes, 3, ntt)
         drive(PLAN_BITS, "2e7_ntt0", (12, 2, 512), even, False, primes, 3, ntt)
-        drive(REC_BITS, "1e8_ntt0", (11, 24, 3072), rec, False, primes, 3, ntt)
-        drive(HUGE_BITS, "1e9_ntt0", (14, 4, 4096), rec, False, primes[:2], 1, ntt)
+        # staged with the recursive pointwise: the hook is never consumed,
+        # the inverse leg runs on the ladder
+        drive(REC_BITS, "1e8_ntt0", (11, 24, 3072), rec + ("ladder_pre_half",), False, primes, 3,
+              ntt + posts)
+        drive(HUGE_BITS, "1e9_ntt0", (14, 4, 4096), rec + ("ladder_pre_half",), False,
+              primes[:2], 1, ntt + posts)
     e2e["peak_memory_1e9_ntt0_gib"] = peaks["mul/sqr 1e9_ntt0"]
 
     def mulmod_case(n_bits, label, expect, forbid, xy=None, want=None):
@@ -1030,6 +1155,8 @@ def main() -> int:
 
     print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
           "events, digits on the card): " + json.dumps(e2e))
+    print("staged A/B (record, not a claim; device ms interleaved, peak GiB of one call): "
+          + json.dumps(ab_staged))
     print(f"launches on the main path (all sizes): {launches_total}")
     for name, n in launches_total.items():
         assert n > 0, f"kernel {name} was not launched on the main path"

@@ -14,9 +14,12 @@ What the port serves today: `models.mul.mul` / `sqr` for every plan the
 planner picks -- the reference's default plans, or with MPIR_FFT_NTT=0 its
 A/B plans -- (odd and even `w`; the NTT-CRT pointwise for power-of-two
 L <= 8192, dense up to 2048 and 4-step above, the schoolbook for other
-L <= 2048, the recursive Fermat mulmod for the rest), through full-length
-transforms, and `mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.
-Not ported yet: truncation, the MFA and the staged/out-of-core drivers.
+L <= 2048, the recursive Fermat mulmod for the rest), through the
+full-length flat pair or, where an unbalanced plan truncates, the
+truncated MFA, staged from conv_len * L > 2^24 elements as the reference
+stages them; `mul(a, b, driver=...)` for the seven drivers; and
+`mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet:
+the out-of-core driver, `mul_many` and sharding.
 
     from mpir_fft_tpu_torch.models.mul import mul
     mul(a, b)                      # exact product, on "cuda" by default

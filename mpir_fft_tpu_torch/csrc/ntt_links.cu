@@ -30,6 +30,17 @@
 // row keeps the row's coefficients in shared memory (12 M bytes: int64
 // coefficients and int32 digit sums; 96 KB at M = 8192, above the default
 // 48 KB, so that launch raises the kernel's dynamic shared-memory limit).
+//
+// The garner_post epilogue (ntt.py:445-462, read at :493): both Garner
+// forms also take a post leg (K = 2^k, the k stage exponents), the staged
+// flagship's innermost inverse ladder group.  One CTA then owns K
+// consecutive rows: it runs Garner + spread + carry row by row with the
+// same 12 M bytes of scratch, keeps the K digit rows in shared memory, runs
+// the k inverse stages over them as the ladder does (mf::ladder_group: the
+// same twiddles, carry-free stages, then one carry pass) and writes the
+// rows once.  Shared memory 12 M + 8 K M bytes (a ping-pong pair): 140 KB
+// at M 1024 (K 16), 152 KB at M 2048 (K 8), 176 KB at M 4096 (K 4).  So the
+// spectrum chunk's first inverse leg costs no round trip of its own.
 #include "ntt_common.cuh"
 
 namespace {
@@ -214,7 +225,68 @@ garner_residues_kernel(const int* __restrict__ r1, const int* __restrict__ r2,
   spread_carry_row(c, s, out + at, M);
 }
 
+// The garner_post form of both Garner kernels: K consecutive rows per CTA
+// (Raw: the dense tier's (B, 2M) raw inverse sums, tier-1 primes; else the
+// 4-step tier's (B, M) residues, tier-2 primes), each row's digits (Garner,
+// spread, carry) into shared memory, then the k inverse ladder stages over
+// the K rows (h = 1, hpos = 0: K-index q is position q of the block) and
+// one carry pass into out.
+template <class T, bool Raw>
+__global__ void __launch_bounds__(kThreads)
+garner_post_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
+                   const int* __restrict__ s3, int* __restrict__ out, int M, int K, int k,
+                   mf::LadderSteps steps) {
+  extern __shared__ long long c[];                   // M coefficients
+  int* s = reinterpret_cast<int*>(c + M);            // M digit sums
+  int* cur = s + M;                                  // K digit rows
+  int* nxt = cur + K * M;                            // their ping-pong partner
+  const long long row0 = static_cast<long long>(blockIdx.x) * K;
+  const long long stride = Raw ? 2LL * M : M;
+  for (int q = 0; q < K; ++q) {
+    const long long at = (row0 + q) * stride;
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      if constexpr (Raw)
+        c[i] = garner_coeff<T>(fold<T::P1>(s1[at + i], s1[at + M + i]),
+                               fold<T::P2>(s2[at + i], s2[at + M + i]),
+                               fold<T::P3>(s3[at + i], s3[at + M + i]));
+      else
+        c[i] = garner_coeff<T>(s1[at + i], s2[at + i], s3[at + i]);
+    }
+    __syncthreads();
+    spread_carry_row(c, s, cur + q * M, M);
+  }
+  __syncthreads();
+  int* res = mf::ladder_group(cur, nxt, K, k, M, 1, 0, true, steps, nullptr);
+  for (int idx = threadIdx.x; idx < K * M; idx += blockDim.x) {
+    const int q = idx / M;
+    const int i = idx - q * M;
+    out[(row0 + q) * M + i] = mf::carry_digit(res + q * M, i, M);
+  }
+}
+
 bool bad_m(int M) { return M < 4 || M > kMaxM || (M & (M - 1)) != 0; }
+
+// Launch the garner_post form over B rows (B a multiple of K = 2^k).
+template <class T, bool Raw>
+int launch_post(const void* s1, const void* s2, const void* s3, void* out, long long B, int M,
+                int K, const void* steps_host, int k, void* stream) {
+  if (k < 1 || k > mf::kMaxLadderStages || K != (1 << k) || B % K != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B / K > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  mf::LadderSteps st{};
+  const long long* sh = static_cast<const long long*>(steps_host);
+  for (int j = 0; j < k; ++j) st.s[j] = sh[j];
+  const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int)) +
+                      2ull * K * M * sizeof(int);
+  const cudaError_t err = mf::set_smem(reinterpret_cast<const void*>(garner_post_kernel<T, Raw>),
+                                       smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  garner_post_kernel<T, Raw><<<static_cast<unsigned>(B / K), kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(s1), static_cast<const int*>(s2), static_cast<const int*>(s3),
+      static_cast<int*>(out), M, K, k, st);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -246,11 +318,14 @@ MF_EXPORT int mf_mid_planes(const void* sa, const void* sb, void* out, long long
 }
 
 // s1, s2, s3 (B, 2M) int32 (primes 12289, 40961, 61441 in that order),
-// out (B, M) int32.
+// out (B, M) int32.  post_K: 0, or K = 2^k for the garner_post leg with the
+// k stage exponents steps (host long long[k]).
 MF_EXPORT int mf_garner_carry(const void* s1, const void* s2, const void* s3, void* out,
-                              long long B, int M, void* stream) {
+                              long long B, int M, int post_K, const void* steps, int k,
+                              void* stream) {
   if (bad_m(M) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
+  if (post_K) return launch_post<Tier1, true>(s1, s2, s3, out, B, M, post_K, steps, k, stream);
   if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int));
   garner_carry_kernel<<<static_cast<unsigned>(B), mf::row_threads(M, kThreads), smem,
@@ -261,11 +336,14 @@ MF_EXPORT int mf_garner_carry(const void* s1, const void* s2, const void* s3, vo
 }
 
 // r1, r2, r3 (B, M) int32 residues in [0, p) of the primes 65537, 114689,
-// 163841 in that order, out (B, M) int32; M = 4096 or 8192.
+// 163841 in that order, out (B, M) int32; M = 4096 or 8192.  post_K,
+// steps, k: as mf_garner_carry's.
 MF_EXPORT int mf_garner_residues(const void* r1, const void* r2, const void* r3, void* out,
-                                 long long B, int M, void* stream) {
+                                 long long B, int M, int post_K, const void* steps, int k,
+                                 void* stream) {
   if ((M != 4096 && M != 8192) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
+  if (post_K) return launch_post<Tier2, false>(r1, r2, r3, out, B, M, post_K, steps, k, stream);
   if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int));
   const cudaError_t err = mf::set_smem(reinterpret_cast<const void*>(garner_residues_kernel), smem);

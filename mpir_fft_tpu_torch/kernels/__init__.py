@@ -37,11 +37,12 @@ NVCC_FLAGS = (
 LIB_STEM = "libmpir_fft_kernels"
 
 LAUNCHES = {
-    "ladder": 0, "ladder_pe": 0, "mfa_cols": 0, "conv_base": 0, "normmod": 0, "canonicalize": 0,
+    "ladder": 0, "ladder_pe": 0, "ladder_pre_half": 0, "mfa_cols": 0, "conv_base": 0,
+    "normmod": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
-    "input_planes": 0, "mid_planes": 0, "garner_carry": 0,
+    "input_planes": 0, "mid_planes": 0, "garner_carry": 0, "garner_carry_post": 0,
     "ntt4_input_planes": 0, "ntt4_fwd_twiddle": 0, "ntt4_pointwise": 0, "ntt4_inv_twiddle": 0,
-    "ntt4_residues": 0, "garner_residues": 0, "ntt4_fused": 0,
+    "ntt4_residues": 0, "garner_residues": 0, "garner_residues_post": 0, "ntt4_fused": 0,
     "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
 
@@ -119,8 +120,9 @@ _LL = ctypes.c_longlong
 
 _SIGNATURES = {
     # x, out, N, K, h, L, inverse, steps (host long long[k]), k,
-    # pe (device int32 (N, K/2, 2) or null), stream
-    "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P, _P),
+    # pe (device int32 (N, K/2, 2) or null), pre (pre_half on), pre e0,
+    # pre step (half-bit exponents in [0, 4W)), stream
+    "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _LL, _P),
     # x, out, schedule (device int64 [nops, 8]), nops, B, n2, L, n1 mask,
     # cross-twiddle w, kmax, warps, stream
     "mf_mfa_cols": (_P, _P, _P, _I, _LL, _I, _I, _LL, _LL, _I, _I, _P),
@@ -143,10 +145,11 @@ _SIGNATURES = {
     "mf_input_planes": (_P, _P, _LL, _I, _P),
     # sa, sb, out, B, M, prime index, stream
     "mf_mid_planes": (_P, _P, _P, _LL, _I, _I, _P),
-    # s1, s2, s3, out, B, M, stream
-    "mf_garner_carry": (_P, _P, _P, _P, _LL, _I, _P),
-    # r1, r2, r3 (tier-2 residues), out, B, M, stream
-    "mf_garner_residues": (_P, _P, _P, _P, _LL, _I, _P),
+    # s1, s2, s3, out, B, M, post K (0: none), post steps (host long
+    # long[k]), k, stream
+    "mf_garner_carry": (_P, _P, _P, _P, _LL, _I, _I, _P, _I, _P),
+    # r1, r2, r3 (tier-2 residues), out, B, M, post K, post steps, k, stream
+    "mf_garner_residues": (_P, _P, _P, _P, _LL, _I, _I, _P, _I, _P),
     # x, out (3 primes' planes), B, M, stream
     "mf_ntt4_input_planes": (_P, _P, _LL, _I, _P),
     # S, table, out, B, R, C, prime index, inverse, stream

@@ -27,9 +27,19 @@ mulmod) takes the small-prime NTT-CRT for power-of-two rings L <= 8192, the
 schoolbook for other L <= 2048 (and for all of them under MPIR_FFT_NTT=0),
 and the recursive Fermat mulmod for the rest; the other drivers take the
 leaf (`mulmod_base`) wherever it serves, as the reference's recursive=False.
-The staged driver (`_staged_flagship`, mpir_fft_tpu/models/mul.py:402) is
-not needed here: 80 GB of device memory holds the 10^9-bit spectra unstaged
-(16.6 GiB peak on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py).
+
+Staging (`_staged_flagship`, the reference's models/mul.py:401-515): `mul`
+and `sqr` send every flagship plan with conv_len * L > 2^24 elements
+(`flagship_is_staged`: 10^8 bits and up) through the same math in stages,
+as the reference does -- one operand's forward at a time (on balanced
+full-length plans a zero-top forward: split only conv/2 rows, the s-leg a
+plain transform, the t-leg's half-bit twiddle riding its first ladder
+group), the pointwise on row chunks (`_pw_chunk_rows`) each followed by
+its chunk-local first inverse leg (inside the Garner kernel where the NTT
+serves the ring: ops/ntt.py garner_post), then the inverse without that
+leg and with the norm tail folded in, and the combine.  The thresholds are
+the reference's; `mpn_mul_flagship` / `mpn_sqr_flagship` stay the
+unstaged drivers.
 
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never
@@ -41,13 +51,16 @@ import torch
 
 from mpir_fft_tpu_torch.ops.limb import (DIGIT_BITS, Ring, digits_from_int, int_from_digits,
                                          normmod_div)
-from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_radix2_mfa, mfa_fft_trunc,
-                                        mfa_fft_trunc_sqrt2, mfa_ifft_trunc, mfa_ifft_trunc_sqrt2)
+from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_mfa_rows, ifft_radix2_mfa,
+                                        mfa_fft_trunc, mfa_fft_trunc_sqrt2, mfa_ifft_trunc,
+                                        mfa_ifft_trunc_sqrt2)
 from mpir_fft_tpu_torch.ops.mulmod import mulmod
+from mpir_fft_tpu_torch.ops.ntt import garner_post
 from mpir_fft_tpu_torch.ops.pointwise import base_serves, mulmod_base
 from mpir_fft_tpu_torch.ops.split import fft_combine_bits, fft_split_bits
 from mpir_fft_tpu_torch.ops.sqrt2 import fft_sqrt2, fft_trunc_sqrt2, ifft_sqrt2, ifft_trunc_sqrt2
-from mpir_fft_tpu_torch.ops.transforms import fft_radix2, ifft_radix2
+from mpir_fft_tpu_torch.ops.transforms import (fft_radix2, ifft_innermost, ifft_radix2,
+                                               inner_group, inner_steps)
 from mpir_fft_tpu_torch.ops.truncate import fft_trunc, ifft_trunc
 from mpir_fft_tpu_torch.utils.interop import digits_to_tensor, tensor_to_digits
 from mpir_fft_tpu_torch.utils.params import MulPlan, cdiv, choose_params
@@ -204,6 +217,104 @@ def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     return _finish(c, plan, plan.trunc, norm_done=True)
 
 
+# ---------------------------------------------------------------------------
+# Staged execution (the reference's models/mul.py:255-296, :401-515; its
+# thresholds unchanged, so the same plans take the same path)
+# ---------------------------------------------------------------------------
+
+# above this many coefficient int32 elements, the flagship runs staged
+_STAGED_THRESHOLD_ELEMS = 1 << 24
+
+# bytes of spectrum rows per pointwise chunk (twice this where the leaf
+# serves the ring): bounds the pointwise's working set
+_PW_CHUNK_BYTES = 128 << 20
+
+
+def flagship_is_staged(plan: MulPlan) -> bool:
+    return plan.conv_len * (plan.W // DIGIT_BITS) > _STAGED_THRESHOLD_ELEMS
+
+
+def _pw_chunk_rows(plan: MulPlan) -> int:
+    """Rows per pointwise chunk (the reference's :493-503): max(256,
+    bytes / 4L), at most trunc_mfa, rounded down to whole n1 groups (the
+    row-IFFT leg's), at least n1."""
+    L = plan.W // DIGIT_BITS
+    pw_bytes = _PW_CHUNK_BYTES * (2 if base_serves(L) else 1)
+    rows = min(max(256, pw_bytes // (4 * L)), plan.trunc_mfa)
+    return max(plan.n1, (rows // plan.n1) * plan.n1)
+
+
+def _inner_leg(plan: MulPlan):
+    """The chunk-local first inverse leg run after each pointwise chunk (ref
+    :282-296): at the full length the flat inverse's innermost ladder group
+    (ifft_innermost at length conv/2), below it the MFA's row IFFTs;
+    identical in both w parities."""
+    W, n1 = plan.W, plan.n1
+    if plan.trunc_mfa == plan.conv_len:
+        return lambda v: ifft_innermost(v, plan.w, W, plan.conv_len // 2)
+    row_w = plan.w * ((plan.conv_len // 2) // n1)
+    return lambda v: ifft_mfa_rows(v, row_w, W, n1)
+
+
+def _staged_flagship(plan: MulPlan):
+    """The staged flagship of a plan as run(da, db=None) on digit tensors
+    [La], [Lb] (db None: the square of da) -> the canonical product digits
+    [out_len_digits(plan)] -- the reference's _staged_flagship (models/
+    mul.py:401-515), unsharded."""
+    assert plan.sqrt2
+    L = plan.W // DIGIT_BITS
+    C, W, n1, t = plan.conv_len, plan.W, plan.n1, plan.trunc_mfa
+    h = C // 2
+    inner = _inner_leg(plan)
+    # balanced full-length plans split each operand into <= conv/2
+    # coefficients, so the top half of the coefficient array is zero and the
+    # sqrt2 top layer degenerates to s = a, t = a q^j (in both w parities:
+    # the even-w flat DIF's first stage splits the same way)
+    zerotop = t == C and max(plan.j1, plan.j2) <= h
+    # the innermost inverse group at the full length, for the Garner kernel
+    kg = inner_group(h, L)
+    post_steps = inner_steps(plan.w, h, kg)
+    rows = _pw_chunk_rows(plan)
+
+    def fwd(d):
+        if zerotop:
+            ia = fft_split_bits(d, plan.bits1, h, L)
+            # the t-leg's half-bit twiddle t_j = a_j q^j rides its first ladder group
+            return torch.cat([fft_radix2(ia, plan.w, W),
+                              fft_radix2(ia, plan.w, W, pre_half=(0, plan.w))], dim=-2)
+        ia = fft_split_bits(d, plan.bits1, C, L)
+        return mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)
+
+    def pw_inner(fa, fb):
+        # the pointwise, then its chunk-local first inverse leg; at the full
+        # length the leg rides inside the Garner kernel where the NTT serves
+        # the ring, and runs here only if the hook was not consumed
+        if t == C:
+            with garner_post(L, 1 << kg, post_steps) as cell:
+                prod = _pointwise(fa, fb, W, True)
+            return prod if cell["consumed"] else inner(prod)
+        return inner(_pointwise(fa, fb, W, True))
+
+    def run(da, db=None):
+        # one operand's forward at a time; the chunk products overwrite the
+        # first spectrum's rows in place (the reference donates it); the
+        # forwards hold conv_len rows, the chunks cover the first t
+        fa = fwd(da)
+        fb = fa if db is None else fwd(db)
+        for i in range(0, t, rows):
+            j = min(i + rows, t)
+            ca = fa[i:j]
+            fa[i:j] = pw_inner(ca, ca if db is None else fb[i:j])
+        del fb
+        if t < C:
+            fa[t:] = 0
+        c = mfa_ifft_trunc_sqrt2(fa, plan.w, W, n1, t, norm_div=plan.lg_conv, rows_done=True)
+        del fa
+        return fft_combine_bits(c[:t], plan.bits1, out_len_digits(plan))
+
+    return run
+
+
 DRIVERS = {
     "radix2": (mpn_mul_radix2, False),
     "sqrt2": (mpn_mul_sqrt2, True),
@@ -236,6 +347,8 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     plan = _select_plan(ba, bb, driver)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
+    if driver == "flagship" and flagship_is_staged(plan):
+        return int_from_digits(tensor_to_digits(_staged_flagship(plan)(da, db)))
     return int_from_digits(tensor_to_digits(DRIVERS[driver][0](da, db, plan)))
 
 
@@ -250,4 +363,6 @@ def sqr(a: int, device="cuda") -> int:
         return a * a
     plan = _select_plan(ba, ba)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
+    if flagship_is_staged(plan):
+        return int_from_digits(tensor_to_digits(_staged_flagship(plan)(da)))
     return int_from_digits(tensor_to_digits(mpn_sqr_flagship(da, plan)))

@@ -59,20 +59,23 @@ def ladder_stages(L: int) -> int:
     return k
 
 
-def ladder_groups(C: int, L: int, kind: str) -> list[tuple[int, int]]:
+def ladder_groups(C: int, L: int, kind: str, skip_inner: int = 0) -> list[tuple[int, int]]:
     """(first stage l, stage count kg) of each ladder launch of a length-C
-    transform at digit width L, in execution order."""
+    transform at digit width L, in execution order.  skip_inner (inverse
+    only): the innermost skip_inner stages already ran, so the groups cover
+    stages 0 .. D - skip_inner - 1."""
     D = C.bit_length() - 1
     kmax = ladder_stages(L)
     groups = []
     if kind == "fwd":
+        assert skip_inner == 0
         l = 0
         while l < D:
             kg = min(kmax, D - l)
             groups.append((l, kg))
             l += kg
     else:
-        l_hi = D
+        l_hi = D - skip_inner
         while l_hi > 0:
             kg = min(kmax, l_hi)
             groups.append((l_hi - kg, kg))
@@ -97,7 +100,7 @@ def _require(x: torch.Tensor, what: str, ndim: int | None = None,
 # ---------------------------------------------------------------------------
 
 def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int,
-                 pe: torch.Tensor | None = None) -> torch.Tensor:
+                 pe: torch.Tensor | None = None, pre_half: tuple | None = None) -> torch.Tensor:
     """Plain version of the ladder: k = len(steps) radix-2 stages on
     xp (N, K, h, L).  Stage j pairs K-indices (q, q+m), m = K >> (j+1), with
     twiddle exponent (qm*h + hpos) * steps[j]; 'fwd' runs j = 0..k-1 DIF
@@ -105,12 +108,20 @@ def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int,
     one carry_pass.  pe (N, K/2, 2), for h == 1 only: the innermost stage
     (m == 1) also multiplies s by 2^pe0 and t by 2^pe1 ('fwd'), or divides
     them out before the butterfly ('inv') -- the reference's last-stage
-    table (fused.py:268-273, :430-432)."""
+    table (fused.py:268-273, :430-432).  pre_half = (e0, step2), 'fwd'
+    only: first, row (q, hpos) -- transform position j = q*h + hpos -- is
+    multiplied by 2^((e0 + j*step2)/2), half-bit exponents (the reference's
+    fused.py:275, :416-417; the row body of twiddle_half_rows_plain)."""
     N, K, h, L = xp.shape
     k = len(steps)
     order = range(k) if kind == "fwd" else range(k - 1, -1, -1)
     hpos = torch.arange(h, device=xp.device, dtype=torch.int64)
     x = xp
+    if pre_half is not None:
+        e0, st2 = pre_half
+        j = torch.arange(K, device=xp.device, dtype=torch.int64)[:, None] * h + hpos
+        e2 = torch.remainder(e0 + j * st2, 4 * W)[None, :, :, None].expand(N, K, h, 1)
+        x = twiddle_half_rows_plain(x.reshape(-1, L), e2.reshape(-1, 1), W).reshape(xp.shape)
     for j in order:
         m = K >> (j + 1)
         xr = x.reshape(N, K // (2 * m), 2, m, h, L)
@@ -130,15 +141,21 @@ def ladder_plain(kind: str, xp: torch.Tensor, steps: tuple, W: int,
 
 
 def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int,
-                           pe: torch.Tensor | None = None) -> torch.Tensor:
+                           pe: torch.Tensor | None = None,
+                           pre_half: tuple | None = None) -> torch.Tensor:
     """k = len(steps) consecutive FFT stages in one pass over xp (N, K, h, L),
     K = 2^k: each batch row holds one length-(K*h) DIF block group, position
-    p at K-index p // h, h-index p % h (see ladder_plain for the stages and
-    the optional last-stage table pe, int32 (N, K/2, 2) in [0, 2W), h == 1).
+    p at K-index p // h, h-index p % h (see ladder_plain for the stages, the
+    optional last-stage table pe, int32 (N, K/2, 2) in [0, 2W), h == 1, and
+    the half-bit twiddle pre_half = (e0, step2) of a transform's first
+    group, 'fwd' only: each batch row is then a whole transform).
     Output: bounded redundant digits (one carry_pass after the stages).
-    Launches count under "ladder", or "ladder_pe" with a table."""
+    Launches count under "ladder", "ladder_pe" with a table, or
+    "ladder_pre_half" with the twiddle."""
     if kind not in ("fwd", "inv"):
         raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
+    if pre_half is not None and kind != "fwd":
+        raise ValueError("ladder: pre_half is a forward option")
     _require(xp, "ladder", ndim=4)
     N, K, h, L = xp.shape
     k = len(steps)
@@ -150,19 +167,27 @@ def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int,
             raise ValueError(f"ladder: pe {tuple(pe.shape)} must be ({N}, {K // 2}, 2) on "
                              f"{xp.device}, for h == 1 (h={h})")
     if xp.device.type == "cpu":
-        return ladder_plain(kind, xp, steps, W, pe)
+        return ladder_plain(kind, xp, steps, W, pe, pre_half)
     if 2 * K * L * 4 > LADDER_SMEM_BYTES:
         raise ValueError(f"ladder: K={K}, L={L} exceeds the shared-memory block")
+    e0, st2 = (0, 0) if pre_half is None else (int(v) % (4 * W) for v in pre_half)
     out = torch.empty_like(xp)
-    st = (ctypes.c_longlong * k)(*[int(s) for s in steps])   # read at launch
+    st = _steps_arg(steps)
     with torch.cuda.device(xp.device):
         rc = kernels.lib().mf_ladder(
             xp.data_ptr(), out.data_ptr(), N, K, h, L, int(kind == "inv"),
             ctypes.cast(st, ctypes.c_void_p), k, None if pe is None else pe.data_ptr(),
-            kernels.stream_of(xp))
+            int(pre_half is not None), e0, st2, kernels.stream_of(xp))
     kernels.check(rc, "ladder")
-    kernels.LAUNCHES["ladder" if pe is None else "ladder_pe"] += 1
+    kernels.LAUNCHES["ladder_pre_half" if pre_half is not None
+                     else "ladder" if pe is None else "ladder_pe"] += 1
     return out
+
+
+def _steps_arg(steps) -> ctypes.Array:
+    """Stage exponents as the host long long[k] a ladder-group kernel reads
+    at launch."""
+    return (ctypes.c_longlong * len(steps))(*[int(s) for s in steps])
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,14 @@ The passes on the card:
   * rows: fft_radix2 / ifft_radix2 at root w*n2 -- the whole-transform
     kernel when an (n1, L) row fits (whole_fits), the ladder otherwise.
 
+The staged flagship's pieces (ref mfa.py:197-263, :337-387): `ifft_mfa_rows`
+runs just the row-IFFT leg on chunks of whole rows, and `rows_done=True`
+tells the inverses that it already ran; at the full length the flat
+dispatch maps it to `skip_inner` (the innermost ladder group, which ran in
+the pointwise).
+
 Not ported here: the sharding constrainer (`con`, `_shard_ctx`,
-`_local_cols`; ROADMAP item 10) and the staged driver's `ifft_mfa_rows` /
-`rows_done` (item 2)."""
+`_local_cols`; ROADMAP item 10)."""
 
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ import torch
 
 from .fused import fused_mfa_cols, mfa_col_fits
 from .limb import mul_2expmod
-from .sqrt2 import _fft_trunc_sqrt2, _ifft_trunc_sqrt2
-from .transforms import fft_radix2, ifft_radix2, revbin_vec
+from .sqrt2 import _fft_trunc_sqrt2, _ifft_trunc_sqrt2, ifft_sqrt2
+from .transforms import fft_radix2, ifft_radix2, inner_group, revbin_vec
 from .truncate import truncated
 
 
@@ -84,10 +89,23 @@ def fft_radix2_mfa(x: torch.Tensor, w: int, W: int, n1: int, n2: int) -> torch.T
     return fft_radix2(_swap(xc), w * n2, W)           # [..., n2, n1, L]: rows
 
 
-def ifft_radix2_mfa(x: torch.Tensor, w: int, W: int, n1: int, n2: int) -> torch.Tensor:
+def ifft_mfa_rows(v: torch.Tensor, row_w: int, W: int, n1: int) -> torch.Tensor:
+    """Just the row-IFFT leg of the inverse MFA over flat [..., R, L] chunks
+    (R a multiple of n1): the first pass every spectrum position < trunc
+    takes, in both w parities (root w*n2 == (w//2)*(2*n2)).  Chunk-local,
+    so the staged flagship runs it on each pointwise chunk (ref
+    mfa.py:197-208)."""
+    R, L = v.shape[-2], v.shape[-1]
+    assert R % n1 == 0, (tuple(v.shape), n1)
+    return ifft_radix2(v.reshape(v.shape[:-2] + (R // n1, n1, L)), row_w, W).reshape(v.shape)
+
+
+def ifft_radix2_mfa(x: torch.Tensor, w: int, W: int, n1: int, n2: int,
+                    rows_done: bool = False) -> torch.Tensor:
     """Inverse 2-D MFA (times n1*n2): row IFFTs, then column IFFTs with the
-    cross twiddles divided out before their first stage."""
-    xr = ifft_radix2(x, w * n2, W)
+    cross twiddles divided out before their first stage.  rows_done: the
+    row IFFTs already ran (ifft_mfa_rows)."""
+    xr = x if rows_done else ifft_radix2(x, w * n2, W)
     return _swap(_run_cols(_swap(xr), "inv", w, W, n2))
 
 
@@ -103,13 +121,16 @@ def mfa_fft_trunc(x: torch.Tensor, w: int, W: int, n1: int, n2: int, trunc2: int
 
 
 def mfa_ifft_trunc(v: torch.Tensor, w: int, W: int, n1: int, n2: int, trunc2: int,
-                   no_zero_tail: bool = False) -> torch.Tensor:
+                   no_zero_tail: bool = False, rows_done: bool = False) -> torch.Tensor:
     """Truncated inverse MFA (times n1*n2 on the first trunc2 rows).  Plain
     flavour: the coefficient rows >= trunc2 are zero; no_zero_tail: input
     rows >= trunc2 hold the unscaled coefficients (cell (j2, j1) =
-    x_{j2 n1 + j1}), as truncate.ifft_trunc1."""
+    x_{j2 n1 + j1}), as truncate.ifft_trunc1.  rows_done: the first trunc2
+    rows already went through ifft_mfa_rows."""
     assert 1 <= trunc2 <= n2
-    head = ifft_radix2(v[..., :trunc2, :, :], w * n2, W)
+    head = v[..., :trunc2, :, :]
+    if not rows_done:
+        head = ifft_radix2(head, w * n2, W)
     tail = v[..., trunc2:, :, :]
     if no_zero_tail and trunc2 < n2:
         # the row IFFTs scaled the head by n1; scale the known coefficients
@@ -156,13 +177,22 @@ def mfa_fft_trunc_sqrt2(x: torch.Tensor, w: int, W: int, n1: int, trunc: int) ->
 
 
 def mfa_ifft_trunc_sqrt2(v: torch.Tensor, w: int, W: int, n1: int, trunc: int,
-                         norm_div: int = 0) -> torch.Tensor:
+                         norm_div: int = 0, rows_done: bool = False) -> torch.Tensor:
     """Inverse of mfa_fft_trunc_sqrt2 (times 4n on positions < trunc;
     positions >= trunc unspecified).  norm_div > 0 folds the drivers'
     divide-by-2^norm_div + normmod tail into the last pass over each
-    position."""
+    position.  rows_done: positions < trunc already took the chunk-local
+    first leg -- below the full length the row IFFTs (ifft_mfa_rows, root
+    w * n2); at trunc == 4n, the flat dispatch, the innermost ladder group
+    (transforms.ifft_innermost at length 2n), skipped here as skip_inner
+    (ref mfa.py:337-369)."""
     assert trunc % n1 == 0
+    C = v.shape[-2]
+    if trunc == C:
+        skip = inner_group(C // 2, v.shape[-1]) if rows_done else 0
+        return ifft_sqrt2(v, w, W, norm_div=norm_div, skip_inner=skip)
     return _ifft_trunc_sqrt2(
         v, w, W, trunc, norm_div,
-        _cells(lambda y, n2, u: ifft_radix2_mfa(y, u, W, n1, n2), n1),
-        _cells(lambda y, n2, u, t, one: mfa_ifft_trunc(y, u, W, n1, n2, t // n1, one), n1))
+        _cells(lambda y, n2, u: ifft_radix2_mfa(y, u, W, n1, n2, rows_done), n1),
+        _cells(lambda y, n2, u, t, one: mfa_ifft_trunc(y, u, W, n1, n2, t // n1, one,
+                                                       rows_done), n1))

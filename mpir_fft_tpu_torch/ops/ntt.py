@@ -25,7 +25,9 @@ NTT4_CHUNK_BYTES.
 
 Garner's mixed radix gives the signed coefficient c exactly in int64; its
 three base-2^16 pieces land at digits i, i+1, i+2 (negacyclic) and one
-carry pass bounds the result below 2^16 + 2^12.
+carry pass bounds the result below 2^16 + 2^12.  Under the garner_post
+hook (the staged flagship's), both Garner kernels also run the innermost
+inverse ladder group on each block of K rows before writing them.
 
 The host part (primes, roots, plane-block matrices, 4-step tables, Garner
 constants) is a copy of the reference's.  The device part is plain torch on
@@ -42,6 +44,9 @@ outside any kernel)."""
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
+import ctypes
 import functools
 import os
 
@@ -49,8 +54,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .fused import _require
+from .fused import _require, _steps_arg
 from .limb import DIGIT_BITS, _wrap_inject, carry_pass, normmod
+from .transforms import ifft_innermost_body
 
 PRIMES = (12289, 40961, 61441)       # P ~ 2^44.8; |c| < P/2 up to M = 2048
 PRIMES_T2 = (65537, 114689, 163841)  # P ~ 2^50.1; |c| < P/2 up to M = 8192
@@ -402,12 +408,23 @@ def mid_planes_plain(sa: torch.Tensor, sb: torch.Tensor, p: int) -> torch.Tensor
     return _to_planes(fa * fb, p)
 
 
-def garner_carry_plain(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor) -> torch.Tensor:
+def post_plain(d: torch.Tensor, post: tuple | None) -> torch.Tensor:
+    """Plain version of the Garner kernels' post leg on (B, M) digits: for
+    post = (K, steps), the inverse ladder group of stage exponents steps on
+    each block of K rows (transforms.ifft_innermost_body); None: d."""
+    if post is None:
+        return d
+    K, steps = post
+    return ifft_innermost_body(d, steps, DIGIT_BITS * d.shape[-1], K)
+
+
+def garner_carry_plain(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
+                       post: tuple | None = None) -> torch.Tensor:
     """Plain version: fold the three raw inverse sums (B, 2M) to residues,
     Garner to the signed coefficients, spread into digits, one carry pass
-    -> (B, M) int32."""
+    -> (B, M) int32; then the post leg (post_plain)."""
     r1, r2, r3 = (_fold_S(s, p) for s, p in zip((s1, s2, s3), PRIMES))
-    return carry_pass(_spread(_garner(r1, r2, r3)))
+    return post_plain(carry_pass(_spread(_garner(r1, r2, r3))), post)
 
 
 def _require_same(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -471,21 +488,46 @@ def mid_planes(sa: torch.Tensor, sb: torch.Tensor, p: int) -> torch.Tensor:
     return out
 
 
-def garner_carry(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor) -> torch.Tensor:
+# shared memory of one Garner CTA with the post leg: the row's coefficients
+# and digit sums (12 M bytes) and a ping-pong pair of K rows (8 K M bytes),
+# within a Hopper block's 227 KB
+GARNER_POST_SMEM_BYTES = 227 * 1024
+
+
+def _check_post(post: tuple | None, B: int, M: int, what: str) -> tuple:
+    """The kernel arguments (K, steps array, k) of a post leg (0, None, 0
+    for none); raise where the kernel cannot take it."""
+    if post is None:
+        return 0, None, 0
+    K, steps = post
+    k = len(steps)
+    if k < 1 or K != 1 << k or B % K or 12 * M + 8 * K * M > GARNER_POST_SMEM_BYTES:
+        raise ValueError(f"{what}: post leg K={K} with {k} stages on {B} rows of M={M}: K must "
+                         f"be 2^stages, divide the rows and fit the shared-memory block")
+    return K, ctypes.cast(_steps_arg(steps), ctypes.c_void_p), k
+
+
+def garner_carry(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
+                 post: tuple | None = None) -> torch.Tensor:
     """The three primes' raw inverse GEMM sums (B, 2M) int32, in the order
     of PRIMES -> (B, M) bounded redundant digits (-2 <= d <= 2^16 + 1) of
-    the negacyclic product: fold, Garner CRT, spread and carry in one pass."""
+    the negacyclic product: fold, Garner CRT, spread and carry in one pass.
+    post = (K, steps): also the inverse ladder group of stage exponents
+    steps on each block of K rows, in the same launch (the garner_post
+    epilogue; counted as "garner_carry_post")."""
     M = _require_link(s1, "garner_carry", torch.int32, 2)
     for s in (s2, s3):
         _require_link(s, "garner_carry", torch.int32, 2)
     _require_same("garner_carry", s1, s2, s3)
-    if s1.device.type == "cpu":
-        return garner_carry_plain(s1, s2, s3)
     B = s1.shape[0]
+    K, st, k = _check_post(post, B, M, "garner_carry")
+    if s1.device.type == "cpu":
+        return garner_carry_plain(s1, s2, s3, post)
     out = torch.empty((B, M), dtype=torch.int32, device=s1.device)
     with torch.cuda.device(s1.device):
-        _launch("garner_carry", kernels.lib().mf_garner_carry, s1.data_ptr(), s2.data_ptr(),
-                s3.data_ptr(), out.data_ptr(), B, M, kernels.stream_of(s1))
+        _launch("garner_carry_post" if K else "garner_carry", kernels.lib().mf_garner_carry,
+                s1.data_ptr(), s2.data_ptr(), s3.data_ptr(), out.data_ptr(), B, M, K, st, k,
+                kernels.stream_of(s1))
     return out
 
 
@@ -552,11 +594,12 @@ def ntt4_residues_plain(S: torch.Tensor, p: int, M: int) -> torch.Tensor:
     return _fold_S(S, p, 3).reshape(-1, m2, m1).transpose(1, 2).reshape(-1, M)
 
 
-def garner_residues_plain(r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
+def garner_residues_plain(r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor,
+                          post: tuple | None = None) -> torch.Tensor:
     """Plain version: the residues (B, M) of the three tier-2 primes ->
     Garner's signed coefficients, spread into digits, one carry pass ->
-    (B, M) int32."""
-    return carry_pass(_spread(_garner(r1, r2, r3, PRIMES_T2)))
+    (B, M) int32; then the post leg (post_plain)."""
+    return post_plain(carry_pass(_spread(_garner(r1, r2, r3, PRIMES_T2))), post)
 
 
 def _ntt4_leg(pa: torch.Tensor, pb: torch.Tensor | None, blk: Ntt4Prime, M: int,
@@ -701,23 +744,27 @@ def ntt4_residues(S: torch.Tensor, p: int, M: int) -> torch.Tensor:
     return out
 
 
-def garner_residues(r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
+def garner_residues(r1: torch.Tensor, r2: torch.Tensor, r3: torch.Tensor,
+                    post: tuple | None = None) -> torch.Tensor:
     """Garner's residue form (the reference's _garner_carry with
     raw_k=None): the residues (B, M) int32 in [0, p) of the three tier-2
     primes, in the order of PRIMES_T2 -> (B, M) bounded redundant digits
-    (-5 <= d <= 2^16 + 4) of the negacyclic product in one pass."""
+    (-5 <= d <= 2^16 + 4) of the negacyclic product in one pass.  post: as
+    garner_carry's (counted as "garner_residues_post")."""
     _require(r1, "garner_residues", ndim=2, dtype=torch.int32)
     M = r1.shape[1]
     B = _require_t2(r1, "garner_residues", torch.int32, M, 1, M)
     for r in (r2, r3):
         _require_t2(r, "garner_residues", torch.int32, M, 1, M)
     _require_same("garner_residues", r1, r2, r3)
+    K, st, k = _check_post(post, B, M, "garner_residues")
     if r1.device.type == "cpu":
-        return garner_residues_plain(r1, r2, r3)
+        return garner_residues_plain(r1, r2, r3, post)
     out = torch.empty((B, M), dtype=torch.int32, device=r1.device)
     with torch.cuda.device(r1.device):
-        _launch("garner_residues", kernels.lib().mf_garner_residues, r1.data_ptr(),
-                r2.data_ptr(), r3.data_ptr(), out.data_ptr(), B, M, kernels.stream_of(r1))
+        _launch("garner_residues_post" if K else "garner_residues",
+                kernels.lib().mf_garner_residues, r1.data_ptr(), r2.data_ptr(), r3.data_ptr(),
+                out.data_ptr(), B, M, K, st, k, kernels.stream_of(r1))
     return out
 
 
@@ -745,6 +792,39 @@ def ntt4_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Public entry
 # ---------------------------------------------------------------------------
 
+# The garner_post hook (the reference's ntt.py:445-462): (M, K, steps,
+# consumed cell), set by the staged flagship around its pointwise so that
+# the chunk's innermost inverse ladder group runs inside the Garner kernel.
+_GARNER_POST = contextvars.ContextVar("mpir_fft_torch_garner_post", default=None)
+
+
+@contextlib.contextmanager
+def garner_post(M: int, K: int, steps):
+    """Ask the Garner step of a pointwise on rings of exactly M digits to
+    apply the inverse ladder group of stage exponents `steps` (K = 2^len)
+    to each block of K rows before it writes them.  Yields a dict whose
+    'consumed' becomes True if a Garner launch (either tier) took it; the
+    schoolbook leaf and the recursive mulmod never do, and then the caller
+    runs the leg itself.  Whether it is taken is a shape rule decided
+    before the launch: the ring is M digits and K divides the rows."""
+    cell = {"consumed": False}
+    tok = _GARNER_POST.set((M, K, tuple(int(s) for s in steps), cell))
+    try:
+        yield cell
+    finally:
+        _GARNER_POST.reset(tok)
+
+
+def _take_post(B: int, M: int) -> tuple | None:
+    """The hook's (K, steps) if it applies to a pointwise of B rows of M
+    digits (marking it consumed), else None."""
+    hook = _GARNER_POST.get()
+    if hook is None or hook[0] != M or B % hook[1]:
+        return None
+    hook[3]["consumed"] = True
+    return hook[1], hook[2]
+
+
 # The 4-step tier runs the batch in row chunks whose largest int32 GEMM
 # output (Bc*m rows of 3m' sums, 12 Bc M bytes) stays under this many bytes:
 # the port's counterpart of the reference's _PW_CHUNK_BYTES (models/mul.py),
@@ -758,8 +838,9 @@ def _mulmod_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The dense tier on (B, M) rows (y is x: a square): the flow of the
     reference's link-fused dense tier (ntt.py:1000-1015) -- input_planes
     per operand, per prime two forward GEMMs, mid_planes and one inverse
-    GEMM, then garner_carry on the three raw inverse sums."""
-    M = x.shape[1]
+    GEMM, then garner_carry on the three raw inverse sums (with the
+    garner_post leg where the hook applies)."""
+    B, M = x.shape
     pa = input_planes(x)
     pb = pa if y is x else input_planes(y)
     parts = []
@@ -769,7 +850,7 @@ def _mulmod_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         pp = mid_planes(Sa, Sb, p)
         del Sa, Sb
         parts.append(_dot_raw(pp, G))
-    return garner_carry(*parts)
+    return garner_carry(*parts, post=_take_post(B, M))
 
 
 def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -777,13 +858,17 @@ def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (NTT4_CHUNK_BYTES): per operand ntt4_input_planes, per prime the
     forward legs (F1 GEMM, ntt4_fwd_twiddle, F2 GEMM), ntt4_pointwise, the
     inverse leg (G2 GEMM, ntt4_inv_twiddle, G1 GEMM, ntt4_residues), then
-    garner_residues (the flow of ntt.py:1027-1046).  With
+    garner_residues (the flow of ntt.py:1027-1046; with the garner_post
+    leg where the hook applies, the chunks whole K-row blocks).  With
     MPIR_FFT_NTT_FUSED=1 (read at call time) each chunk's residues come
     from the fused kernel instead (ntt.py:978-989)."""
     B, M = x.shape
     square = y is x
     fused = os.environ.get("MPIR_FFT_NTT_FUSED", "0") == "1"
     rows = max(1, NTT4_CHUNK_BYTES // (12 * M))
+    post = _take_post(B, M)
+    if post is not None:                    # chunks of whole K-row blocks
+        rows = max(post[0], rows - rows % post[0])
     out = []
     for s in range(0, B, rows):
         xa = x[s:s + rows]
@@ -796,7 +881,7 @@ def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             res = [_ntt4_leg(pa[i], None if pb is None else pb[i], blk, M)
                    for i, blk in enumerate(_ntt4_blocks(M, x.device))]
             del pa, pb
-        out.append(garner_residues(*res))
+        out.append(garner_residues(*res, post=post))
         del res
     return out[0] if len(out) == 1 else torch.cat(out)
 

@@ -57,16 +57,21 @@ def fft_sqrt2(x: torch.Tensor, w: int, W: int) -> torch.Tensor:
     return fft_radix2(top.reshape(x.shape[:-2] + (2, C // 2, L)), w, W).reshape(x.shape)
 
 
-def ifft_sqrt2(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> torch.Tensor:
+def ifft_sqrt2(x: torch.Tensor, w: int, W: int, norm_div: int = 0,
+               skip_inner: int = 0) -> torch.Tensor:
     """Inverse of fft_sqrt2 (times C).  norm_div > 0: divide the outputs by
     2^norm_div and canonicalize (the drivers' scale + normalize tail,
     mul_fft.c:3658-3662) -- fused into the top merge for odd w, one
-    normmod_div pass for even w."""
+    normmod_div pass for even w.  skip_inner: the innermost stages already
+    ran chunk-locally (transforms.ifft_innermost at length C/2, root 2^w):
+    the same stages in both w parities, since the even-w length-C
+    transform's innermost stages at root 2^(w/2) equal the odd-w halves'
+    (ref sqrt2.py:172-200)."""
     if w % 2 == 0:
-        out = ifft_radix2(x, w // 2, W)
+        out = ifft_radix2(x, w // 2, W, skip_inner=skip_inner)
         return normmod_div(out, norm_div, W) if norm_div else out
     C, L = x.shape[-2], x.shape[-1]
-    halves = ifft_radix2(x.reshape(x.shape[:-2] + (2, C // 2, L)), w, W)
+    halves = ifft_radix2(x.reshape(x.shape[:-2] + (2, C // 2, L)), w, W, skip_inner=skip_inner)
     return fused_sqrt2_top_inv(halves.reshape(x.shape), w, W, norm_div=norm_div)
 
 

@@ -31,24 +31,43 @@ Conventions (identical to the reference):
     decimation-in-frequency with output in revbin order.
   * No scaling inside transforms: ifft(fft(x)) == 2^log2(C) * x.
 
-Not ported yet: the staged options (`pre_half`, `skip_inner`), which wait
-for the staged flagship."""
+The staged flagship's options (ref transforms.py:106-127, :190-319):
+  * `pre_half = (e0, step2)` on fft_radix2: input position j is first
+    multiplied by 2^((e0 + j*step2)/2).  On the ladder route it rides the
+    first group (the ladder's own option); a length-1 transform, or one on
+    the whole-transform route, takes one twiddle_half pass first.
+  * `skip_inner` on ifft_radix2: the innermost skip_inner stages already
+    ran chunk-locally (ifft_innermost, or inside the Garner kernel), so the
+    ladder groups start above them.  Such a transform always takes the
+    ladder route.  inner_group(C, L) is the stage count of the first
+    inverse ladder group (ladder_groups), so the skipped stages and the
+    groups that still run line up; it depends on L (4 up to L 1024, 3 at
+    L 2048, 2 at L 4096), where the reference's is min(4, log2 C) at any L,
+    so raw digits may differ from the reference's, not values mod p."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .fused import fused_butterfly_ladder, fused_transform, ladder_groups, whole_fits
+from .fused import (fused_butterfly_ladder, fused_transform, fused_twiddle_half, ladder_groups,
+                    ladder_plain, whole_fits)
 from .limb import shift_mod
 
 
-def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None) -> torch.Tensor:
+def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None, pre_half=None,
+         skip_inner: int = 0) -> torch.Tensor:
     C, L = x.shape[-2], x.shape[-1]
     D = C.bit_length() - 1
     assert C == 1 << D, "transform length must be a power of two"
+    assert 0 <= skip_inner <= D and (skip_inner == 0 or pe is None)
     shape = x.shape
-    if pe is None and C > 1 and x.ndim >= 3 and whole_fits(C, L):
+    whole = pe is None and skip_inner == 0 and C > 1 and x.ndim >= 3 and whole_fits(C, L)
+    if pre_half is not None and (D == 0 or whole):
+        e0, st2 = pre_half
+        x = fused_twiddle_half(x.contiguous(), e0 % (4 * W), st2, W)
+        pre_half = None
+    if whole:
         return fused_transform(kind, x.reshape(-1, C, L).contiguous(), w, W).reshape(shape)
     x = x.contiguous()
     if pe is not None:
@@ -57,7 +76,7 @@ def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None) -> torch.Tensor:
         if pe is not None:
             x = shift_mod(x, (pe if kind == "fwd" else -pe)[..., None], W)
         return x
-    for l, kg in ladder_groups(C, L, kind):
+    for l, kg in ladder_groups(C, L, kind, skip_inner):
         K = 1 << kg
         steps = tuple(w << (l + j) for j in range(kg))
         tab = None
@@ -68,23 +87,75 @@ def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None) -> torch.Tensor:
             tab = pe.to(torch.int32).reshape(pe.shape[:-1] + blk).expand(
                 shape[:-2] + blk).reshape(-1, K // 2, 2).contiguous()
         x = fused_butterfly_ladder(
-            kind, x.reshape(-1, K, C >> (l + kg), L), steps, W, tab
+            kind, x.reshape(-1, K, C >> (l + kg), L), steps, W, tab,
+            pre_half=pre_half if l == 0 else None,
         ).reshape(shape)
     return x
 
 
-def fft_radix2(x: torch.Tensor, w: int, W: int, post_exps=None) -> torch.Tensor:
+def fft_radix2(x: torch.Tensor, w: int, W: int, post_exps=None,
+               pre_half: tuple[int, int] | None = None) -> torch.Tensor:
     """Forward DIF FFT of length C = x.shape[-2] over root z = 2^w; output in
     revbin order: out[j] = X(z^revbin(j)).  With post_exps (an integer table
-    [..., C]), output position j is also multiplied by 2^post_exps[j]."""
-    return _run(x, w, W, "fwd", post_exps)
+    [..., C]), output position j is also multiplied by 2^post_exps[j].  With
+    pre_half = (e0, step2), input position j is first multiplied by
+    2^((e0 + j*step2)/2) (the sqrt2 top layer's t-leg twiddle)."""
+    return _run(x, w, W, "fwd", post_exps, pre_half)
 
 
-def ifft_radix2(x: torch.Tensor, w: int, W: int, pre_exps=None) -> torch.Tensor:
+def ifft_radix2(x: torch.Tensor, w: int, W: int, pre_exps=None,
+                skip_inner: int = 0) -> torch.Tensor:
     """Inverse of fft_radix2 (times C): revbin-ordered input, natural-order
     output.  With pre_exps, input position j is first divided by
-    2^pre_exps[j]."""
-    return _run(x, w, W, "inv", pre_exps)
+    2^pre_exps[j].  skip_inner: the innermost skip_inner stages already ran
+    (ifft_innermost, possibly on a different nominal length: the even-w
+    sqrt2 inverse skips inner_group(C/2, L) stages of its length-C
+    transform, the same stages)."""
+    return _run(x, w, W, "inv", pre_exps, skip_inner=skip_inner)
+
+
+def inner_group(C: int, L: int) -> int:
+    """Stage count of ifft_radix2's first-executed (innermost) ladder group
+    on a length-C transform at digit width L (0 at C == 1): the stages
+    whose butterfly pairs lie within contiguous 2^kg position blocks."""
+    groups = ladder_groups(C, L, "inv")
+    return groups[0][1] if groups else 0
+
+
+def inner_steps(w: int, C: int, kg: int) -> tuple:
+    """Stage exponents of the innermost kg inverse stages of a length-C
+    transform at root 2^w (stages D - kg .. D - 1)."""
+    D = C.bit_length() - 1
+    return tuple(w << (D - kg + j) for j in range(kg))
+
+
+def ifft_innermost(v: torch.Tensor, w: int, W: int, C: int) -> torch.Tensor:
+    """Apply ONLY the innermost inner_group(C, L) inverse stages of the
+    length-C ifft_radix2 at root 2^w to row chunks v [..., R, L], R a
+    multiple of K = 2^inner_group(C, L): those stages pair positions within
+    contiguous K-blocks, so they are chunk-local.  The staged flagship's
+    pointwise runs them on each spectrum chunk (one ladder launch, or
+    inside the Garner kernel: ops/ntt.py garner_post), and the whole-slab
+    inverse skips them (skip_inner).  The flat-transform analogue of the
+    reference's pointwise-into-inverse fusion (mul_fft.c:2745-2923)."""
+    L = v.shape[-1]
+    kg = inner_group(C, L)
+    if kg == 0:
+        return v
+    K = 1 << kg
+    assert v.shape[-2] % K == 0, (tuple(v.shape), K)
+    return fused_butterfly_ladder("inv", v.contiguous().reshape(-1, K, 1, L),
+                                  inner_steps(w, C, kg), W).reshape(v.shape)
+
+
+def ifft_innermost_body(v: torch.Tensor, steps, W: int, K: int) -> torch.Tensor:
+    """The plain version of ifft_innermost on [..., R, L] (R a multiple of
+    K = 2^len(steps)): the inverse ladder group of stage exponents steps on
+    each K-row block (ladder_plain at h == 1).  The Garner kernels' post leg
+    repeats this integer sequence (ops/ntt.py garner_post)."""
+    L = v.shape[-1]
+    assert v.shape[-2] % K == 0 and K == 1 << len(steps), (tuple(v.shape), K, steps)
+    return ladder_plain("inv", v.reshape(-1, K, 1, L), tuple(steps), W).reshape(v.shape)
 
 
 def revbin_vec(C: int) -> np.ndarray:

@@ -8,12 +8,15 @@ unbalanced product, e.g. 1000000000x100000000); operands random from a
 fixed seed; default 10^7, 10^8 and 10^9:
   * the plan (its trunc_mfa, and the inner mulmod plan where the pointwise
     recurses);
-  * the flagship's device time, digits on the card (CUDA events, median);
-  * a torch.profiler window over R mpn_mul_flagship calls after a warm-up:
+  * the flagship's device time, digits on the card (CUDA events, median),
+    on the route mul() takes: the staged flagship where flagship_is_staged
+    (10^8 bits and up), else mpn_mul_flagship;
+  * a torch.profiler window over R such calls after a warm-up:
     device time per call by kernel (the port's kernels by name, the NTT's
     int8 GEMMs as "int8_gemm", PyTorch's other ops -- split, stack,
     combine, the sign lift, the truncation recursion's glue -- as "torch
-    ops", its five costliest kernels by name beside), the device kernels
+    ops", its five costliest kernels by name beside; the int8 GEMMs by
+    cuBLASLt kernel name, with their launches per call), the device kernels
     launched per call, and the device's busy and idle share of the window;
   * the host-clock split of mul() into its steps: planner, digits_from_int
     of both operands, host-to-device copies, the synchronised flagship call
@@ -35,7 +38,8 @@ import time
 import torch
 
 from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.models.mul import _select_plan, mpn_mul_flagship
+from mpir_fft_tpu_torch.models.mul import (_select_plan, _staged_flagship, flagship_is_staged,
+                                           mpn_mul_flagship)
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.mulmod import inner_plan
 from mpir_fft_tpu_torch.utils.params import cdiv
@@ -45,8 +49,10 @@ SEED = 20261016
 # device kernel name fragment -> the port's kernel (csrc/); the rest are
 # PyTorch's own kernels
 KERNEL_NAMES = (
-    # the ladder's launches with a last-stage table (ladder_pe) run the same
-    # kernel, so the profile counts them under "ladder"
+    # the ladder's launches with a last-stage table (ladder_pe) or a
+    # pre_half twiddle run the same kernel, so the profile counts them under
+    # "ladder"; the Garner kernels' post form runs its own kernel
+    ("garner_post_kernel", "garner_post"),
     ("ladder_kernel", "ladder"), ("mfa_cols_kernel", "mfa_cols"),
     ("conv_base_kernel", "conv_base"),
     ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
@@ -93,6 +99,8 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     t = time.perf_counter()
     plan = _select_plan(bits_a, bits_b)
     steps["planner"] = time.perf_counter() - t
+    staged = flagship_is_staged(plan)
+    run = _staged_flagship(plan) if staged else (lambda x, y: mpn_mul_flagship(x, y, plan))
     t = time.perf_counter()
     ha = digits_from_int(a, cdiv(bits_a, DIGIT_BITS))
     hb = digits_from_int(b, cdiv(bits_b, DIGIT_BITS))
@@ -101,11 +109,11 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
     torch.cuda.synchronize()
     steps["host to device"] = time.perf_counter() - t
-    mpn_mul_flagship(da, db, plan)        # warm-up: first launches of each op
+    run(da, db)                           # warm-up: first launches of each op
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    prod = mpn_mul_flagship(da, db, plan)
+    prod = run(da, db)
     torch.cuda.synchronize()
     steps["flagship"] = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
@@ -116,17 +124,18 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     int_from_digits(hp)
     steps["int_from_digits"] = time.perf_counter() - t
 
-    device_ms = _events_ms(lambda: mpn_mul_flagship(da, db, plan), reps)
+    device_ms = _events_ms(lambda: run(da, db), reps)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
         for _ in range(reps):
-            mpn_mul_flagship(da, db, plan)
+            run(da, db)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t) * 1e3
     by_kernel: dict[str, float] = {}
     torch_ops: dict[str, float] = {}
+    gemms: dict[str, tuple[float, float]] = {}
     launches = 0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -136,6 +145,9 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
             launches += ev.count
             if k == "torch ops":
                 torch_ops[ev.key[:60]] = torch_ops.get(ev.key[:60], 0.0) + ms
+            elif k == "int8_gemm":
+                ms0, n0 = gemms.get(ev.key[:80], (0.0, 0.0))
+                gemms[ev.key[:80]] = (ms0 + ms, n0 + ev.count / reps)
     busy = sum(by_kernel.values())
     W = plan.W
     inner = inner_plan(W)
@@ -144,6 +156,7 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
         "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
                  "conv": plan.conv_len, "trunc_mfa": plan.trunc_mfa},
         "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
+        "staged": staged,
         "device_ms": device_ms,
         "profiled_wall_ms_per_call": window_ms / reps,
         "device_busy_ms_per_call": busy,
@@ -151,6 +164,7 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
         "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
         "device_kernels_per_call": launches / reps,
         "torch_ops_top5_ms": dict(sorted(torch_ops.items(), key=lambda kv: -kv[1])[:5]),
+        "int8_gemm_kernels_ms_and_launches": gemms,
         "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
         "peak_memory_gib": peak / 2**30,
     }

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from mpir_fft_tpu_torch import kernels, mulmod_int
-from mpir_fft_tpu_torch.models.mul import DRIVERS, mpn_mul_flagship, mpn_sqr_flagship, mul, sqr
+from mpir_fft_tpu_torch.models.mul import (DRIVERS, _staged_flagship, flagship_is_staged,
+                                           mpn_mul_flagship, mpn_sqr_flagship, mul, sqr)
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
     canonicalize_plain_torch,
@@ -28,6 +29,7 @@ from mpir_fft_tpu_torch.ops.fused import (
     fused_transform,
     fused_twiddle_half,
     ladder_plain,
+    ladder_stages,
     mfa_col_fits,
     mfa_cols_plain,
     normmod_rows_plain,
@@ -66,6 +68,7 @@ from mpir_fft_tpu_torch.ops.ntt import (
     ntt4_residues_plain,
 )
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
+from mpir_fft_tpu_torch.ops.transforms import ifft_innermost_body
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
 from mpir_fft_tpu_torch.utils.params import MulPlan, choose_params, plan_for_depth, validate
 
@@ -507,3 +510,68 @@ def test_mul_driver_on_gpu(dev, driver):
     rnd = random.Random(7)
     a, b = rnd.getrandbits(60000) | (1 << 59999), rnd.getrandbits(17000)
     assert mul(a, b, driver=driver, device=dev) == a * b
+
+
+# ---------------------------------------------------------------------------
+# the staged flagship's kernel pieces: the ladder's pre_half, Garner's post leg
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,K,h,L,e0,step2", [
+    (2, 16, 8, 32, 0, 1), (3, 4, 5, 71, 9, 7), (1, 8, 16, 2048, 0, 1), (2, 2, 1, 16, 3, 5),
+])
+def test_ladder_pre_half_matches_plain(dev, N, K, h, L, e0, step2):
+    """The ladder with its pre_half twiddle (a transform's first group, each
+    batch row one transform) against ladder_plain: raw digits identical;
+    launches count under ladder_pre_half."""
+    rng = np.random.default_rng(13)
+    W = 16 * L
+    k = K.bit_length() - 1
+    steps = tuple(step2 << j for j in range(k))
+    x = _rand(rng, (N, K, h, L), -(1 << 17), 1 << 17, dev)
+    got = _launched("ladder_pre_half",
+                    lambda: fused_butterfly_ladder("fwd", x, steps, W, pre_half=(e0, step2)))
+    assert torch.equal(got.cpu(), ladder_plain("fwd", x.cpu(), steps, W, pre_half=(e0, step2)))
+
+
+@pytest.mark.parametrize("M,B", [(128, 64), (1024, 48), (2048, 24), (4096, 12), (8192, 4)])
+def test_garner_post_matches_plain(dev, M, B):
+    """Both Garner forms with the post leg (K = 2^ladder_stages(M) rows per
+    CTA) against the plain Garner then ifft_innermost_body: raw digits
+    identical; launches count under garner_carry_post / garner_residues_post."""
+    rng = np.random.default_rng(14)
+    W = 16 * M
+    kg = ladder_stages(M)
+    K = 1 << kg
+    steps = tuple(W >> (kg - j) for j in range(kg))
+    if M <= 2048:
+        lim = 2 * M * 128 * 128
+        parts = [_rand(rng, (B, 2 * M), -lim, lim + 1, dev) for _ in range(3)]
+        got = _launched("garner_carry_post", lambda: garner_carry(*parts, post=(K, steps)))
+        want = garner_carry_plain(*(s.cpu() for s in parts))
+    else:
+        parts = [_rand(rng, (B, M), 0, p, dev) for p in PRIMES_T2]
+        got = _launched("garner_residues_post", lambda: garner_residues(*parts, post=(K, steps)))
+        want = garner_residues_plain(*(r.cpu() for r in parts))
+    assert torch.equal(got.cpu(), ifft_innermost_body(want, steps, W, K))
+
+
+def test_staged_equals_unstaged_at_1e8(dev):
+    """The 10^8-bit default plan is staged: mul() and sqr() take
+    _staged_flagship, launch the new pieces (the zero-top t-leg's
+    ladder_pre_half, the Garner post leg) and not the top layer, and the
+    staged digits equal mpn_mul_flagship's."""
+    bits = 100_000_000
+    plan = choose_params(bits, bits, sqrt2=True)
+    assert flagship_is_staged(plan)
+    rnd = random.Random(bits)
+    a, b = rnd.getrandbits(bits) | (1 << (bits - 1)), rnd.getrandbits(bits) | (1 << (bits - 1))
+    da = torch.from_numpy(digits_from_int(a, -(-bits // 16))).to(dev)
+    db = torch.from_numpy(digits_from_int(b, -(-bits // 16))).to(dev)
+    kernels.reset_launches()
+    got = _staged_flagship(plan)(da, db)
+    assert kernels.LAUNCHES["ladder_pre_half"] > 0 and kernels.LAUNCHES["garner_carry_post"] > 0
+    assert kernels.LAUNCHES["sqrt2_top_fwd"] == 0
+    assert torch.equal(got, mpn_mul_flagship(da, db, plan))
+    assert torch.equal(_staged_flagship(plan)(da), mpn_sqr_flagship(da, plan))
+    p = (1 << 61) - 1
+    assert mul(a, b, device=dev) % p == (a % p) * (b % p) % p
