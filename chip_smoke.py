@@ -29,12 +29,20 @@
        512 columns) with the real cross-twiddle table, forward and inverse;
      ladder_pre_half -- the first group of the 10^9-bit plan's zero-top
        t-leg (1, 8, 8192, 2048), pre_half (0, w), raw digits identical;
+     the ladder at the shapes that cost -- every distinct launch (kind,
+       shape, option) of one staged product at 10^8, 10^9 and 2x10^9 bits
+       and at the MPIR_FFT_NTT=0 10^8-bit plan (L 3072), recorded from the
+       real run (utils/ladder_bench.ladder_calls) and measured by
+       utils/ladder_bench.measure_launches: raw digits identical to
+       ladder_plain, ms, bound and share per shape, and the ladder's ms per
+       product (launches x ms);
      input_planes, mid_planes, garner_carry, int8_gemm -- the dense
        NTT-CRT pointwise of the 10^8-bit (32768 x 1024) and 10^9-bit
        (131072 x 2048) plans, each link fed the previous one's real output;
        garner_carry_post on each plan's first staged pointwise chunk (32768
        rows; the post leg K 16 / 8) against the plain Garner then
-       ifft_innermost_body, raw digits identical;
+       ifft_innermost_body, raw digits identical, with its bound
+       (utils/ladder_bench.measure_post);
      conv_base -- under MPIR_FFT_NTT=0, the pointwise of the 3,162,277-bit
        (8192, 128) and 2x10^7-bit (16384, 512) plans and the 10^8-bit
        plan's inner rings (2097152, 32);
@@ -137,14 +145,11 @@ MAX_PEAK_GIB_2E9 = 32.0
 MAX_PEAK_GIB_UNB_HUGE = 24.0
 SLICES = 4          # the plain 4-step links are held slice by slice
 
-# the least time the card could take (H100 SXM, NVIDIA data sheet and
-# Hopper white paper): HBM3 at 3.35 TB/s; 64 INT32 lanes per SM x 132 SMs x
-# 1.98 GHz boost = 16.7 x 10^12 int32 operations (multiply-adds) per second;
-# dense int8 tensor cores 1979 x 10^12 operations per second
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-INT8_OPS_PER_S = 1979e12
 NTT_DIGIT_BOUND = (1 << 16) + (1 << 12)   # mulmod_ntt's redundant output bound
+# the ladder's rows and the TPU kernel (option) each replaces
+LADDER_REPLACES = {"ladder": "mpir_fft_tpu/ops/fused.py:250",
+                   "ladder_pe": "mpir_fft_tpu/ops/fused.py:268",
+                   "ladder_pre_half": "mpir_fft_tpu/ops/fused.py:275"}
 
 
 def gpu_line() -> str:
@@ -214,13 +219,6 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    """(least time in ms, what bounds it) for nbytes moved and ops done."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 @contextlib.contextmanager
@@ -336,8 +334,10 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
     from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
-    from mpir_fft_tpu_torch.ops.transforms import ifft_innermost_body, inner_group, inner_steps
+    from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
+    # the card's peak rates (H100 SXM data sheet) and the bound they give
+    from mpir_fft_tpu_torch.utils.profile import INT8_OPS_PER_S, INT32_OPS_PER_S, bound
 
     dev = torch.device("cuda", 0)
 
@@ -409,7 +409,7 @@ def main() -> int:
             ms = time_ms(lambda: fused_butterfly_ladder(kind, x, steps, W), 10, 2)
             pms = time_ms(lambda: ladder_plain(kind, x, steps, W), 3)
             add_row("ladder", "mpir_fft_tpu_torch/csrc/ladder.cu",
-                    "mpir_fft_tpu/ops/fused.py:250", err, ms, pms, 8 * x.numel(), kg * x.numel())
+                    LADDER_REPLACES["ladder"], err, ms, pms, 8 * x.numel(), kg * x.numel())
             print(f"ladder {kind} {shape}: equal after normmod, raw digits identical: {same}; "
                   f"{ms:.3f} ms (plain {pms:.3f} ms)")
 
@@ -547,7 +547,7 @@ def main() -> int:
         assert same, ("ladder_pe", kind, "raw digits differ")
         ms = time_ms(lambda: fused_butterfly_ladder(kind, x, steps, hW, pe), 10, 2)
         pms = time_ms(lambda: ladder_plain(kind, x, steps, hW, pe), 2)
-        add_row("ladder_pe", "mpir_fft_tpu_torch/csrc/ladder.cu", "mpir_fft_tpu/ops/fused.py:268",
+        add_row("ladder_pe", "mpir_fft_tpu_torch/csrc/ladder.cu", LADDER_REPLACES["ladder_pe"],
                 err, ms, pms, 8 * x.numel() + 4 * pe.numel(), kg * x.numel())
         print(f"ladder_pe {kind} {tuple(x.shape)} (group {l}+{kg} of {D2}): raw digits "
               f"identical; {ms:.3f} ms (plain {pms:.3f} ms)")
@@ -570,32 +570,54 @@ def main() -> int:
     assert same, ("ladder_pre_half", "raw digits differ")
     ms = time_ms(lambda: fused_butterfly_ladder("fwd", x, steps, zW, pre_half=pre), 10, 2)
     pms = time_ms(lambda: ladder_plain("fwd", x, steps, zW, pre_half=pre), 2)
-    add_row("ladder_pre_half", "mpir_fft_tpu_torch/csrc/ladder.cu", "mpir_fft_tpu/ops/fused.py:275",
+    add_row("ladder_pre_half", "mpir_fft_tpu_torch/csrc/ladder.cu",
+            LADDER_REPLACES["ladder_pre_half"],
             err, ms, pms, 8 * x.numel(), (kg + 2) * x.numel())
     print(f"ladder_pre_half {tuple(x.shape)} (the 10^9 t-leg's first group, pre_half {pre}): raw "
           f"digits identical; {ms:.3f} ms (plain {pms:.3f} ms)")
     del x
     torch.cuda.empty_cache()
 
-    def garner_post_row(name, fn, plain, parts, pplan, bytes_per_digit, ops_per_digit):
+    # the ladder at every group shape of the staged flagships that cost:
+    # 10^8, 10^9, 2x10^9 and the MPIR_FFT_NTT=0 10^8 plan (L 3072), each
+    # shape recorded from one real product (ladder_calls), then held against
+    # ladder_plain (raw digits identical) and timed alone, with its bytes
+    # bound and share
+    for bits, off in ((REC_BITS, False), (HUGE_BITS, False), (T2_BITS, False), (REC_BITS, True)):
+        with ntt_off() if off else contextlib.nullcontext():
+            mplan = choose_params(bits, bits, sqrt2=True)
+            assert flagship_is_staged(mplan), mplan
+            mL = mplan.W // DIGIT_BITS
+            da = torch.from_numpy(digits_from_int(random.Random(bits).getrandbits(bits),
+                                                  cdiv(bits, DIGIT_BITS))).to(dev)
+            with ladder_calls() as seen:
+                _staged_flagship(mplan)(da, da.flip(0))
+            del da
+            torch.cuda.empty_cache()
+        tag = f"{bits:.0e}{' ntt0' if off else ''}"
+        recs = measure_launches(seen, rand, 5)
+        for r in recs:
+            add_row(r["name"], "mpir_fft_tpu_torch/csrc/ladder.cu", LADDER_REPLACES[r["name"]],
+                    0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+            print(f"{r['name']} {tag} (plan {mplan.depth}/{mplan.w}/{mL}) {r['kind']} "
+                  f"{tuple(r['shape'])}: x{r['launches']} per mul; raw digits identical; "
+                  f"{r['ms']:.3f} ms, {r['bound_by']} bound {r['bound_ms']:.3f} ms "
+                  f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
+        print(f"ladder {tag}: {len(recs)} shapes, {sum(r['launches'] for r in recs)} launches "
+              f"per mul, {sum(r['launches'] * r['ms'] for r in recs):.3f} ms per mul "
+              f"(launches x ms)")
+
+    def garner_post_row(name, fn, plain, parts, pplan):
         """Garner with the staged chunk's post leg (pplan's innermost
         inverse group) on the first chunk of parts, against the plain
         Garner then ifft_innermost_body: raw digits identical."""
-        pM = pplan.W // DIGIT_BITS
-        rows = _pw_chunk_rows(pplan)
-        pkg = inner_group(pplan.conv_len // 2, pM)
-        pK, psteps = 1 << pkg, inner_steps(pplan.w, pplan.conv_len // 2, pkg)
-        chunk = [q[:rows] for q in parts]
-        got = fn(*chunk, post=(pK, psteps))
-        identical(name, got, ifft_innermost_body(plain(*chunk), psteps, pplan.W, pK))
-        ms = time_ms(lambda: fn(*chunk, post=(pK, psteps)), 10, 2)
-        pms = time_ms(lambda: ifft_innermost_body(plain(*chunk), psteps, pplan.W, pK), 2)
-        n = rows * pM
+        r = measure_post(name, fn, plain, parts, pplan, 10)
         add_row(name, "mpir_fft_tpu_torch/csrc/ntt_links.cu", "mpir_fft_tpu/ops/ntt.py:493",
-                0, ms, pms, bytes_per_digit * n, (ops_per_digit + pkg) * n)
-        print(f"{name} 3 x {tuple(chunk[0].shape)} (a staged chunk, K {pK}, stages {psteps}): "
-              f"raw digits identical to Garner then ifft_innermost_body; {ms:.3f} ms "
-              f"(plain {pms:.3f} ms)")
+                0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+        print(f"{name} 3 x ({r['rows']}, {r['M']}) (a staged chunk, K {r['K']}, stages "
+              f"{tuple(r['steps'])}): raw digits identical to Garner then ifft_innermost_body; "
+              f"{r['ms']:.3f} ms, {r['bound_by']} bound {r['bound_ms']:.3f} ms "
+              f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
 
     # the dense NTT-CRT pointwise of the 10^8 and 10^9 default plans: each
     # link on the previous one's real output, the GEMMs between them
@@ -673,7 +695,7 @@ def main() -> int:
         print(f"garner_carry 3 x {tuple(parts[0].shape)}: digits identical, below 2^16 + 2^12; "
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
         del d
-        garner_post_row("garner_carry_post", garner_carry, garner_carry_plain, parts, nplan, 28, 12)
+        garner_post_row("garner_carry_post", garner_carry, garner_carry_plain, parts, nplan)
         del parts
         torch.cuda.empty_cache()
 
@@ -856,8 +878,7 @@ def main() -> int:
             "mpir_fft_tpu/ops/ntt.py:465", 0, ms, pms, 16 * BM, 20 * BM)
     print(f"garner_residues 3 x {tuple(res[0].shape)}: digits identical, max |d| {top} < "
           f"2^16 + 2^12; {ms:.3f} ms (plain {pms:.3f} ms)")
-    garner_post_row("garner_residues_post", garner_residues, garner_residues_plain, res, tplan,
-                    16, 20)
+    garner_post_row("garner_residues_post", garner_residues, garner_residues_plain, res, tplan)
     del res
     torch.cuda.empty_cache()
 

@@ -149,68 +149,6 @@ __device__ __forceinline__ long long mulmod_small(long long a, long long b, long
   return (a % m) * (b % m) % m;
 }
 
-// The stage exponents of one ladder group (at most kMaxLadderStages stages).
-constexpr int kMaxLadderStages = 8;
-struct LadderSteps {
-  long long s[kMaxLadderStages];
-};
-
-// The k = log2 K radix-2 stages of one ladder group on the K rows of L
-// digits in cur (shared memory), ping-ponging with nxt (also K*L ints); the
-// rows are K-indices of one h-position hpos of a length-K*h block group.
-// Stage j pairs K-indices (q, q+m), m = K >> (j+1), with twiddle 2^e,
-// e = (qm*h + hpos) * steps[j] mod 2W:
-//   fwd (j = 0..k-1):  s = a + b,            t = (a - b) * 2^e
-//   inv (j = k-1..0):  u = b / 2^e,  a' = a + u,  b' = a - u
-// carry-free.  pe: null, or this block's (K/2, 2) table (h == 1 only) for
-// the innermost stage (m == 1), pair p taking exponents pe0, pe1:
-//   fwd:  s = (a + b) * 2^pe0,   t = (a - b) * 2^(e + pe1)
-//   inv:  a' = a / 2^pe0,  u = b / 2^(e + pe1),  a' + u,  a' - u
-// Every thread of the block calls it; it syncs after each stage and
-// returns the buffer that holds the result (cur or nxt).  The ladder
-// (ladder.cu) and the Garner kernels' inverse leg (ntt_links.cu) run it.
-__device__ inline int* ladder_group(int* cur, int* nxt, int K, int k, int L, long long h,
-                                    long long hpos, bool inverse, const LadderSteps& steps,
-                                    const int* pe) {
-  const long long W2 = 32LL * L;
-  const int half = (K / 2) * L;
-  for (int jj = 0; jj < k; ++jj) {
-    const int j = inverse ? k - 1 - jj : jj;
-    const int m = K >> (j + 1);
-    const long long step = steps.s[j];
-    for (int idx = threadIdx.x; idx < half; idx += blockDim.x) {
-      const int p = idx / L;
-      const int i = idx - p * L;
-      const int qm = p % m;
-      const int qa = (p / m) * 2 * m + qm;
-      const int qb = qa + m;
-      const long long e = ((static_cast<long long>(qm) * h + hpos) * step) % W2;
-      if (pe != nullptr && m == 1) {
-        const long long e0 = pe[2 * p], e1 = (e + pe[2 * p + 1]) % W2;
-        const int* A = cur + qa * L;
-        const int* B = cur + qb * L;
-        if (!inverse) {
-          nxt[qa * L + i] = shift_comb_digit(A, B, 1, i, e0, L);
-          nxt[qb * L + i] = shift_comb_digit(A, B, -1, i, e1, L);
-        } else {
-          const int a = shift_mod_digit(A, i, (W2 - e0) % W2, L);
-          const int u = shift_mod_digit(B, i, (W2 - e1) % W2, L);
-          nxt[qa * L + i] = a + u;
-          nxt[qb * L + i] = a - u;
-        }
-        continue;
-      }
-      butterfly_digit(cur + qa * L, cur + qb * L, i, L, e, inverse, nxt + qa * L + i,
-                      nxt + qb * L + i);
-    }
-    __syncthreads();
-    int* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  return cur;
-}
-
 // Threads for a one-row-per-CTA kernel: L rounded up to a warp, at most cap.
 inline unsigned row_threads(int L, int cap) {
   const int t = ((L + 31) / 32) * 32;

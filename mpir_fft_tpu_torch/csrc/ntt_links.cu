@@ -34,13 +34,18 @@
 // The garner_post epilogue (ntt.py:445-462, read at :493): both Garner
 // forms also take a post leg (K = 2^k, the k stage exponents), the staged
 // flagship's innermost inverse ladder group.  One CTA then owns K
-// consecutive rows: it runs Garner + spread + carry row by row with the
-// same 12 M bytes of scratch, keeps the K digit rows in shared memory, runs
-// the k inverse stages over them as the ladder does (mf::ladder_group: the
-// same twiddles, carry-free stages, then one carry pass) and writes the
-// rows once.  Shared memory 12 M + 8 K M bytes (a ping-pong pair): 140 KB
-// at M 1024 (K 16), 152 KB at M 2048 (K 8), 176 KB at M 4096 (K 4).  So the
-// spectrum chunk's first inverse leg costs no round trip of its own.
+// consecutive rows.  Its threads run Garner + spread + carry on all K rows
+// at once, each on runs of 8 digits: a run recomputes the three
+// coefficients below it (11 per 8 digits) instead of keeping a row of them,
+// so the digits go straight into the K*M buffer with no scratch and no
+// barrier between rows.  Then the k inverse stages run in place on the
+// buffer (mf::ladder_group, ladder_group.cuh: the ladder's routine, the same
+// twiddles, carry-free stages, then one carry pass) and the rows are
+// written once.  Shared memory: the K*M buffer and the twiddle tables
+// (mf::ladder_smem_bytes), 64 KB at the staged shapes (M 1024 K 16, M 2048
+// K 8, M 4096 K 4), so three CTAs share an SM.  The spectrum chunk's first
+// inverse leg costs no round trip of its own.
+#include "ladder_group.cuh"
 #include "ntt_common.cuh"
 
 namespace {
@@ -227,65 +232,122 @@ garner_residues_kernel(const int* __restrict__ r1, const int* __restrict__ r2,
 
 // The garner_post form of both Garner kernels: K consecutive rows per CTA
 // (Raw: the dense tier's (B, 2M) raw inverse sums, tier-1 primes; else the
-// 4-step tier's (B, M) residues, tier-2 primes), each row's digits (Garner,
-// spread, carry) into shared memory, then the k inverse ladder stages over
-// the K rows (h = 1, hpos = 0: K-index q is position q of the block) and
-// one carry pass into out.
-template <class T, bool Raw>
-__global__ void __launch_bounds__(kThreads)
+// 4-step tier's (B, M) residues, tier-2 primes).  Every thread takes runs of
+// up to 8 digits of any of the K rows: the coefficients at i0-3 .. i0+7
+// (three aligned int4 windows per input row, wrapped mod M), their digit
+// sums at i0-1 .. i0+7 and the carried digits i0 .. i0+7, straight into the
+// K*M buffer; then the k inverse ladder stages in place over the K rows
+// (h = 1, hpos = 0: K-index q is position q of the block) and one carry
+// pass into out.
+template <class T, bool Raw, int NT>
+__global__ void __launch_bounds__(NT, NT == 256 ? 3 : 1)
 garner_post_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
                    const int* __restrict__ s3, int* __restrict__ out, int M, int K, int k,
                    mf::LadderSteps steps) {
-  extern __shared__ long long c[];                   // M coefficients
-  int* s = reinterpret_cast<int*>(c + M);            // M digit sums
-  int* cur = s + M;                                  // K digit rows
-  int* nxt = cur + K * M;                            // their ping-pong partner
+  extern __shared__ int4 smem4[];
+  int* buf = reinterpret_cast<int*>(smem4);
+  int* tab0 = buf + K * M;
+  int* tab1 = tab0 + k * (K / 2);
   const long long row0 = static_cast<long long>(blockIdx.x) * K;
   const long long stride = Raw ? 2LL * M : M;
-  for (int q = 0; q < K; ++q) {
+  mf::ladder_table(tab0, tab1, K, k, M, 1, 0, true, steps, nullptr);
+  const int rl = M < 8 ? M : 8;                      // digits per run
+  const int rpr = M / rl;                            // runs per row (a power of two)
+  const int lg = __ffs(rpr) - 1;
+  for (int idx = threadIdx.x; idx < K * rpr; idx += NT) {
+    const int q = idx >> lg;
+    const int i0 = (idx - (q << lg)) * rl;
     const long long at = (row0 + q) * stride;
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-      if constexpr (Raw)
-        c[i] = garner_coeff<T>(fold<T::P1>(s1[at + i], s1[at + M + i]),
-                               fold<T::P2>(s2[at + i], s2[at + M + i]),
-                               fold<T::P3>(s3[at + i], s3[at + M + i]));
-      else
-        c[i] = garner_coeff<T>(s1[at + i], s2[at + i], s3[at + i]);
+    long long c[12];                                 // c[t]: coefficient at i0 - 4 + t
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      int pos = i0 - 4 + 4 * ch;
+      pos = pos < 0 ? pos + M : (pos >= M ? pos - M : pos);
+      const int4 a1 = *reinterpret_cast<const int4*>(s1 + at + pos);
+      const int4 a2 = *reinterpret_cast<const int4*>(s2 + at + pos);
+      const int4 a3 = *reinterpret_cast<const int4*>(s3 + at + pos);
+      const int v1[4] = {a1.x, a1.y, a1.z, a1.w};
+      const int v2[4] = {a2.x, a2.y, a2.z, a2.w};
+      const int v3[4] = {a3.x, a3.y, a3.z, a3.w};
+      if constexpr (Raw) {
+        const int4 h1 = *reinterpret_cast<const int4*>(s1 + at + M + pos);
+        const int4 h2 = *reinterpret_cast<const int4*>(s2 + at + M + pos);
+        const int4 h3 = *reinterpret_cast<const int4*>(s3 + at + M + pos);
+        const int w1[4] = {h1.x, h1.y, h1.z, h1.w};
+        const int w2[4] = {h2.x, h2.y, h2.z, h2.w};
+        const int w3[4] = {h3.x, h3.y, h3.z, h3.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * ch + e > 0)
+            c[4 * ch + e] = garner_coeff<T>(fold<T::P1>(v1[e], w1[e]), fold<T::P2>(v2[e], w2[e]),
+                                            fold<T::P3>(v3[e], w3[e]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * ch + e > 0) c[4 * ch + e] = garner_coeff<T>(v1[e], v2[e], v3[e]);
+      }
     }
-    __syncthreads();
-    spread_carry_row(c, s, cur + q * M, M);
+    // digit sums (spread_carry_row) at i0 - 1 + u, u = 0..8; i0 - 1 is
+    // M - 1 at i0 == 0, where no piece wraps
+    int sum[9];
+#pragma unroll
+    for (int u = 0; u < 9; ++u) {
+      const int j = i0 - 1 + u;
+      int c1 = static_cast<int>((c[u + 2] >> 16) & 0xFFFF);
+      if (j == 0) c1 = -c1;
+      int c2 = static_cast<int>(c[u + 1] >> 32);
+      if (j == 0 || j == 1) c2 = -c2;
+      sum[u] = static_cast<int>(c[u + 3] & 0xFFFF) + c1 + c2;
+    }
+    int d[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int cy = sum[t] >> mf::DIGIT_BITS;
+      d[t] = (sum[t + 1] & mf::DIGIT_MASK) + (i0 + t == 0 ? -cy : cy);
+    }
+    int* row = buf + q * M + i0;
+    *reinterpret_cast<int4*>(row) = make_int4(d[0], d[1], d[2], d[3]);
+    if (rl == 8) *reinterpret_cast<int4*>(row + 4) = make_int4(d[4], d[5], d[6], d[7]);
   }
   __syncthreads();
-  int* res = mf::ladder_group(cur, nxt, K, k, M, 1, 0, true, steps, nullptr);
-  for (int idx = threadIdx.x; idx < K * M; idx += blockDim.x) {
-    const int q = idx / M;
-    const int i = idx - q * M;
-    out[(row0 + q) * M + i] = mf::carry_digit(res + q * M, i, M);
-  }
+  mf::ladder_group<4, 4, NT>(buf, K, k, M, true, tab0, tab1, false);
+  mf::carry_store<4, NT>(buf, K, M, out, row0 * M, M);
 }
 
 bool bad_m(int M) { return M < 4 || M > kMaxM || (M & (M - 1)) != 0; }
 
-// Launch the garner_post form over B rows (B a multiple of K = 2^k).
+template <class T, bool Raw, int NT>
+int launch_post_nt(const void* s1, const void* s2, const void* s3, void* out, long long B, int M,
+                   int K, int k, const mf::LadderSteps& st, size_t smem, void* stream) {
+  const auto kernel = garner_post_kernel<T, Raw, NT>;
+  const cudaError_t err = mf::prepare_group_kernel(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(B / K), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(s1), static_cast<const int*>(s2), static_cast<const int*>(s3),
+      static_cast<int*>(out), M, K, k, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the garner_post form over B rows (B a multiple of K = 2^k),
+// inputs 16-byte aligned.  Which K and M launch is the wrapper's rule
+// (ops/fused.py ladder_fits, through ops/ntt.py _check_post).
 template <class T, bool Raw>
 int launch_post(const void* s1, const void* s2, const void* s3, void* out, long long B, int M,
                 int K, const void* steps_host, int k, void* stream) {
-  if (k < 1 || k > mf::kMaxLadderStages || K != (1 << k) || B % K != 0)
+  if (k < 1 || k > mf::kMaxLadderStages || K != (1 << k) || B % K != 0 ||
+      (reinterpret_cast<unsigned long long>(s1) | reinterpret_cast<unsigned long long>(s2) |
+       reinterpret_cast<unsigned long long>(s3) | reinterpret_cast<unsigned long long>(out)) %
+          16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mf::ladder_smem_bytes(K, k, M);
   if (B / K > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   mf::LadderSteps st{};
   const long long* sh = static_cast<const long long*>(steps_host);
   for (int j = 0; j < k; ++j) st.s[j] = sh[j];
-  const size_t smem = static_cast<size_t>(M) * (sizeof(long long) + sizeof(int)) +
-                      2ull * K * M * sizeof(int);
-  const cudaError_t err = mf::set_smem(reinterpret_cast<const void*>(garner_post_kernel<T, Raw>),
-                                       smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  garner_post_kernel<T, Raw><<<static_cast<unsigned>(B / K), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(s1), static_cast<const int*>(s2), static_cast<const int*>(s3),
-      static_cast<int*>(out), M, K, k, st);
-  return static_cast<int>(cudaGetLastError());
+  const int nt = mf::group_threads(M / 4, 4, 512);
+  if (nt == 256) return launch_post_nt<T, Raw, 256>(s1, s2, s3, out, B, M, K, k, st, smem, stream);
+  if (nt == 512) return launch_post_nt<T, Raw, 512>(s1, s2, s3, out, B, M, K, k, st, smem, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

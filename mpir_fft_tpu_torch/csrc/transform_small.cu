@@ -11,7 +11,8 @@
 // Stage s (forward s = 0..D-1, inverse s = D-1..0) pairs positions
 // (qa, qa + half), half = C >> (s+1), with twiddle exponent e = (qa mod half)
 // * (w << s) mod 2W:  fwd s = a + b, t = (a - b) 2^e;  inv u = b / 2^e,
-// a' = a + u, b' = a - u (mf::butterfly_digit, shared with csrc/ladder.cu).  The stages
+// a' = a + u, b' = a - u (mf::butterfly_digit, shared with csrc/mfa_cols.cu; the
+// ladder runs the same digit expressions, csrc/ladder_group.cuh).  The stages
 // run in the groups of ops/fused.py ladder_groups (at most kmax stages
 // each), with one carry pass after every group: the deferred-carry growth
 // ~2^(18+k) of fused.py:472-476 stays inside int32 and the carries fall

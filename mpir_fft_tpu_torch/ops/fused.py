@@ -21,9 +21,10 @@ the kernels compute (same integer sequence, so equal digits), and are what
 the CPU tests hold against the JAX package.
 
 Blocking is Hopper's, not Mosaic's: a ladder CTA keeps K = 2^k ring
-elements of one h-position in shared memory (ping-pong, 2*K*L*4 bytes), so
-k is capped by that budget and by the deferred-carry growth ~2^(18+k); a
-whole-transform CTA keeps a whole (C, L) row the same way."""
+elements of one h-position in one shared-memory buffer (K*L*4 bytes, the
+stages in place), so k is capped by that budget (LADDER_BUF_BYTES) and by
+the deferred-carry growth ~2^(18+k); a whole-transform CTA keeps a whole
+(C, L) row in a ping-pong pair."""
 
 from __future__ import annotations
 
@@ -44,19 +45,37 @@ from .limb import (
 )
 
 # stages per ladder launch: 4 keeps the uncarried digits below ~2^22; the
-# shared-memory budget shrinks it for wide rings (L = 2048 -> 3)
+# shared-memory budget of the group's one K*L buffer shrinks it for wide
+# rings (L 2048 -> 3, L 4096 -> 2): a 64 KB buffer lets three CTAs share an
+# SM, so one CTA's loads and stores overlap the others' stages
 LADDER_MAX_STAGES = 4
-LADDER_SMEM_BYTES = 128 * 1024
+LADDER_BUF_BYTES = 64 * 1024
 
 
 def ladder_stages(L: int) -> int:
     """Stages per ladder launch at digit width L: the largest k <=
-    LADDER_MAX_STAGES whose ping-pong block 2 * 2^k * L * 4 bytes fits
-    LADDER_SMEM_BYTES (at least 1)."""
+    LADDER_MAX_STAGES whose buffer 2^k * L * 4 bytes fits LADDER_BUF_BYTES
+    (at least 1)."""
     k = LADDER_MAX_STAGES
-    while k > 1 and 2 * (1 << k) * L * 4 > LADDER_SMEM_BYTES:
+    while k > 1 and not ladder_fits(1 << k, L):
         k -= 1
     return k
+
+
+def ladder_smem_bytes(K: int, L: int) -> int:
+    """Shared memory of one ladder-group CTA (the ladder and the Garner
+    kernels' post leg; the layout of csrc/ladder_group.cuh): the K*L-digit
+    buffer, two twiddle tables of k*K/2 ints and K pre_half exponents."""
+    k = K.bit_length() - 1
+    return 4 * (K * L + k * K + K)
+
+
+def ladder_fits(K: int, L: int) -> bool:
+    """Do the ladder kernels take a group of K rows of L digits: its
+    buffer within LADDER_BUF_BYTES, the rule both wrappers check (the
+    kernels check none of their own).  The tables add at most a few KB, so
+    the block stays far inside Hopper's 227 KB."""
+    return K * L * 4 <= LADDER_BUF_BYTES
 
 
 def ladder_groups(C: int, L: int, kind: str, skip_inner: int = 0) -> list[tuple[int, int]]:
@@ -168,8 +187,8 @@ def fused_butterfly_ladder(kind: str, xp: torch.Tensor, steps: tuple, W: int,
                              f"{xp.device}, for h == 1 (h={h})")
     if xp.device.type == "cpu":
         return ladder_plain(kind, xp, steps, W, pe, pre_half)
-    if 2 * K * L * 4 > LADDER_SMEM_BYTES:
-        raise ValueError(f"ladder: K={K}, L={L} exceeds the shared-memory block")
+    if not ladder_fits(K, L):
+        raise ValueError(f"ladder: K={K} rows of L={L} exceed the ladder's buffer")
     e0, st2 = (0, 0) if pre_half is None else (int(v) % (4 * W) for v in pre_half)
     out = torch.empty_like(xp)
     st = _steps_arg(steps)

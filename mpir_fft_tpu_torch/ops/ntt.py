@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .fused import _require, _steps_arg
+from .fused import _require, _steps_arg, ladder_fits
 from .limb import DIGIT_BITS, _wrap_inject, carry_pass, normmod
 from .transforms import ifft_innermost_body
 
@@ -488,12 +488,6 @@ def mid_planes(sa: torch.Tensor, sb: torch.Tensor, p: int) -> torch.Tensor:
     return out
 
 
-# shared memory of one Garner CTA with the post leg: the row's coefficients
-# and digit sums (12 M bytes) and a ping-pong pair of K rows (8 K M bytes),
-# within a Hopper block's 227 KB
-GARNER_POST_SMEM_BYTES = 227 * 1024
-
-
 def _check_post(post: tuple | None, B: int, M: int, what: str) -> tuple:
     """The kernel arguments (K, steps array, k) of a post leg (0, None, 0
     for none); raise where the kernel cannot take it."""
@@ -501,9 +495,9 @@ def _check_post(post: tuple | None, B: int, M: int, what: str) -> tuple:
         return 0, None, 0
     K, steps = post
     k = len(steps)
-    if k < 1 or K != 1 << k or B % K or 12 * M + 8 * K * M > GARNER_POST_SMEM_BYTES:
+    if k < 1 or K != 1 << k or B % K or not ladder_fits(K, M):
         raise ValueError(f"{what}: post leg K={K} with {k} stages on {B} rows of M={M}: K must "
-                         f"be 2^stages, divide the rows and fit the shared-memory block")
+                         f"be 2^stages, divide the rows and fit the ladder's buffer (ladder_fits)")
     return K, ctypes.cast(_steps_arg(steps), ctypes.c_void_p), k
 
 

@@ -46,6 +46,22 @@ from mpir_fft_tpu_torch.utils.params import cdiv
 
 SEED = 20261016
 
+# the least time the card could take (H100 SXM, NVIDIA data sheet and
+# Hopper white paper): HBM3 at 3.35 TB/s; 64 INT32 lanes per SM x 132 SMs x
+# 1.98 GHz boost = 16.7 x 10^12 int32 operations (multiply-adds) per second;
+# dense int8 tensor cores 1979 x 10^12 operations per second
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT8_OPS_PER_S = 1979e12
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for nbytes moved and ops done."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 # device kernel name fragment -> the port's kernel (csrc/); the rest are
 # PyTorch's own kernels
 KERNEL_NAMES = (

@@ -91,13 +91,25 @@ def _canon(x):
     return normmod_rows_plain(x.reshape(-1, L).cpu(), 0, 16 * L)
 
 
+def _main_K(K, L):
+    """K, or (0) the main path's K at width L: 2^ladder_stages(L)."""
+    return K or 1 << ladder_stages(L)
+
+
+# K 0: the main path's group at that width (L 1024, 2048, 3072, 4096)
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
 @pytest.mark.parametrize("shape,w", [
     ((2, 16, 8, 32), 1), ((3, 4, 5, 71), 7), ((1, 8, 2, 2048), 2), ((4, 2, 1, 16), 3),
+    ((2, 0, 3, 1024), 1), ((1, 0, 4, 2048), 2), ((1, 0, 3, 3072), 24), ((1, 0, 2, 4096), 2),
+    ((1, 2, 1, 8192), 1), ((1, 2, 1, 4099), 1),
 ])
 def test_ladder_matches_plain(dev, kind, shape, w):
+    """The ladder against ladder_plain: raw digits identical (and so equal
+    after normmod), below 2^17; launches count under ladder."""
     rng = np.random.default_rng(1)
     N, K, h, L = shape
+    K = _main_K(K, L)
+    shape = (N, K, h, L)
     W = 16 * L
     k = K.bit_length() - 1
     steps = tuple(w << (3 + j) for j in range(k))
@@ -107,8 +119,24 @@ def test_ladder_matches_plain(dev, kind, shape, w):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ladder"] == before + 1
     want = ladder_plain(kind, x.cpu(), steps, W)
+    assert torch.equal(got.cpu(), want)
     assert torch.equal(_canon(got), _canon(want))
     assert int(got.abs().max()) < 1 << 17
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+def test_ladder_unaligned_rows_match_plain(dev, kind):
+    """A view whose rows are not 16-byte aligned takes the kernel's
+    one-digit runs: raw digits identical to ladder_plain."""
+    rng = np.random.default_rng(2)
+    N, K, h, L = 2, 8, 3, 256
+    W = 16 * L
+    steps = (5, 10, 20)
+    flat = _rand(rng, (N * K * h * L + 1,), -(1 << 17), 1 << 17, dev)
+    x = flat[1:].view(N, K, h, L)
+    assert x.data_ptr() % 16
+    got = fused_butterfly_ladder(kind, x, steps, W)
+    assert torch.equal(got.cpu(), ladder_plain(kind, x.cpu(), steps, W))
 
 
 @pytest.mark.parametrize("B,L", [(5, 1), (7, 16), (3, 71), (4, 126), (9, 512), (2, 2048)])
@@ -462,11 +490,14 @@ def test_mfa_cols_rejects(dev):
 
 
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
-@pytest.mark.parametrize("N,K,L,step", [(6, 8, 16, 3), (4, 4, 71, 12), (8, 8, 2048, 1)])
+@pytest.mark.parametrize("N,K,L,step", [(6, 8, 16, 3), (4, 4, 71, 12), (8, 8, 2048, 1),
+                                        (4, 0, 1024, 1), (3, 0, 2048, 5), (2, 0, 3072, 24),
+                                        (2, 0, 4096, 2)])
 def test_ladder_pe_matches_plain(dev, kind, N, K, L, step):
     """The ladder with its last-stage table against ladder_plain: raw digits
     identical; launches count under ladder_pe."""
     rng = np.random.default_rng(12)
+    K = _main_K(K, L)
     W = 16 * L
     k = K.bit_length() - 1
     steps = tuple(step << j for j in range(k))
@@ -518,12 +549,15 @@ def test_mul_driver_on_gpu(dev, driver):
 
 @pytest.mark.parametrize("N,K,h,L,e0,step2", [
     (2, 16, 8, 32, 0, 1), (3, 4, 5, 71, 9, 7), (1, 8, 16, 2048, 0, 1), (2, 2, 1, 16, 3, 5),
+    (1, 0, 8, 1024, 0, 2), (1, 0, 4, 2048, 0, 1), (1, 0, 4, 3072, 5, 24), (1, 0, 4, 4096, 0, 2),
+    (2, 0, 3, 72, 1, 7),
 ])
 def test_ladder_pre_half_matches_plain(dev, N, K, h, L, e0, step2):
     """The ladder with its pre_half twiddle (a transform's first group, each
     batch row one transform) against ladder_plain: raw digits identical;
     launches count under ladder_pre_half."""
     rng = np.random.default_rng(13)
+    K = _main_K(K, L)
     W = 16 * L
     k = K.bit_length() - 1
     steps = tuple(step2 << j for j in range(k))
@@ -533,7 +567,8 @@ def test_ladder_pre_half_matches_plain(dev, N, K, h, L, e0, step2):
     assert torch.equal(got.cpu(), ladder_plain("fwd", x.cpu(), steps, W, pre_half=(e0, step2)))
 
 
-@pytest.mark.parametrize("M,B", [(128, 64), (1024, 48), (2048, 24), (4096, 12), (8192, 4)])
+@pytest.mark.parametrize("M,B", [(128, 64), (1024, 48), (2048, 24), (4096, 12), (8192, 4),
+                                 (4, 32), (8, 48), (1024, 160), (2048, 64), (4096, 32)])
 def test_garner_post_matches_plain(dev, M, B):
     """Both Garner forms with the post leg (K = 2^ladder_stages(M) rows per
     CTA) against the plain Garner then ifft_innermost_body: raw digits

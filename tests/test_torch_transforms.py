@@ -106,6 +106,56 @@ def test_ladder_groups_cover_every_stage():
     assert tfused.ladder_stages(512) == 4 and tfused.ladder_stages(2048) == 3
 
 
+def _ladder_widths(plan):
+    """(transform length, digit width) of every ladder route a plan can
+    take: the flat transforms (conv_len, its sqrt2 halves), the MFA's rows
+    and columns, and the recursive pointwise's inner transforms where they
+    do not run whole."""
+    from mpir_fft_tpu_torch.ops.mulmod import inner_plan
+
+    L = plan.W // 16
+    out = [(plan.conv_len, L), (plan.conv_len // 2, L), (plan.n1, L), (plan.n2, L)]
+    inner = inner_plan(plan.W)
+    while inner is not None:
+        if not tfused.whole_fits(inner.m, inner.Lp):
+            out.append((inner.m, inner.Lp))
+        inner = inner_plan(inner.Wp)
+    return out
+
+
+@pytest.mark.parametrize("ntt", [None, "0"])
+def test_ladder_blocks_fit_every_planned_plan(ntt, monkeypatch):
+    """For every plan the planner picks from 10^5 to 4x10^9 bits (balanced
+    and 3:1, MPIR_FFT_NTT unset and 0), every ladder group and the Garner
+    post leg pass the wrappers' rule (ladder_fits) and their blocks
+    (ladder_smem_bytes, the wrappers' host-side size) fit a Hopper block's
+    227 KB, and inner_group is the first inverse ladder group, so the
+    staged flagship's skipped stages line up."""
+    from mpir_fft_tpu_torch.utils.params import choose_params
+
+    if ntt is None:
+        monkeypatch.delenv("MPIR_FFT_NTT", raising=False)
+    else:
+        monkeypatch.setenv("MPIR_FFT_NTT", ntt)
+    limit = 227 * 1024
+    seen = set()
+    for bits in sorted({int(b) for b in np.logspace(5, np.log10(4e9), 60)}):
+        for bits_b in (bits, bits // 3):
+            plan = choose_params(bits, bits_b, sqrt2=True)
+            for C, L in _ladder_widths(plan):
+                for _, kg in ttr.ladder_groups(C, L, "fwd") + ttr.ladder_groups(C, L, "inv"):
+                    seen.add((1 << kg, L))
+            L = plan.W // 16
+            h = plan.conv_len // 2
+            kg = ttr.inner_group(h, L)
+            assert kg == ttr.ladder_groups(h, L, "inv")[0][1]
+            seen.add((1 << kg, L))
+    assert seen
+    for K, L in seen:
+        assert tfused.ladder_fits(K, L), (K, L)
+        assert tfused.ladder_smem_bytes(K, L) <= limit
+
+
 @pytest.mark.parametrize("n,w", [(32, 4), (16, 16), (8, 142)])
 def test_sqrt2_even_w_matches_reference_and_roundtrips(rng, n, w):
     W = n * w
