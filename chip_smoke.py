@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the twenty-three kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty-four kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -28,7 +28,9 @@
        transforms (L 2048, columns of 256: K 4, h 1, the stacked operands'
        512 columns) with the real cross-twiddle table, forward and inverse;
      ladder_pre_half -- the first group of the 10^9-bit plan's zero-top
-       t-leg (1, 8, 8192, 2048), pre_half (0, w), raw digits identical;
+       t-leg (1, 8, 8192, 2048), pre_half (0, w), raw digits identical; and
+       the first group of each mulmod_int ring's inner forward transforms
+       (2^22, 2^24, 2^29: the negacyclic weights), recorded from a mulmod;
      the ladder at the shapes that cost -- every distinct launch (kind,
        shape, option) of one staged product at 10^8, 10^9 and 2x10^9 bits
        and at the MPIR_FFT_NTT=0 10^8-bit plan (L 3072), recorded from the
@@ -46,12 +48,16 @@
      conv_base -- under MPIR_FFT_NTT=0, the pointwise of the 3,162,277-bit
        (8192, 128) and 2x10^7-bit (16384, 512) plans and the 10^8-bit
        plan's inner rings (2097152, 32);
-     twiddle_half -- the MPIR_FFT_NTT=0 10^8-bit plan's inner weights
-       (8192 x 256 rows at Lp 32, step 4), an odd step at L 256, an
-       L % 4 != 0 row (L 71);
-     transform_small, forward and inverse -- (8192, 256, 32) and
+     transform_small and transform_small_half (the weighted negacyclic
+       transforms), forward and inverse, raw digits identical -- one
+       pointwise chunk of the 1.2x10^9 and 1.5x10^9-bit default plans,
+       (6528, 256, 48) w 6 and (5376, 256, 64) w 8, and (8192, 256, 32),
        (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits under
-       MPIR_FFT_NTT=0;
+       MPIR_FFT_NTT=0 (utils/transform_bench.measure_whole);
+     twiddle_half, raw digits identical -- those chunks' weights at L 48
+       and 64, the mulmod_int 2^29 ring's unweighting (32768, 4096), the
+       NTT=0 10^8 inner weights, an odd step at L 256, an L % 4 != 0 row
+       (L 71) (utils/transform_bench.measure_twiddle);
      the 4-step tier (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise,
        ntt4_inv_twiddle, ntt4_residues, garner_residues, and its GEMM) on
        the 2x10^9-bit plan's whole pointwise batch (131072, 4096), each link
@@ -77,14 +83,20 @@
        staged route (flagship_is_staged: the zero-top forward launches
        ladder_pre_half and no sqrt2_top_fwd, each chunk's Garner takes the
        inverse leg, garner_*_post > 0 and no plain Garner): 10^8 and 10^9
-       (odd w; residues mod 61-bit primes), 2x10^9 (depth 15, w 2, L 4096:
-       the 4-step tier; peak memory at most 32 GiB);
+       (odd w; residues mod 61-bit primes), 1.2x10^9 and 1.5x10^9 (depth 14,
+       w 5 / 6, L 5120 / 6144: the pointwise recurses on inner m 256 rings,
+       Lp 48 on the schoolbook / Lp 64 on the dense NTT, each weighted inner
+       transform one transform_small_half launch: no twiddle_half, no plain
+       transform_small, no NTT link at 1.2x10^9, no conv_base at 1.5x10^9),
+       2x10^9 (depth 15, w 2, L 4096: the 4-step tier; peak memory at most
+       32 GiB);
      under MPIR_FFT_NTT=0, its A/B plans, with no NTT kernel launched:
        2x10^6 and 2x10^7 (even-w schoolbook; 2x10^6 full compare),
        3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
        (the recursive Fermat mulmod: inner Lp 32, and at 10^9 L 4096
-       rings with inner Lp 72; staged, the hook never consumed: no
-       garner_*_post, the inverse leg on the ladder);
+       rings with inner Lp 72, the weights in transform_small_half and no
+       twiddle_half; staged, the hook never consumed: no garner_*_post, the
+       inverse leg on the ladder);
      mul at four unbalanced default plans that truncate the MFA
        (trunc_mfa < conv_len): 10^7 x 7x10^6 (full compare; the column
        kernel, the whole-row transform, the odd-w top layer), 6.3x10^7 x
@@ -103,7 +115,9 @@
      mul(a, b, driver=k) for the six other drivers at 2x10^6 x 1.4x10^6
        bits, full compare (mfa and mfa_trunc through the column kernel);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
-       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier), against
+       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier; one ring, so
+       its transforms take the ladder: ladder_pre_half forward, a
+       twiddle_half pass after the inverse), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
        folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused).
    For each: the plan, the launches, host-clock and CUDA-event times, and
@@ -120,6 +134,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +148,8 @@ ODD_BITS = 10_000_000
 REC_BITS = 100_000_000
 HUGE_BITS = 1_000_000_000
 T2_BITS = 2_000_000_000
+REC5_BITS = 1_200_000_000     # the default plans whose pointwise recurses
+REC6_BITS = 1_500_000_000
 MULMOD_N = (1 << 22, 1 << 24, 1 << 29)
 # unbalanced products whose default plans truncate the MFA (trunc_mfa <
 # conv_len), and the drivers' size
@@ -284,6 +301,17 @@ def mod_fermat(x: int, N: int) -> int:
     return r
 
 
+def kernel_name(sym: str) -> str:
+    """name<integer template arguments> of a mangled kernel symbol (its
+    length-prefixed identifier ending in _kernel), else the symbol."""
+    for m in re.finditer(r"(?=(\d+))", sym):
+        n, at = int(m.group(1)), m.start() + len(m.group(1))
+        name = sym[at:at + n]
+        if name.endswith("_kernel") and name.isidentifier():
+            return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', sym[at + n:]))}>"
+    return sym
+
+
 def mfa_cols_ops(sched, B: int, L: int) -> int:
     """Digit operations of one column-kernel launch over B columns: each op
     of its schedule (ops/fused.py mfa_cols_schedule) times the rows it
@@ -317,11 +345,10 @@ def main() -> int:
         DRIVERS, _pw_chunk_rows, _staged_flagship, flagship_is_staged, mpn_mul_flagship,
         mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
-        _affine_half_exps, canonicalize_plain_torch, fused_butterfly_ladder,
-        fused_canonicalize_plain, fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd,
-        fused_sqrt2_top_inv, fused_transform, fused_twiddle_half, ladder_groups, ladder_plain,
-        ladder_stages, mfa_col_fits, mfa_cols_plain, mfa_cols_schedule, normmod_rows_plain,
-        sqrt2_top_fwd_plain, sqrt2_top_inv_plain, transform_plain, twiddle_half_rows_plain)
+        canonicalize_plain_torch, fused_butterfly_ladder, fused_canonicalize_plain,
+        fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd, fused_sqrt2_top_inv,
+        ladder_groups, ladder_plain, ladder_stages, mfa_col_fits, mfa_cols_plain,
+        mfa_cols_schedule, normmod_rows_plain, sqrt2_top_fwd_plain, sqrt2_top_inv_plain)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
@@ -336,6 +363,8 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
+    from mpir_fft_tpu_torch.utils.transform_bench import (TWIDDLE_SHAPES, WHOLE_SHAPES,
+                                                          measure_twiddle, measure_whole)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import INT8_OPS_PER_S, INT32_OPS_PER_S, bound
 
@@ -346,9 +375,14 @@ def main() -> int:
     so = kernels.build()
     kernels.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}")
+    kernel, spill = "?", ""
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            print(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
 
     # -- 3. each kernel against its plain version at the main path's shapes ----
     plan = choose_params(PLAN_BITS, PLAN_BITS, sqrt2=True)
@@ -607,6 +641,27 @@ def main() -> int:
               f"per mul, {sum(r['launches'] * r['ms'] for r in recs):.3f} ms per mul "
               f"(launches x ms)")
 
+    # the ladder's pre_half at the mulmod_int rings, where the inner forward
+    # transforms of one ring take the ladder and its first group carries the
+    # negacyclic weights: each such launch recorded from one mulmod on random
+    # residues, then measured as above
+    for n_bits in MULMOD_N:
+        mp = mulmod_plan(n_bits)
+        dx, dy = (rand((n_bits // DIGIT_BITS,), 0, 1 << 16) for _ in range(2))
+        with ladder_calls() as seen:
+            mulmod(dx, dy, n_bits)
+        del dx, dy
+        torch.cuda.empty_cache()
+        recs = measure_launches({k: v for k, v in seen.items() if k[3]}, rand, 5)
+        assert recs, ("mulmod_int", n_bits, "no ladder_pre_half launch")
+        for r in recs:
+            add_row(r["name"], "mpir_fft_tpu_torch/csrc/ladder.cu", LADDER_REPLACES[r["name"]],
+                    0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+            print(f"{r['name']} mulmod_int 2^{n_bits.bit_length() - 1} (m {mp.m}, Lp {mp.Lp}) "
+                  f"{r['kind']} {tuple(r['shape'])}: x{r['launches']} per product; raw digits "
+                  f"identical; {r['ms']:.3f} ms, {r['bound_by']} bound {r['bound_ms']:.3f} ms "
+                  f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
+
     def garner_post_row(name, fn, plain, parts, pplan):
         """Garner with the staged chunk's post leg (pplan's innermost
         inverse group) on the first chunk of parts, against the plain
@@ -729,41 +784,36 @@ def main() -> int:
                 4 * cL * cL * shape[0])
         print(f"conv_base {shape}: equal after normmod; {ms:.3f} ms (plain {pms:.3f} ms)")
         del a, b
-    for shape, e0, step in (((rplan.conv_len, mplan.m, mplan.Lp), 0, mplan.wp),
-                            ((64, 128, 256), 3, 1), ((64, 64, 71), 0, 5)):
-        h, tL = shape[-2], shape[-1]
-        tW = DIGIT_BITS * tL
-        x = rand(shape, -(1 << 17), 1 << 17)
-        e2 = _affine_half_exps(torch.arange(x.numel() // tL, device=dev) % h, e0, step, tW)
-        err, same = compare(("twiddle_half", shape), fused_twiddle_half(x, e0, step, tW),
-                            twiddle_half_rows_plain(x.reshape(-1, tL), e2, tW).reshape(shape),
-                            digit_bound=1 << 18)
-        ms = time_ms(lambda: fused_twiddle_half(x, e0, step, tW), 10, 2)
-        pms = time_ms(lambda: twiddle_half_rows_plain(x.reshape(-1, tL), e2, tW), 2)
+    # the whole-row transform, plain and weighted, at one pointwise chunk of
+    # the default plans at 1.2 and 1.5x10^9 bits and at the MPIR_FFT_NTT=0
+    # inner batches of 10^8 and 10^9; the standalone twiddle at the same row
+    # widths, the mulmod_int 2^29 unweighting and the odd / L % 4 != 0 rows
+    # (utils/transform_bench: raw digits identical to the plain versions)
+    assert ((rplan.conv_len, mplan.m, mplan.Lp, mplan.wp) in WHOLE_SHAPES
+            and (hplan.conv_len, hmp.m, hmp.Lp, hmp.wp) in WHOLE_SHAPES)
+    for bits, (B, m, Lp, wp) in zip((1_200_000_000, 1_500_000_000), WHOLE_SHAPES):
+        bplan = choose_params(bits, bits, sqrt2=True)
+        bmp = inner_plan(bplan.W)
+        assert (_pw_chunk_rows(bplan), bmp.m, bmp.Lp, bmp.wp) == (B, m, Lp, wp), (bits, bmp)
+    for shape in WHOLE_SHAPES:
+        for r in measure_whole(*shape, rand, 5):
+            add_row(r["name"], "mpir_fft_tpu_torch/csrc/transform_small.cu",
+                    "mpir_fft_tpu/ops/fused.py:171" if r["name"] == "transform_small"
+                    else "mpir_fft_tpu/ops/fused.py:171 + :533", 0, r["ms"], r["plain_ms"],
+                    r["nbytes"], r["ops"])
+            print(f"{r['name']} {r['kind']} {tuple(r['shape'])} w={r['w']} (groups of "
+                  f"{ladder_stages(r['shape'][2])}): raw digits identical; {r['ms']:.3f} ms, "
+                  f"{r['bound_by']} bound {r['bound_ms']:.3f} ms ({r['share']:.1%}); "
+                  f"plain {r['plain_ms']:.3f} ms")
+        torch.cuda.empty_cache()
+    for shape in TWIDDLE_SHAPES:
+        r = measure_twiddle(*shape, rand, 10)
         add_row("twiddle_half", "mpir_fft_tpu_torch/csrc/twiddle_half.cu",
-                "mpir_fft_tpu/ops/fused.py:533", err, ms, pms, 8 * x.numel(), 4 * x.numel())
-        print(f"twiddle_half {shape} e0={e0} step={step}: raw digits identical: {same}; "
-              f"{ms:.3f} ms (plain {pms:.3f} ms)")
-        del x, e2
-    for B, mp in ((rplan.conv_len, mplan), (hplan.conv_len, hmp)):
-        shape = (B, mp.m, mp.Lp)
-        D = mp.m.bit_length() - 1
-        x = rand(shape, -(1 << 17), 1 << 17)
-        for kind in ("fwd", "inv"):
-            err, same = compare(("transform_small", kind, shape),
-                                fused_transform(kind, x, mp.wp, mp.Wp),
-                                transform_plain(kind, x, mp.wp, mp.Wp))
-            torch.cuda.empty_cache()
-            ms = time_ms(lambda: fused_transform(kind, x, mp.wp, mp.Wp), 5, 1)
-            pms = time_ms(lambda: transform_plain(kind, x, mp.wp, mp.Wp), 1, 0)
-            torch.cuda.empty_cache()
-            add_row("transform_small", "mpir_fft_tpu_torch/csrc/transform_small.cu",
-                    "mpir_fft_tpu/ops/fused.py:171", err, ms, pms, 8 * x.numel(), D * x.numel())
-            print(f"transform_small {kind} {shape} w={mp.wp} (groups of "
-                  f"{ladder_stages(mp.Lp)}): raw digits identical: {same}; "
-                  f"{ms:.3f} ms (plain {pms:.3f} ms)")
-        del x
-    torch.cuda.empty_cache()
+                "mpir_fft_tpu/ops/fused.py:533", 0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+        print(f"twiddle_half {tuple(r['shape'])} h={r['h']} e0={r['e0']} step={r['step']}: raw "
+              f"digits identical; {r['ms']:.3f} ms, {r['bound_by']} bound {r['bound_ms']:.3f} ms "
+              f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
+        torch.cuda.empty_cache()
 
     # the 4-step tier at the 2x10^9-bit plan's pointwise batch: each link on
     # the previous one's real output (all three primes), the plain versions
@@ -976,16 +1026,21 @@ def main() -> int:
     no_top = ("sqrt2_top_fwd", "conv_base", "garner_carry", "garner_residues")
     even = ("ladder", "conv_base", "normmod", "canonicalize")
     odd = ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "conv_base", "canonicalize")
-    rec = ("ladder", "twiddle_half", "transform_small", "conv_base", "normmod", "canonicalize")
-    rec_flat_ntt = ("ladder", "twiddle_half", "normmod", "canonicalize") + ntt
+    # the recursive pointwise: batched inner rings take the whole-row
+    # transform with the weights in it (no twiddle_half pass); a lone ring
+    # (mulmod_int) the ladder, its forward weights in the first group and a
+    # twiddle_half pass after the inverse
+    rec = ("ladder", "transform_small_half", "conv_base", "normmod", "canonicalize")
+    rec_flat_ntt = ("ladder", "ladder_pre_half", "twiddle_half", "normmod", "canonicalize") + ntt
+    no_twiddle = ("twiddle_half", "transform_small")
     no_school = ("conv_base",)
     ntt4 = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
             "ntt4_residues", "garner_residues", "int8_gemm")
     even_ntt4 = ("ladder", "ladder_pre_half", "normmod", "canonicalize",
                  "garner_residues_post") + tuple(k for k in ntt4 if k != "garner_residues")
     # the 4-step leaf, not the recursive route nor the dense tier
-    no_rec = ("conv_base", "transform_small", "twiddle_half", "input_planes", "mid_planes",
-              "garner_carry", "ntt4_fused")
+    no_rec = ("conv_base", "transform_small", "transform_small_half", "twiddle_half",
+              "input_planes", "mid_planes", "garner_carry", "ntt4_fused")
 
     def residues_agree(prod, x, y, ps):
         return all(prod % p == (x % p) * (y % p) % p for p in ps)
@@ -1075,6 +1130,16 @@ def main() -> int:
     drive(HUGE_BITS, "1e9", (15, 1, 2048), zerotop + ("sqrt2_top_inv",) + ntt_post, False,
           primes[:2], 1, no_top)
     e2e["peak_memory_1e9_gib"] = peaks["mul/sqr 1e9"]
+    # the default plans that recurse (1.08-1.6x10^9 bits): L 5120 / 6144
+    # rings, inner m 256 at Lp 48 (schoolbook) / Lp 64 (dense NTT), one
+    # transform_small_half launch per weighted inner transform
+    staged_rec = zerotop + ("transform_small_half", "normmod")
+    no_post = ("ladder_pe", "mfa_cols", "sqrt2_top_fwd") + posts + no_twiddle
+    no_ntt4 = tuple(k for k in ntt4 if k != "int8_gemm") + ("ntt4_fused",)
+    drive(REC5_BITS, "1.2e9", (14, 5, 5120), staged_rec + ("conv_base", "sqrt2_top_inv"), False,
+          primes[:2], 1, no_post + ntt + no_ntt4)
+    drive(REC6_BITS, "1.5e9", (14, 6, 6144), staged_rec + ntt, False, primes[:2], 1,
+          no_post + ("conv_base", "sqrt2_top_inv") + no_ntt4)
     drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec + no_top)
     e2e["peak_memory_2e9_gib"] = peaks["mul/sqr 2e9"]
     assert peaks["mul/sqr 2e9"] <= MAX_PEAK_GIB_2E9, peaks["mul/sqr 2e9"]
@@ -1122,9 +1187,9 @@ def main() -> int:
         # staged with the recursive pointwise: the hook is never consumed,
         # the inverse leg runs on the ladder
         drive(REC_BITS, "1e8_ntt0", (11, 24, 3072), rec + ("ladder_pre_half",), False, primes, 3,
-              ntt + posts)
+              ntt + posts + no_twiddle)
         drive(HUGE_BITS, "1e9_ntt0", (14, 4, 4096), rec + ("ladder_pre_half",), False,
-              primes[:2], 1, ntt + posts)
+              primes[:2], 1, ntt + posts + no_twiddle)
     e2e["peak_memory_1e9_ntt0_gib"] = peaks["mul/sqr 1e9_ntt0"]
 
     def mulmod_case(n_bits, label, expect, forbid, xy=None, want=None):
@@ -1154,10 +1219,10 @@ def main() -> int:
 
     no_mfa = ("mfa_cols", "ladder_pe")
     for n_bits in MULMOD_N[:2]:
-        mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa)
+        mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa + ("transform_small_half",))
     # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
-    mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "twiddle_half", "normmod",
-                                                   "canonicalize") + ntt4,
+    mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "ladder_pre_half", "twiddle_half",
+                                                   "normmod", "canonicalize") + ntt4,
                                  tuple(k for k in no_rec if k != "twiddle_half") + no_mfa)
     assert (mp.m, mp.Lp) == (32768, 4096), mp
     old = os.environ.get("MPIR_FFT_NTT_FUSED")

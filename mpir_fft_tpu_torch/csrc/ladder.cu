@@ -20,7 +20,8 @@
 // the zero-top staged forward's t-leg, fused.py:275, :384, :416-417), each
 // loaded row at transform position j = q*h + hpos is first multiplied by
 // 2^((e0 + j*step2)/2), half-bit exponents (the row body of
-// mf::twiddle_half_row, digit by digit).
+// mf::twiddle_half_row, run by run: mf::twiddle_half_run, ladder_group.cuh,
+// shared with the whole-row transform and the standalone twiddle).
 //
 // What bounds it on an H100: shared-memory traffic and integer issue, then
 // device memory.  Each launch moves 8 bytes per digit; each stage reads
@@ -42,72 +43,6 @@
 
 namespace {
 
-// Digit j of the odd half-bit twiddle's pre-carry row t2 = hi - lo of the
-// row x (mf::twiddle_half_row): hi, lo the static rotations by 3L/4 and L/4
-// digits of base = shift_mod(x, k) when L % 4 == 0, else the two sub-digit
-// shift_mods of x.
-__device__ __forceinline__ int half_t2(const int* x, int j, long long k, int L) {
-  if (L % 4 == 0) {
-    const int kh = 3 * L / 4, kl = L / 4;
-    const int hi = j >= kh ? mf::shift_mod_digit(x, j - kh, k, L)
-                           : -mf::shift_mod_digit(x, L - kh + j, k, L);
-    const int lo = j >= kl ? mf::shift_mod_digit(x, j - kl, k, L)
-                           : -mf::shift_mod_digit(x, L - kl + j, k, L);
-    return hi - lo;
-  }
-  const long long W = 16LL * L;
-  return mf::shift_mod_digit(x, j, (k + 3 * W / 4) % (2 * W), L) -
-         mf::shift_mod_digit(x, j, (k + W / 4) % (2 * W), L);
-}
-
-// r[t] = rot_digit(base, i0 - 1 + t, kdig) for t = 0..4 (i0 - 1 = L - 1 at
-// i0 == 0), base = shift_mod(x, k), for i0 and kdig multiples of 4: the
-// rotated run as one aligned 4-digit twist and the digit below it.
-__device__ __forceinline__ void rot_base_run(const int* x, int i0, int kdig, int k, int L,
-                                             int (&r)[5]) {
-  int p0 = i0 - kdig;
-  if (p0 < 0) p0 += L;
-  int b4[4];
-  mf::twist<4, 0>(x, nullptr, p0, k, L, b4);
-  const int bm = mf::shift_mod_digit(x, p0 == 0 ? L - 1 : p0 - 1, k, L);
-  r[0] = (i0 == 0 ? L - 1 : i0 - 1) >= kdig ? bm : -bm;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) r[t + 1] = i0 >= kdig ? b4[t] : -b4[t];
-}
-
-// Digits i0 .. i0+V-1 of x * 2^(e2/2) (one row, global memory), e2 in
-// [0, 4W): shift_mod(x, e2/2) for even e2, else carry_pass(t2).
-template <int V>
-__device__ __forceinline__ void twiddle_half_run(const int* x, int i0, int e2, int L,
-                                                 int (&v)[V]) {
-  const long long k = e2 >> 1;
-  if (!(e2 & 1)) {
-    mf::twist<V, 0>(x, nullptr, i0, static_cast<int>(k), L, v);
-    return;
-  }
-  if constexpr (V == 4) {
-    if (L % 16 == 0) {        // the static rotations 3L/4, L/4 keep runs aligned
-      int hi[5], lo[5];
-      rot_base_run(x, i0, 3 * L / 4, static_cast<int>(k), L, hi);
-      rot_base_run(x, i0, L / 4, static_cast<int>(k), L, lo);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int c = (hi[t] - lo[t]) >> mf::DIGIT_BITS;
-        v[t] = ((hi[t + 1] - lo[t + 1]) & mf::DIGIT_MASK) + (i0 + t == 0 ? -c : c);
-      }
-      return;
-    }
-  }
-  int prev = half_t2(x, i0 == 0 ? L - 1 : i0 - 1, k, L);
-#pragma unroll
-  for (int t = 0; t < V; ++t) {
-    const int cur = half_t2(x, i0 + t, k, L);
-    const int c = prev >> mf::DIGIT_BITS;
-    v[t] = (cur & mf::DIGIT_MASK) + (i0 + t == 0 ? -c : c);
-    prev = cur;
-  }
-}
-
 template <int V, int P, int T>
 __global__ void __launch_bounds__(T, T == 256 ? 3 : 1)
 ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k, int h, int L,
@@ -126,10 +61,8 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k, in
   mf::ladder_table(tab0, tab1, K, k, L, h, hpos, inverse != 0, steps,
                    pe == nullptr ? nullptr : pe + n * K);
   if (pre) {
-    const long long M4 = 64LL * L;  // 4W
     for (int q = threadIdx.x; q < K; q += T)
-      pre_e[q] = static_cast<int>(
-          (pre_e0 + mf::mulmod_small(static_cast<long long>(q) * h + hpos, pre_step, M4)) % M4);
+      pre_e[q] = mf::half_exp(static_cast<long long>(q) * h + hpos, pre_e0, pre_step, L);
     __syncthreads();
   }
   const int cpr = L / V;
@@ -140,7 +73,7 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k, in
     const int* xr = x + base + q * rstride;
     int v[V];
     if (pre) {
-      twiddle_half_run<V>(xr, i0, pre_e[q], L, v);
+      mf::twiddle_half_run<V>(xr, i0, pre_e[q], L, v);
     } else if constexpr (V == 4) {
       mf::cp_async16(buf + q * L + i0, xr + i0);   // every row chunk in flight at once
       continue;
@@ -151,7 +84,7 @@ ladder_kernel(const int* __restrict__ x, int* __restrict__ out, int K, int k, in
   }
   if constexpr (V == 4) mf::cp_async_wait_all();
   __syncthreads();
-  mf::ladder_group<V, P, T>(buf, K, k, L, inverse != 0, tab0, tab1, pe != nullptr);
+  mf::ladder_group<V, P, T>(buf, K, k, L, inverse != 0, tab0, tab1, pe != nullptr, 0, k);
   // deferred carry: one sweep restores the ~2^17 inter-launch digit bound
   mf::carry_store<V, T>(buf, K, L, out, base, rstride);
 }

@@ -1,24 +1,33 @@
-// The butterfly ladder's group routine, shared by the ladder (ladder.cu) and
-// the Garner kernels' post leg (ntt_links.cu).
+// The butterfly ladder's group routine, shared by the ladder (ladder.cu), the
+// Garner kernels' post leg (ntt_links.cu) and the whole-row transform
+// (transform_small.cu), and the half-bit twiddle of a run of digits, shared
+// by the ladder's pre_half, the whole-row transform's options and the
+// standalone twiddle (twiddle_half.cu).
 //
 // A CTA holds the K = 2^k ring elements of one block position, K rows of L
-// digits, in ONE shared-memory buffer and runs the group's k radix-2 stages
-// on it in place.  A stage is cut into rounds of whole butterfly pairs:
-// in a round each thread reads the sources of up to P items (an item is a
-// run of V digits of one pair: the rotated reads cross the row) into
-// registers, the block syncs, and each thread writes its items back over
-// their pair's two rows.  A pair's rows are read and written in the same
-// round and by no other round of the stage, so one barrier per round and
-// one per stage order every access.
+// digits, in ONE shared-memory buffer and runs the group's radix-2 stages
+// on it in place (all k, or a range of them: the whole-row transform holds
+// its C rows as one K = C group and runs its ladder groups as stage ranges,
+// an in-place carry between them).  A stage is cut into rounds of whole
+// butterfly pairs: in a round each thread reads the sources of up to P items
+// (an item is a run of V digits of one pair: the rotated reads cross the
+// row) into registers, the block syncs, and each thread writes its items
+// back over their pair's two rows.  A pair's rows are read and written in
+// the same round and by no other round of the stage, so one barrier per
+// round and one per stage order every access.
 //
 // Each stage's twiddles are decomposed once per (stage, pair) into a small
 // table (ladder_table) before the digits run; a digit run takes its
 // rotation, sub-digit shift and sign from there.  With V = 4 (L % 4 == 0)
 // the rows are read and written as int4, the rotated window of a run as two
 // aligned int4 loads whose five wanted words are picked by two select
-// rounds (no dynamic register indexing); runs map to threads by shifts
-// where L and K are powers of two.  V = 1 is the general path (any L): one
-// digit per item through mf::shift_comb_digit.
+// rounds (no dynamic register indexing).  Item u of thread t is slot
+// u*T + t of the round, so a warp's items are consecutive runs (pairs'
+// rows side by side): its 16-byte accesses hit distinct banks.  (A layout
+// that kept one pair per thread for every stage, its shifts decoded once,
+// put rows 3-4 threads apart on the same banks and ran twice as slow.)
+// V = 1 is the general path (any L): one digit per item through
+// mf::shift_comb_digit.
 //
 // The integer sequence is the plain version's (ops/fused.py ladder_plain):
 // every output digit is the shift_comb_digit / butterfly_digit expression
@@ -34,6 +43,20 @@ constexpr int kMaxLadderStages = 8;
 struct LadderSteps {
   long long s[kMaxLadderStages];
 };
+
+// n / d for 0 <= n, d < 2^16 where d is not a power of two: one multiply-high
+// by magic = floor(2^32 / d) + 1, exact in that range (the error n (magic d -
+// 2^32) / 2^32 stays below 1/d).  div_magic(d) is 0 for a power of two d,
+// whose quotient is a shift by lg = log2(d) (div_lg, else -1).
+__host__ __device__ __forceinline__ unsigned div_magic(unsigned d) {
+  return (d & (d - 1)) ? 0xFFFFFFFFu / d + 1 : 0;
+}
+__device__ __forceinline__ int div_lg(unsigned d) {
+  return (d & (d - 1)) ? -1 : __ffs(static_cast<int>(d)) - 1;
+}
+__device__ __forceinline__ int div_small(int n, int lg, unsigned magic) {
+  return lg >= 0 ? n >> lg : static_cast<int>(__umulhi(static_cast<unsigned>(n), magic));
+}
 
 // Dynamic shared memory of a ladder-group CTA: the K*L-digit buffer, the
 // two twiddle tables of k*K/2 ints each and K per-row pre_half exponents.
@@ -199,24 +222,28 @@ __device__ __forceinline__ void ladder_item(int mode, const int* A, const int* B
   }
 }
 
-// The k stages of one ladder group, in place on buf (K rows of L digits,
-// shared memory), with the tables of ladder_table: forward j = 0..k-1,
-// inverse j = k-1..0, carry-free.  pe_last: the innermost stage (m == 1)
-// takes the table form.  T threads (blockDim.x), each holding at most P
-// items of V digits per round; the launch guarantees T*P >= L/V (one pair
-// fits a round).  Every thread calls it; it starts by reading buf (the
-// caller syncs before) and ends with a barrier.
+// Stages j0 .. j0+kg-1 of the k of one ladder group, in place on buf (K rows
+// of L digits, shared memory), with the tables of ladder_table: forward
+// ascending, inverse descending, carry-free (the ladder and the post leg run
+// all k: j0 = 0, kg = k).  pe_last: the innermost stage (m == 1) takes the
+// table form.  T threads (blockDim.x), each holding at most P items of V
+// digits per round; the launch guarantees T*P >= L/V (one pair fits a
+// round), and the rounds of a stage share its pairs evenly.  Every thread
+// calls it; it starts by reading buf (the caller syncs before) and ends with
+// a barrier.
 template <int V, int P, int T>
 __device__ __forceinline__ void ladder_group(int* buf, int K, int k, int L, bool inverse,
-                                             const int* tab0, const int* tab1, bool pe_last) {
+                                             const int* tab0, const int* tab1, bool pe_last,
+                                             int j0, int kg) {
   const int half = K >> 1;
   const int ipp = L / V;                                   // items per pair
-  const int lg_ipp = (ipp & (ipp - 1)) ? -1 : __ffs(ipp) - 1;
-  const int G = min(T * P / ipp, half);                    // pairs per round
+  const int lg_ipp = div_lg(ipp);
+  const unsigned mg_ipp = div_magic(ipp);
+  const int rounds = (half + T * P / ipp - 1) / (T * P / ipp);
+  const int G = (half + rounds - 1) / rounds;              // pairs per round
   const int slots = G * ipp;
-  const int rounds = (half + G - 1) / G;
-  for (int jj = 0; jj < k; ++jj) {
-    const int j = inverse ? k - 1 - jj : jj;
+  for (int jj = 0; jj < kg; ++jj) {
+    const int j = inverse ? j0 + kg - 1 - jj : j0 + jj;
     const int lgm = k - 1 - j;
     const int mL = L << lgm;                                 // m rows apart
     const int mode = (inverse ? 1 : 0) | (pe_last && lgm == 0 ? 2 : 0);
@@ -227,7 +254,7 @@ __device__ __forceinline__ void ladder_group(int* buf, int K, int k, int L, bool
 #pragma unroll
       for (int u = 0; u < P; ++u) {
         const int s = u * T + static_cast<int>(threadIdx.x);
-        const int pl = lg_ipp >= 0 ? s >> lg_ipp : s / ipp;
+        const int pl = div_small(s, lg_ipp, mg_ipp);
         const int p = r * G + pl;
         at[u] = -1;
         if (s < slots && p < half) {
@@ -251,6 +278,20 @@ __device__ __forceinline__ void ladder_group(int* buf, int K, int k, int L, bool
   }
 }
 
+// Digits i0 .. i0+V-1 of carry_pass(row) (mf::carry_digit of each).
+template <int V>
+__device__ __forceinline__ void carry_run(const int* row, int i0, int L, int (&o)[V]) {
+  int v[V];
+  load_run<V>(row + i0, v);
+  int prev = row[i0 == 0 ? L - 1 : i0 - 1];
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int c = prev >> DIGIT_BITS;
+    o[t] = (v[t] & DIGIT_MASK) + (i0 + t == 0 ? -c : c);
+    prev = v[t];
+  }
+}
+
 // The deferred carry of a group and the store: out[base + q*rstride + i] =
 // carry_digit(row q of buf, i) for the K rows of L digits.  Reads only buf,
 // writes only out (global).
@@ -258,22 +299,124 @@ template <int V, int T>
 __device__ __forceinline__ void carry_store(const int* buf, int K, int L, int* out,
                                             long long base, long long rstride) {
   const int cpr = L / V;                                   // runs per row
-  const int lg = (cpr & (cpr - 1)) ? -1 : __ffs(cpr) - 1;
+  const int lg = div_lg(cpr);
+  const unsigned mg = div_magic(cpr);
   for (int idx = threadIdx.x; idx < K * cpr; idx += T) {
-    const int q = lg >= 0 ? idx >> lg : idx / cpr;
+    const int q = div_small(idx, lg, mg);
     const int i0 = (idx - q * cpr) * V;
-    const int* row = buf + q * L;
-    int v[V], o[V];
-    load_run<V>(row + i0, v);
-    int prev = row[i0 == 0 ? L - 1 : i0 - 1];
-#pragma unroll
-    for (int t = 0; t < V; ++t) {
-      const int c = prev >> DIGIT_BITS;
-      o[t] = (v[t] & DIGIT_MASK) + (i0 + t == 0 ? -c : c);
-      prev = v[t];
-    }
+    int o[V];
+    carry_run<V>(buf + q * L, i0, L, o);
     store_run<V>(out + base + q * rstride + i0, o);
   }
+}
+
+// The deferred carry in place: each of the R rows of L digits of buf
+// becomes carry_pass(row).  Rounds of whole rows (runs into registers, a
+// barrier, the writes), at most P runs a thread; T*P >= L/V as for
+// ladder_group.  Every thread calls it; it ends with a barrier.
+template <int V, int P, int T>
+__device__ __forceinline__ void carry_rows(int* buf, int R, int L) {
+  const int cpr = L / V;
+  const int lg = div_lg(cpr);
+  const unsigned mg = div_magic(cpr);
+  const int rounds = (R + T * P / cpr - 1) / (T * P / cpr);
+  const int G = (R + rounds - 1) / rounds;                 // rows per round
+  for (int r = 0; r < rounds; ++r) {
+    int o[P][V], at[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int s = u * T + static_cast<int>(threadIdx.x);
+      const int ql = div_small(s, lg, mg);
+      const int q = r * G + ql;
+      at[u] = -1;
+      if (ql < G && q < R) {
+        const int i0 = (s - ql * cpr) * V;
+        at[u] = q * L + i0;
+        carry_run<V>(buf + q * L, i0, L, o[u]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < P; ++u)
+      if (at[u] >= 0) store_run<V>(buf + at[u], o[u]);
+  }
+  __syncthreads();
+}
+
+// Digit j of the odd half-bit twiddle's pre-carry row t2 = hi - lo of the
+// row x (mf::twiddle_half_row): hi, lo the static rotations by 3L/4 and L/4
+// digits of base = shift_mod(x, k) when L % 4 == 0, else the two sub-digit
+// shift_mods of x.
+__device__ __forceinline__ int half_t2(const int* x, int j, long long k, int L) {
+  if (L % 4 == 0) {
+    const int kh = 3 * L / 4, kl = L / 4;
+    const int hi = j >= kh ? shift_mod_digit(x, j - kh, k, L)
+                           : -shift_mod_digit(x, L - kh + j, k, L);
+    const int lo = j >= kl ? shift_mod_digit(x, j - kl, k, L)
+                           : -shift_mod_digit(x, L - kl + j, k, L);
+    return hi - lo;
+  }
+  const long long W = 16LL * L;
+  return shift_mod_digit(x, j, (k + 3 * W / 4) % (2 * W), L) -
+         shift_mod_digit(x, j, (k + W / 4) % (2 * W), L);
+}
+
+// r[t] = rot_digit(base, i0 - 1 + t, kdig) for t = 0..4 (i0 - 1 = L - 1 at
+// i0 == 0), base = shift_mod(x, k), for i0 and kdig multiples of 4: the
+// rotated run as one aligned 4-digit twist and the digit below it.
+__device__ __forceinline__ void rot_base_run(const int* x, int i0, int kdig, int k, int L,
+                                             int (&r)[5]) {
+  int p0 = i0 - kdig;
+  if (p0 < 0) p0 += L;
+  int b4[4];
+  twist<4, 0>(x, nullptr, p0, k, L, b4);
+  const int bm = shift_mod_digit(x, p0 == 0 ? L - 1 : p0 - 1, k, L);
+  r[0] = (i0 == 0 ? L - 1 : i0 - 1) >= kdig ? bm : -bm;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) r[t + 1] = i0 >= kdig ? b4[t] : -b4[t];
+}
+
+// Digits i0 .. i0+V-1 of x * 2^(e2/2) mod 2^(16L)+1 (one row of L digits,
+// shared or global memory; 16-byte aligned for V == 4), half-bit exponent
+// e2 in [0, 4W): shift_mod(x, e2/2) for even e2, else carry_pass(t2) -- the
+// row body of mf::twiddle_half_row and of the plain version
+// ops/fused.py twiddle_half_rows_plain, run by run.
+template <int V>
+__device__ __forceinline__ void twiddle_half_run(const int* x, int i0, int e2, int L,
+                                                 int (&v)[V]) {
+  const long long k = e2 >> 1;
+  if (!(e2 & 1)) {
+    twist<V, 0>(x, nullptr, i0, static_cast<int>(k), L, v);
+    return;
+  }
+  if constexpr (V == 4) {
+    if (L % 16 == 0) {        // the static rotations 3L/4, L/4 keep runs aligned
+      int hi[5], lo[5];
+      rot_base_run(x, i0, 3 * L / 4, static_cast<int>(k), L, hi);
+      rot_base_run(x, i0, L / 4, static_cast<int>(k), L, lo);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = (hi[t] - lo[t]) >> DIGIT_BITS;
+        v[t] = ((hi[t + 1] - lo[t + 1]) & DIGIT_MASK) + (i0 + t == 0 ? -c : c);
+      }
+      return;
+    }
+  }
+  int prev = half_t2(x, i0 == 0 ? L - 1 : i0 - 1, k, L);
+#pragma unroll
+  for (int t = 0; t < V; ++t) {
+    const int cur = half_t2(x, i0 + t, k, L);
+    const int c = prev >> DIGIT_BITS;
+    v[t] = (cur & DIGIT_MASK) + (i0 + t == 0 ? -c : c);
+    prev = cur;
+  }
+}
+
+// Half-bit exponent (e0 + j * step) mod 4W of transform position or row j,
+// e0 and step in [0, 4W) (the pre_half / post_half and twiddle_half tables).
+__device__ __forceinline__ int half_exp(long long j, long long e0, long long step, int L) {
+  const long long M4 = 64LL * L;
+  return static_cast<int>((e0 + mulmod_small(j, step, M4)) % M4);
 }
 
 // Threads of a group launch whose pairs run ipp items, P per thread: 256

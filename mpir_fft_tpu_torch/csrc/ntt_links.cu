@@ -310,7 +310,7 @@ garner_post_kernel(const int* __restrict__ s1, const int* __restrict__ s2,
     if (rl == 8) *reinterpret_cast<int4*>(row + 4) = make_int4(d[4], d[5], d[6], d[7]);
   }
   __syncthreads();
-  mf::ladder_group<4, 4, NT>(buf, K, k, M, true, tab0, tab1, false);
+  mf::ladder_group<4, 4, NT>(buf, K, k, M, true, tab0, tab1, false, 0, k);
   mf::carry_store<4, NT>(buf, K, M, out, row0 * M, M);
 }
 

@@ -4,40 +4,80 @@
 // Replaces: mpir_fft_tpu/ops/fused.py fused_twiddle_half (fused.py:533-572,
 // pallas_call :562), whose body is _twiddle_half_rows (:714-736).  Plain
 // version: ops/fused.py twiddle_half_rows_plain, the same integer sequence,
-// so the digits agree exactly.  On the port's main path it weights the
-// recursive mulmod's negacyclic transforms (ops/negacyclic.py: step w' in
-// the forward, -w' in the inverse); the sqrt2 top layer runs the same row
-// body inside its own kernels (csrc/sqrt2_top.cu).
+// so the digits agree exactly.  It runs where the weights cannot ride a
+// transform kernel: the inverse unweighting of a negacyclic transform on the
+// ladder route (ops/transforms.py post_half; mulmod_int's rings), the MFA
+// tail reconstruction (ops/sqrt2.py) and a length-1 transform's pre_half.
+// The whole-row transform (csrc/transform_small.cu), the ladder's pre_half
+// and the sqrt2 top layer run the same row body inside their own kernels.
 //
 // Per row: even e2 is a plain shift_mod by k = e2/2; odd e2 is the sqrt2
 // shift carry_pass(hi - lo), 2^(k+1/2) = 2^(k+3W/4) - 2^(k+W/4)
-// (mf::twiddle_half_row, common.cuh).
+// (mf::twiddle_half_run, ladder_group.cuh).
 //
 // What bounds it on an H100: device memory -- one read and one write of the
-// row.  Design: one CTA per row with the row in shared memory (the rotations
-// index it directly; the TPU needed a barrel shifter), threads = L rounded
-// up to a warp (at most 256), so the narrow inner rings (L = 32) do not idle
-// seven warps of eight.
-#include "common.cuh"
+// row.  Design: a thread computes a run of V = 4 digits (L % 4 == 0, aligned
+// tensors; else V = 1) straight from the row in device memory, its rotated
+// window as two aligned int4 loads that the row's other runs share through
+// L1, and stores it as one 16-byte vector; no shared-memory row and no
+// barrier per phase.  A CTA of 256 threads takes R = 1024 / (L/V) whole rows
+// where a row has at most 1024 runs (85 rows of L 48, one of L 4096), their
+// exponents decomposed once per row into a shared table (one barrier per
+// CTA); a longer row spreads over 1024-run chunks, one CTA each, every
+// thread decomposing the row's exponent once.
+#include "ladder_group.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kRuns = 4 * kThreads;           // runs per CTA
 
-__global__ void __launch_bounds__(kMaxThreads)
-twiddle_half_kernel(const int* __restrict__ x, int* __restrict__ out, int L, long long h,
-                    long long e0, long long step) {
-  extern __shared__ int sm[];
-  int* X = sm;
-  int* T1 = sm + L;
-  int* T2 = sm + 2 * L;
-  const long long row = blockIdx.x;
-  const long long M4 = 64LL * L;  // 4W
-  const long long e2 = (e0 + mf::mulmod_small(row % h, step, M4)) % M4;
-  const int* xr = x + row * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) X[i] = xr[i];
-  __syncthreads();
-  mf::twiddle_half_row(X, T1, T2, out + row * L, e2, L);
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+twiddle_half_kernel(const int* __restrict__ x, int* __restrict__ out, long long B, int L,
+                    long long h, long long e0, long long step, int R, long long Q) {
+  __shared__ int e2s[kRuns];
+  const int cpr = L / V;                       // runs per row
+  long long row0;
+  int first, nruns, e2own = 0;
+  if (R > 1) {                                 // R whole rows
+    row0 = static_cast<long long>(blockIdx.x) * R;
+    const int rows = static_cast<int>(min(static_cast<long long>(R), B - row0));
+    nruns = rows * cpr;
+    first = 0;
+    for (int t = threadIdx.x; t < rows; t += kThreads)
+      e2s[t] = mf::half_exp((row0 + t) % h, e0, step, L);
+    __syncthreads();
+  } else {                                     // chunk c of one row
+    row0 = blockIdx.x / Q;
+    first = static_cast<int>(blockIdx.x % Q) * kRuns;
+    nruns = min(kRuns, cpr - first);
+    e2own = mf::half_exp(row0 % h, e0, step, L);
+  }
+  const int lg = mf::div_lg(cpr);
+  const unsigned mg = mf::div_magic(cpr);
+  for (int g = threadIdx.x; g < nruns; g += kThreads) {
+    const int rr = R > 1 ? mf::div_small(g, lg, mg) : 0;
+    const int i0 = (first + g - rr * cpr) * V;
+    const long long off = (row0 + rr) * L;
+    int v[V];
+    mf::twiddle_half_run<V>(x + off, i0, R > 1 ? e2s[rr] : e2own, L, v);
+    mf::store_run<V>(out + off + i0, v);
+  }
+}
+
+template <int V>
+int launch(const void* x, void* out, long long B, int L, long long h, long long e0,
+           long long step, void* stream) {
+  const int cpr = L / V;
+  const int R = cpr <= kRuns ? kRuns / cpr : 1;
+  const long long Q = R > 1 ? 1 : (cpr + kRuns - 1) / kRuns;
+  const long long grid = R > 1 ? (B + R - 1) / R : B * Q;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  twiddle_half_kernel<V><<<static_cast<unsigned>(grid), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), B, L, h, e0, step, R, Q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -48,15 +88,12 @@ MF_EXPORT int mf_twiddle_half(const void* x, void* out, long long B, int L, long
                               long long e0, long long step, void* stream) {
   if (L < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long M4 = 64LL * L;
   e0 = ((e0 % M4) + M4) % M4;
   step = ((step % M4) + M4) % M4;
-  const size_t smem = 3ull * L * sizeof(int);
-  cudaError_t err = mf::set_smem(reinterpret_cast<const void*>(twiddle_half_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  twiddle_half_kernel<<<static_cast<unsigned>(B), mf::row_threads(L, kMaxThreads), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), L, h, e0, step);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = L % 4 == 0 &&
+                   (reinterpret_cast<unsigned long long>(x) |
+                    reinterpret_cast<unsigned long long>(out)) % 16 == 0;
+  return vec ? launch<4>(x, out, B, L, h, e0, step, stream)
+             : launch<1>(x, out, B, L, h, e0, step, stream);
 }

@@ -40,6 +40,7 @@ LAUNCHES = {
     "ladder": 0, "ladder_pe": 0, "ladder_pre_half": 0, "mfa_cols": 0, "conv_base": 0,
     "normmod": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
+    "transform_small_half": 0,
     "input_planes": 0, "mid_planes": 0, "garner_carry": 0, "garner_carry_post": 0,
     "ntt4_input_planes": 0, "ntt4_fwd_twiddle": 0, "ntt4_pointwise": 0, "ntt4_inv_twiddle": 0,
     "ntt4_residues": 0, "garner_residues": 0, "garner_residues_post": 0, "ntt4_fused": 0,
@@ -139,8 +140,9 @@ _SIGNATURES = {
     "mf_sqrt2_top_fwd": (_P, _P, _LL, _LL, _I, _LL, _P),
     # x, out, N, h, L, w, s (norm shift in [0, 2W), or -1), stream
     "mf_sqrt2_top_inv": (_P, _P, _LL, _LL, _I, _LL, _I, _P),
-    # x, out, B, C, L, w, inverse, kmax, stream
-    "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _P),
+    # x, out, B, C, L, w, inverse, kmax, half (pre_half forward / post_half
+    # inverse on), its e0, its step (half-bit exponents), stream
+    "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _I, _LL, _LL, _P),
     # x, out (3 primes' planes), B, M, stream
     "mf_input_planes": (_P, _P, _LL, _I, _P),
     # sa, sb, out, B, M, prime index, stream

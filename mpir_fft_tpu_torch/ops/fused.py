@@ -4,7 +4,8 @@ mpir_fft_tpu/ops/fused.py), each beside its plain torch version.
 | wrapper                    | CUDA kernel             | replaces (TPU kernel)                  |
 |----------------------------|-------------------------|----------------------------------------|
 | fused_butterfly_ladder     | csrc/ladder.cu          | fused.fused_butterfly_ladder           |
-| fused_transform            | csrc/transform_small.cu | fused.fused_batched (whole transforms) |
+| fused_transform            | csrc/transform_small.cu | fused.fused_batched (whole transforms; |
+|                            |                         | with fused_twiddle_half as an option)  |
 | fused_normmod_div          | csrc/normmod.cu         | fused.fused_rows(normmod_div's core)   |
 | fused_canonicalize_plain   | csrc/canonicalize.cu    | fused.fused_canonicalize_plain         |
 | fused_twiddle_half         | csrc/twiddle_half.cu    | fused.fused_twiddle_half               |
@@ -24,7 +25,8 @@ Blocking is Hopper's, not Mosaic's: a ladder CTA keeps K = 2^k ring
 elements of one h-position in one shared-memory buffer (K*L*4 bytes, the
 stages in place), so k is capped by that budget (LADDER_BUF_BYTES) and by
 the deferred-carry growth ~2^(18+k); a whole-transform CTA keeps a whole
-(C, L) row in a ping-pong pair."""
+(C, L) row in one such buffer (WHOLE_BUF_BYTES) and runs the same stage
+routine on it."""
 
 from __future__ import annotations
 
@@ -213,50 +215,67 @@ def _steps_arg(steps) -> ctypes.Array:
 # 2. whole transforms of small batch rows
 # ---------------------------------------------------------------------------
 
-# shared memory one whole-transform CTA may take: its ping-pong pair of
-# (C, L) rows, 2 * C * L * 4 bytes (a Hopper block has up to 227 KB)
-WHOLE_SMEM_BYTES = 128 * 1024
+# the one C*L-digit buffer a whole-transform CTA keeps its row in (the stages
+# run in place), as for the ladder: four such CTAs share an SM at (256, 48)
+WHOLE_BUF_BYTES = 64 * 1024
 
 
 def whole_fits(C: int, L: int) -> bool:
-    """Does one (C, L) row fit a whole-transform CTA's shared memory?"""
-    return 2 * C * L * 4 <= WHOLE_SMEM_BYTES
+    """Does one (C, L) row fit a whole-transform CTA's buffer?"""
+    return C * L * 4 <= WHOLE_BUF_BYTES
 
 
-def transform_plain(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+def transform_plain(kind: str, x: torch.Tensor, w: int, W: int, pre_half: tuple | None = None,
+                    post_half: tuple | None = None) -> torch.Tensor:
     """Plain version of the whole-transform kernel: the ladder groups of a
     length-C transform (ladder_groups), each one ladder_plain pass over x
-    (B, C, L) -- the sequence the kernel runs on a shared-memory row."""
+    (B, C, L) -- the sequence the kernel runs on a shared-memory row.
+    pre_half = (e0, step2), 'fwd': first twiddle_half_plain of the rows;
+    post_half, 'inv': twiddle_half_plain of the result."""
     B, C, L = x.shape
+    if pre_half is not None:
+        x = twiddle_half_plain(x, *pre_half, W)
     for l, kg in ladder_groups(C, L, kind):
         K = 1 << kg
         steps = tuple(w << (l + j) for j in range(kg))
         x = ladder_plain(kind, x.reshape(-1, K, C >> (l + kg), L), steps, W).reshape(B, C, L)
+    if post_half is not None:
+        x = twiddle_half_plain(x, *post_half, W)
     return x
 
 
-def fused_transform(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+def fused_transform(kind: str, x: torch.Tensor, w: int, W: int, pre_half: tuple | None = None,
+                    post_half: tuple | None = None) -> torch.Tensor:
     """The whole radix-2 transform (fft_radix2 for 'fwd', ifft_radix2 for
     'inv', root 2^w) of every (C, L) row of x (B, C, L) in one launch, the
-    row resident in shared memory.  Output: bounded redundant digits (a
-    carry pass after every ladder group, as on the ladder path)."""
+    row resident in shared memory.  pre_half = (e0, step2), 'fwd' only:
+    row j is first multiplied by 2^((e0 + j*step2)/2) (half-bit exponents);
+    post_half, 'inv' only: the output row j is multiplied so -- the
+    negacyclic weights (ops/negacyclic.py) in the same launch.  Output:
+    bounded redundant digits (a carry pass after every ladder group, as on
+    the ladder path).  Launches count under "transform_small", or
+    "transform_small_half" with an option."""
     if kind not in ("fwd", "inv"):
         raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
+    if (pre_half is not None and kind != "fwd") or (post_half is not None and kind != "inv"):
+        raise ValueError("transform_small: pre_half is a forward option, post_half an inverse one")
     _require(x, "transform_small", ndim=3)
     B, C, L = x.shape
     if C < 2 or C & (C - 1) or W != DIGIT_BITS * L:
         raise ValueError(f"transform_small: C={C} must be a power of two >= 2, W={W} 16*L")
     if x.device.type == "cpu":
-        return transform_plain(kind, x, w, W)
+        return transform_plain(kind, x, w, W, pre_half, post_half)
     if not whole_fits(C, L):
         raise ValueError(f"transform_small: a ({C}, {L}) row exceeds the shared-memory block")
+    half = pre_half if kind == "fwd" else post_half
+    e0, st2 = (0, 0) if half is None else (int(v) for v in half)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_transform_small(
             x.data_ptr(), out.data_ptr(), B, C, L, int(w), int(kind == "inv"),
-            ladder_stages(L), kernels.stream_of(x))
+            ladder_stages(L), int(half is not None), e0, st2, kernels.stream_of(x))
     kernels.check(rc, "transform_small")
-    kernels.LAUNCHES["transform_small"] += 1
+    kernels.LAUNCHES["transform_small" if half is None else "transform_small_half"] += 1
     return out
 
 
@@ -365,6 +384,15 @@ def _affine_half_exps(j: torch.Tensor, e0: int, step: int, W: int) -> torch.Tens
     return torch.remainder(e0 + j * step, 4 * W)[..., None]
 
 
+def twiddle_half_plain(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
+    """Plain version of fused_twiddle_half: x[..., j, :] times
+    2^((e0 + j*step)/2), j the index along axis -2."""
+    L, h = x.shape[-1], x.shape[-2]
+    j = torch.arange(x.numel() // L, dtype=torch.int64, device=x.device) % h
+    return twiddle_half_rows_plain(
+        x.reshape(-1, L), _affine_half_exps(j, e0, step, W), W).reshape(x.shape)
+
+
 def fused_twiddle_half(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
     """x[..., j, :] * 2^((e0 + j*step)/2) mod p (half-bit exponents) in one
     pass, j the index along axis -2; leading axes replicate."""
@@ -375,9 +403,7 @@ def fused_twiddle_half(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Ten
     h = x.shape[-2]
     B = x.numel() // L
     if x.device.type == "cpu":
-        j = torch.arange(B, dtype=torch.int64) % h
-        return twiddle_half_rows_plain(
-            x.reshape(B, L), _affine_half_exps(j, e0, step, W), W).reshape(x.shape)
+        return twiddle_half_plain(x, e0, step, W)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_twiddle_half(

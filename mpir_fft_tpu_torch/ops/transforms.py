@@ -5,11 +5,12 @@ A transform of length C = x.shape[-2] takes one of two kernel routes:
   * a batch of transforms (x.ndim >= 3) whose (C, L) row fits a
     shared-memory block (ops/fused.py whole_fits) runs whole, one launch of
     the whole-transform kernel (fused_transform) -- the reference's
-    `_auto_fusable` rule (transforms.py:50-62) with Hopper's limit: two
-    row buffers within a 227 KB block (WHOLE_SMEM_BYTES = 128 KB), not
-    Mosaic's L <= 1024 and 512 KB padded-row cap.  This serves the
-    recursive mulmod's inner negacyclic transforms ((256, 32), (64, 84),
-    (128, 72) rows at 10^8..10^9 bits) and small multiplies;
+    `_auto_fusable` rule (transforms.py:50-62) with Hopper's limit: the
+    row in one in-place buffer of at most 64 KB (WHOLE_BUF_BYTES; four
+    such blocks share an SM), not Mosaic's L <= 1024 and 512 KB padded-row
+    cap.  This serves the recursive mulmod's inner negacyclic transforms
+    ((256, 32), (256, 48), (256, 64), (128, 72) rows at 10^8..1.6x10^9
+    bits) and small multiplies;
   * everything else (the MB-sized outer flagship rows) runs as consecutive
     butterfly-ladder groups: each group of kg <= ladder_stages(L) stages is
     one pass over the whole [..., C, L] array, exactly the grouping of the
@@ -31,11 +32,17 @@ Conventions (identical to the reference):
     decimation-in-frequency with output in revbin order.
   * No scaling inside transforms: ifft(fft(x)) == 2^log2(C) * x.
 
-The staged flagship's options (ref transforms.py:106-127, :190-319):
+The half-bit options (ref transforms.py:106-127, :190-319, and the
+negacyclic weights of ops/negacyclic.py):
   * `pre_half = (e0, step2)` on fft_radix2: input position j is first
-    multiplied by 2^((e0 + j*step2)/2).  On the ladder route it rides the
-    first group (the ladder's own option); a length-1 transform, or one on
-    the whole-transform route, takes one twiddle_half pass first.
+    multiplied by 2^((e0 + j*step2)/2).  It rides the transform's one
+    launch: the whole-transform kernel's load, or the first ladder group
+    (the ladder's own option); only a length-1 transform takes a
+    twiddle_half pass.
+  * `post_half = (e0, step2)` on ifft_radix2: output position j is then
+    multiplied by 2^((e0 + j*step2)/2).  On the whole route it rides the
+    kernel's store; on the ladder route it is one twiddle_half pass after
+    the last group.
   * `skip_inner` on ifft_radix2: the innermost skip_inner stages already
     ran chunk-locally (ifft_innermost, or inside the Garner kernel), so the
     ladder groups start above them.  Such a transform always takes the
@@ -56,26 +63,25 @@ from .limb import shift_mod
 
 
 def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None, pre_half=None,
-         skip_inner: int = 0) -> torch.Tensor:
+         skip_inner: int = 0, post_half=None) -> torch.Tensor:
     C, L = x.shape[-2], x.shape[-1]
     D = C.bit_length() - 1
     assert C == 1 << D, "transform length must be a power of two"
     assert 0 <= skip_inner <= D and (skip_inner == 0 or pe is None)
     shape = x.shape
     whole = pe is None and skip_inner == 0 and C > 1 and x.ndim >= 3 and whole_fits(C, L)
-    if pre_half is not None and (D == 0 or whole):
-        e0, st2 = pre_half
-        x = fused_twiddle_half(x.contiguous(), e0 % (4 * W), st2, W)
-        pre_half = None
     if whole:
-        return fused_transform(kind, x.reshape(-1, C, L).contiguous(), w, W).reshape(shape)
+        return fused_transform(kind, x.reshape(-1, C, L).contiguous(), w, W, pre_half,
+                               post_half).reshape(shape)
     x = x.contiguous()
+    if pre_half is not None and D == 0:
+        x = fused_twiddle_half(x, *pre_half, W)
+        pre_half = None
     if pe is not None:
         pe = torch.remainder(torch.as_tensor(pe, device=x.device), 2 * W)
     if D == 0:
         if pe is not None:
             x = shift_mod(x, (pe if kind == "fwd" else -pe)[..., None], W)
-        return x
     for l, kg in ladder_groups(C, L, kind, skip_inner):
         K = 1 << kg
         steps = tuple(w << (l + j) for j in range(kg))
@@ -90,6 +96,8 @@ def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None, pre_half=None,
             kind, x.reshape(-1, K, C >> (l + kg), L), steps, W, tab,
             pre_half=pre_half if l == 0 else None,
         ).reshape(shape)
+    if post_half is not None:
+        x = fused_twiddle_half(x, *post_half, W)
     return x
 
 
@@ -99,19 +107,22 @@ def fft_radix2(x: torch.Tensor, w: int, W: int, post_exps=None,
     revbin order: out[j] = X(z^revbin(j)).  With post_exps (an integer table
     [..., C]), output position j is also multiplied by 2^post_exps[j].  With
     pre_half = (e0, step2), input position j is first multiplied by
-    2^((e0 + j*step2)/2) (the sqrt2 top layer's t-leg twiddle)."""
+    2^((e0 + j*step2)/2) (the sqrt2 top layer's t-leg twiddle, the
+    negacyclic weights)."""
     return _run(x, w, W, "fwd", post_exps, pre_half)
 
 
 def ifft_radix2(x: torch.Tensor, w: int, W: int, pre_exps=None,
-                skip_inner: int = 0) -> torch.Tensor:
+                skip_inner: int = 0, post_half: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverse of fft_radix2 (times C): revbin-ordered input, natural-order
     output.  With pre_exps, input position j is first divided by
     2^pre_exps[j].  skip_inner: the innermost skip_inner stages already ran
     (ifft_innermost, possibly on a different nominal length: the even-w
     sqrt2 inverse skips inner_group(C/2, L) stages of its length-C
-    transform, the same stages)."""
-    return _run(x, w, W, "inv", pre_exps, skip_inner=skip_inner)
+    transform, the same stages).  With post_half = (e0, step2), output
+    position j is then multiplied by 2^((e0 + j*step2)/2) (the negacyclic
+    unweighting)."""
+    return _run(x, w, W, "inv", pre_exps, skip_inner=skip_inner, post_half=post_half)
 
 
 def inner_group(C: int, L: int) -> int:

@@ -197,15 +197,20 @@ def _launched(name, fn):
 
 @pytest.mark.parametrize("B,h,L,e0,step", [
     (6, 3, 16, 5, 7), (8, 8, 71, 0, 3), (4, 4, 64, 1, -5), (5, 5, 32, 0, 4), (3, 1, 70, 9, 0),
+    (7 * 256, 256, 48, 0, 6), (7 * 256, 256, 48, 3, -5), (5 * 256, 256, 64, 1, 8),
+    (3, 3, 4096, 0, -4), (3, 3, 4096, 5, 7), (2, 2, 8192, 2, -9),
 ])
 def test_twiddle_half_matches_plain(dev, B, h, L, e0, step):
+    """Raw digits identical to the plain version: even and odd exponents,
+    negative steps, several rows per CTA (85 rows of L 48, a B that is no
+    multiple of it), one CTA per row (L 4096) and several (L 8192)."""
     rng = np.random.default_rng(5)
     W = 16 * L
     x = _rand(rng, (B // h, h, L), -(1 << 17), 1 << 17, dev)
     got = _launched("twiddle_half", lambda: fused_twiddle_half(x, e0, step, W))
     j = torch.arange(x.numel() // L) % h
     want = twiddle_half_rows_plain(x.reshape(-1, L).cpu(), _affine_half_exps(j, e0, step, W), W)
-    assert torch.equal(_canon(got), _canon(want))
+    assert torch.equal(got.cpu(), want.reshape(x.shape))
     assert int(got.abs().max()) < 1 << 18
 
 
@@ -226,17 +231,25 @@ def test_sqrt2_top_matches_plain(dev, N, h, L, w):
             assert torch.equal(_canon(got), _canon(want))
 
 
+@pytest.mark.parametrize("half", [None, (0, 1), (5, -3)])
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
 @pytest.mark.parametrize("B,C,L,w", [
     (3, 32, 16, 1), (5, 256, 32, 4), (2, 128, 72, 18), (4, 64, 84, 42), (3, 8, 71, 3),
+    (7, 256, 48, 6), (5, 256, 64, 8), (3, 2, 8192, 5),
 ])
-def test_transform_small_matches_plain(dev, kind, B, C, L, w):
+def test_transform_small_matches_plain(dev, kind, B, C, L, w, half):
+    """Raw digits identical to the plain version, without and with the
+    half-bit option (pre_half forward, post_half inverse; the exponents
+    (e0, step * w), odd ones at e0 5)."""
     rng = np.random.default_rng(7)
     W = 16 * L
     x = _rand(rng, (B, C, L), -(1 << 17), 1 << 17, dev)
-    got = _launched("transform_small", lambda: fused_transform(kind, x, w, W))
-    want = transform_plain(kind, x.cpu(), w, W)
-    assert torch.equal(_canon(got), _canon(want))
+    opt = None if half is None else (half[0], half[1] * w)
+    pre, post = (opt, None) if kind == "fwd" else (None, opt)
+    name = "transform_small" if half is None else "transform_small_half"
+    got = _launched(name, lambda: fused_transform(kind, x, w, W, pre, post))
+    want = transform_plain(kind, x.cpu(), w, W, pre, post)
+    assert torch.equal(got.cpu(), want)
     assert int(got.abs().max()) < 1 << 17
 
 
@@ -262,7 +275,8 @@ def test_recursive_pointwise_on_gpu(dev, bits, depth):
     kernels.reset_launches()
     got = int_from_digits(mpn_mul_flagship(da, db, plan).cpu().numpy())
     assert got == a * b
-    assert kernels.LAUNCHES["twiddle_half"] > 0 and kernels.LAUNCHES["transform_small"] > 0
+    # the inner rings' weights ride the whole-row transform: no twiddle pass
+    assert kernels.LAUNCHES["transform_small_half"] == 3 and kernels.LAUNCHES["twiddle_half"] == 0
 
 
 @pytest.mark.parametrize("N", [1 << 15, 37504, 49152])
@@ -431,7 +445,8 @@ def test_mul_tier2_plans_on_gpu(dev, bits, L):
                  "ntt4_residues", "garner_residues"):
         assert got[name] > 0, name
     assert got["int8_gemm"] == 18
-    for name in ("transform_small", "twiddle_half", "conv_base", "input_planes", "ntt4_fused"):
+    for name in ("transform_small", "transform_small_half", "twiddle_half", "conv_base",
+                 "input_planes", "ntt4_fused"):
         assert got[name] == 0, name
     kernels.reset_launches()
     assert int_from_digits(mpn_sqr_flagship(da, plan).cpu().numpy()) == a * a

@@ -47,8 +47,11 @@ def test_mulmod_plan_matches_reference(ntt_off, N):
     assert tmm.MULMOD_BASE_MAX_BITS == jmm.MULMOD_BASE_MAX_BITS
 
 
-@pytest.mark.parametrize("m,L,w", [(8, 4, 16), (16, 5, 5)])
+@pytest.mark.parametrize("m,L,w", [(8, 4, 16), (16, 5, 5), (16, 12, 24), (32, 20, 20), (16, 13, 13)])
 def test_negacyclic_matches_reference(rng, m, L, w):
+    """On the whole route (the (2, m, L) batch): the weights ride the
+    whole-row transform (pre_half / post_half); (16, 13, 13) is an
+    L % 4 != 0 row with odd half-bit exponents."""
     W = 16 * L
     x = rng.integers(-(1 << 17), 1 << 17, (2, m, L)).astype(np.int32)
     f = tneg.fft_negacyclic(T(x), w, W)

@@ -119,9 +119,9 @@ def test_whole_transform_dispatch_matches_reference_kernel(rng, monkeypatch, B, 
     calls = []
     orig = ttr.fused_transform
 
-    def spy(kind, x, w_, W_):
+    def spy(kind, x, w_, W_, pre_half=None, post_half=None):
         calls.append((kind, tuple(x.shape)))
-        return orig(kind, x, w_, W_)
+        return orig(kind, x, w_, W_, pre_half, post_half)
 
     monkeypatch.setattr(ttr, "fused_transform", spy)
     x = _rand(rng, (B, C, L))
