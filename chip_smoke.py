@@ -14,9 +14,17 @@
        stacked) and inverse transforms, normmod_div on (16384, 512) and
        normmod on one 2^18-digit row (the mulmod_int ring at N = 2^22,
        streamed), canonicalize on the 2.5 M-digit product;
+     normmod at the recursive pointwise's shapes (utils/transform_bench
+       measure_normmod, raw digits identical, ms beside bound and share):
+       the inner rings' normmod_div (short rows) and the folded outer
+       rings' normmod (block rows) of one chunk of the 1.2x10^9 and
+       1.5x10^9-bit default plans, (6528 x 256, 48), (6528, 5120), (5376 x
+       256, 64), (5376, 6144), the 1.5x10^9 norm tail (65536, 6144), and
+       the MPIR_FFT_NTT=0 chunks at 10^8 and 10^9 bits;
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
-       without a tail;
+       without a tail, and the 1.2x10^9-bit plan's (65536, 5120), w 5, with
+       its norm tail (lg_conv 16) on block rows;
      mfa_cols -- the column pass of the 10^7 x 7x10^6-bit plan (depth 12,
        w 1, trunc_mfa 8896): the stacked halves' (2 x 64, 128, 256)
        columns, forward full and fft_trunc1 at trunc2 11, then the inverse
@@ -348,7 +356,8 @@ def main() -> int:
         canonicalize_plain_torch, fused_butterfly_ladder, fused_canonicalize_plain,
         fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd, fused_sqrt2_top_inv,
         ladder_groups, ladder_plain, ladder_stages, mfa_col_fits, mfa_cols_plain,
-        mfa_cols_schedule, normmod_rows_plain, sqrt2_top_fwd_plain, sqrt2_top_inv_plain)
+        mfa_cols_schedule, normmod_route, normmod_rows_plain, sqrt2_top_fwd_plain,
+        sqrt2_top_inv_plain, NORMMOD_ROW_MAX, NORMMOD_SHORT_MAX)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
@@ -363,8 +372,9 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
-    from mpir_fft_tpu_torch.utils.transform_bench import (TWIDDLE_SHAPES, WHOLE_SHAPES,
-                                                          measure_twiddle, measure_whole)
+    from mpir_fft_tpu_torch.utils.transform_bench import (
+        NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_normmod, measure_twiddle,
+        measure_whole)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import INT8_OPS_PER_S, INT32_OPS_PER_S, bound
 
@@ -480,6 +490,19 @@ def main() -> int:
     print(f"normmod {tuple(xl.shape)} (long row, streamed): exact; {ms:.3f} ms "
           f"(plain {pms:.3f} ms)")
     del xl
+    # normmod at the recursive pointwise's shapes: short rows (the inner
+    # rings) and block rows (the outer rings, the even-w norm tail), each
+    # held against normmod_rows_plain and timed with its bound and share
+    assert (kernels.lib().mf_normmod_short_max(), kernels.lib().mf_normmod_row_max()) == \
+        (NORMMOD_SHORT_MAX, NORMMOD_ROW_MAX)
+    for shape in NORMMOD_SHAPES:
+        rec = measure_normmod(*shape, rand, 10)
+        add_row("normmod", "mpir_fft_tpu_torch/csrc/normmod.cu", "mpir_fft_tpu/ops/fused.py:503",
+                0, rec["ms"], rec["plain_ms"], rec["nbytes"], rec["ops"])
+        print(f"normmod {tuple(rec['shape'])} d={rec['d']} ({normmod_route(shape[1])} rows): "
+              f"exact; {rec['ms']:.3f} ms, bound {rec['bound_ms']:.3f} ({rec['share']:.0%}; "
+              f"plain {rec['plain_ms']:.3f} ms)")
+        torch.cuda.empty_cache()
 
     # exact carry of the product's digits
     N = out_len_digits(plan)
@@ -525,6 +548,22 @@ def main() -> int:
         print(f"sqrt2_top_inv {tuple(x.shape)} norm_div={nd}: raw digits identical: {same}; "
               f"{ms:.3f} ms (plain {pms:.3f} ms)")
     del x
+    # and its launch in the 1.2x10^9-bit plan (w 5, L 5120): the norm tail
+    # on block rows (csrc/normmod_row.cuh), raw digits identical
+    rplan = choose_params(REC5_BITS, REC5_BITS, sqrt2=True)
+    rW, rL, rC = rplan.W, rplan.W // DIGIT_BITS, rplan.conv_len
+    assert (rplan.w, rL, rC) == (5, 5120, 65536), rplan
+    x = rand((rC, rL), -(1 << 17), 1 << 17)
+    err, same = compare("sqrt2_top_inv 1.2e9", fused_sqrt2_top_inv(x, rplan.w, rW, rplan.lg_conv),
+                        sqrt2_top_inv_plain(x, rplan.w, rW, rplan.lg_conv), canonical=True)
+    ms = time_ms(lambda: fused_sqrt2_top_inv(x, rplan.w, rW, rplan.lg_conv), 10, 2)
+    pms = time_ms(lambda: sqrt2_top_inv_plain(x, rplan.w, rW, rplan.lg_conv), 1)
+    add_row("sqrt2_top_inv", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
+            "mpir_fft_tpu/ops/fused.py:783", err, ms, pms, 8 * x.numel(), 9 * x.numel())
+    print(f"sqrt2_top_inv {tuple(x.shape)} w={rplan.w} norm_div={rplan.lg_conv} (the 1.2x10^9 "
+          f"plan): raw digits identical; {ms:.3f} ms (plain {pms:.3f} ms)")
+    del x
+    torch.cuda.empty_cache()
 
     # the MFA column pass of the 10^7 x 7x10^6-bit plan: the stacked halves'
     # columns, forward full and fft_trunc1, then the inverse of each on its

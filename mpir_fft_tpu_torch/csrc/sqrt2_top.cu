@@ -14,8 +14,9 @@
 //   inv:  u = oR_j q^-j,  out[:, j] = post(sL_j + u),  out[:, h + j] =
 //         post(sL_j - u),  post = carry_pass, or with a norm shift s the
 //         canonicalization normmod(v * 2^s) (the drivers' divide by
-//         2^lg_conv + normalize tail, s = 2W - lg_conv) -- the row scan of
-//         csrc/normmod.cu (mf::normmod_row), so no second launch.
+//         2^lg_conv + normalize tail, s = 2W - lg_conv) -- the block-row
+//         body of csrc/normmod.cu (mf::normmod_row: 8 digits a thread, O(L)
+//         work), so no second launch.
 // Reading the halves by row index keeps the stacked operands' [2, C, L]
 // array whole: no copy of a non-contiguous half, and the two half
 // transforms then run as one transform over [N, 2, h, L].
@@ -29,6 +30,7 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kTailMaxThreads = 1024;   // the norm tail's block rows, L <= 8192
 
 __device__ __forceinline__ long long top_exp(long long j, long long w, int L, bool inverse) {
   const long long M4 = 64LL * L;  // 4W
@@ -58,11 +60,13 @@ sqrt2_top_fwd_kernel(const int* __restrict__ x, int* __restrict__ out, long long
   mf::twiddle_half_row(D, T1, T2, out + rb, top_exp(j, w, L, false), L);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// V 0: a carry pass only; V 4 / 1: the norm tail, a block row
+// (mf::normmod_row in csrc/normmod.cu's layout) with runs of V digits.
+template <int V>
+__global__ void __launch_bounds__(V == 0 ? kMaxThreads : kTailMaxThreads)
 sqrt2_top_inv_kernel(const int* __restrict__ x, int* __restrict__ out, long long h, int L,
-                     long long w, int tail, int kd, int b, int neg) {
+                     long long w, int s) {
   extern __shared__ int sm[];
-  __shared__ int first;
   int* S = sm;           // sL
   int* O = sm + L;       // oR, then scratch
   int* U = sm + 2 * L;   // u = oR q^-j
@@ -78,13 +82,13 @@ sqrt2_top_inv_kernel(const int* __restrict__ x, int* __restrict__ out, long long
   }
   __syncthreads();
   mf::twiddle_half_row(O, U, T2, U, top_exp(j, w, L, true), L);
-  if (tail) {
+  if constexpr (V > 0) {
     for (int i = threadIdx.x; i < L; i += blockDim.x) A[i] = S[i] + U[i];
     __syncthreads();
-    mf::normmod_row(A, O, T2, &first, L, kd, b, neg, out + ra);
+    mf::normmod_row<V, mf::kBlockDigits / V>(A, L, s, out + ra);
     for (int i = threadIdx.x; i < L; i += blockDim.x) A[i] = S[i] - U[i];
     __syncthreads();
-    mf::normmod_row(A, O, T2, &first, L, kd, b, neg, out + rb);
+    mf::normmod_row<V, mf::kBlockDigits / V>(A, L, s, out + rb);
   } else {
     for (int i = threadIdx.x; i < L; i += blockDim.x) {
       A[i] = S[i] + U[i];
@@ -96,6 +100,18 @@ sqrt2_top_inv_kernel(const int* __restrict__ x, int* __restrict__ out, long long
       out[rb + i] = mf::carry_digit(O, i, L);
     }
   }
+}
+
+template <int V>
+int launch_inv(const void* x, void* out, long long grid, long long h, int L, long long w, int s,
+               unsigned threads, cudaStream_t stream) {
+  const size_t smem = 5ull * L * sizeof(int);
+  const cudaError_t err =
+      mf::set_smem(reinterpret_cast<const void*>(sqrt2_top_inv_kernel<V>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sqrt2_top_inv_kernel<V><<<static_cast<unsigned>(grid), threads, smem, stream>>>(
+      static_cast<const int*>(x), static_cast<int*>(out), h, L, w, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 cudaError_t launch_check(long long N, long long h, int L, long long* grid) {
@@ -132,14 +148,14 @@ MF_EXPORT int mf_sqrt2_top_inv(const void* x, void* out, long long N, long long 
   const long long W = 16LL * L;
   if (s < -1 || s >= 2 * W) return static_cast<int>(cudaErrorInvalidValue);
   if (grid == 0) return 0;
-  const int tail = s >= 0;
-  const int neg = tail && s >= W;
-  const int r = tail ? static_cast<int>(neg ? s - W : s) : 0;
-  const size_t smem = 5ull * L * sizeof(int);
-  err = mf::set_smem(reinterpret_cast<const void*>(sqrt2_top_inv_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sqrt2_top_inv_kernel<<<static_cast<unsigned>(grid), mf::row_threads(L, kMaxThreads), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<int*>(out), h, L, w, tail, r >> 4, r & 15, neg);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned threads = mf::row_threads(L, kMaxThreads);
+  if (s < 0) return launch_inv<0>(x, out, grid, h, L, w, s, threads, st);
+  // the norm tail: at least the block rows' threads (csrc/normmod.cu's
+  // layout); its rows are read from shared memory and written to out
+  const unsigned bt = static_cast<unsigned>(mf::block_row_threads(L));
+  if (bt > kTailMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned tt = bt > threads ? bt : threads;
+  return mf::run_width(L, out, out) == 4 ? launch_inv<4>(x, out, grid, h, L, w, s, tt, st)
+                                         : launch_inv<1>(x, out, grid, h, L, w, s, tt, st);
 }

@@ -53,6 +53,10 @@ from .limb import (
 LADDER_MAX_STAGES = 4
 LADDER_BUF_BYTES = 64 * 1024
 
+# the normmod routes' limits (csrc/normmod.cu kShortMaxL, kRowMaxL)
+NORMMOD_SHORT_MAX = 512
+NORMMOD_ROW_MAX = 8192
+
 
 def ladder_stages(L: int) -> int:
     """Stages per ladder launch at digit width L: the largest k <=
@@ -288,11 +292,21 @@ def normmod_rows_plain(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     return _normmod_core(shift_mod(x, s, W))
 
 
+def normmod_route(L: int) -> str:
+    """The normmod kernel a row of L digits takes: "short" (several rows a
+    warp, L <= NORMMOD_SHORT_MAX), "block" (one CTA a row, L <=
+    NORMMOD_ROW_MAX) or "long" (streamed through scratch: the mulmod_int
+    rings).  The limits are csrc/normmod.cu's mf_normmod_short_max and
+    mf_normmod_row_max."""
+    return "short" if L <= NORMMOD_SHORT_MAX else "block" if L <= NORMMOD_ROW_MAX else "long"
+
+
 def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     """Canonical digits of x * 2^s mod p for every [..., L] row: the static
     shift, two carry passes, the exact carry scan and the fold of the
     carry-out with the -1 form, in one pass.  normmod_div(x, d) is s = 2W - d;
-    normmod is s = 0.  Rows too long for a block's shared memory (a
+    normmod is s = 0.  The route is normmod_route(L): short rows several to
+    a warp, block rows one CTA each, and rows too long for a block (a
     mulmod_int ring at N >= 2^18) stream through a scratch buffer."""
     _require(x, "normmod")
     L = x.shape[-1]
@@ -304,7 +318,7 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     B = x.numel() // L
     out = torch.empty_like(x)
     scratch = None
-    if L > kernels.lib().mf_normmod_row_max():    # long rows stream through scratch
+    if normmod_route(L) == "long":
         scratch = torch.empty((2, B, L), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_normmod(

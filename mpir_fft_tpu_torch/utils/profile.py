@@ -71,7 +71,8 @@ KERNEL_NAMES = (
     ("garner_post_kernel", "garner_post"),
     ("ladder_kernel", "ladder"), ("mfa_cols_kernel", "mfa_cols"),
     ("conv_base_kernel", "conv_base"),
-    ("normmod_kernel", "normmod"), ("canon_", "canonicalize"),
+    ("normmod_short_kernel", "normmod"), ("normmod_block_kernel", "normmod"),
+    ("normmod_long_kernel", "normmod"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
     ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
     ("ntt4_input_planes_kernel", "ntt4_input_planes"),

@@ -1,8 +1,9 @@
-"""The whole-row transform and the half-bit twiddle at the shapes the main
-path gives them, on the card: the per-shape measurement chip_smoke.py also
-runs (measure_whole, measure_twiddle), and a tool beside utils/profile.py.
+"""The whole-row transform, the half-bit twiddle, the normmod rows and the
+inverse sqrt2 top merge at the shapes the main path gives them, on the
+card: the per-shape measurement chip_smoke.py also runs (measure_whole,
+measure_twiddle, measure_normmod), and a tool beside utils/profile.py.
 
-    python -m mpir_fft_tpu_torch.utils.transform_bench [--reps R]
+    python -m mpir_fft_tpu_torch.utils.transform_bench [--reps R] [--only K]
 
 Whole-row transforms, (B, C, L, w) with B the rows of one launch:
   * (6528, 256, 48, 6) and (5376, 256, 64, 8): one pointwise chunk of the
@@ -18,6 +19,20 @@ transform launch where it does not).  Half-bit twiddles, (rows, L, h, e0,
 step): the same chunks' weights at L 48 / 64 (rows B*256, step w), the
 mulmod_int 2^29 ring's unweighting (32768, 4096, step -4), and the NTT=0
 10^8 weights, an odd step at L 256 and an L % 4 != 0 row.
+
+Normmod rows, (rows, L, d): normmod_div by 2^d (d 0: normmod) as the
+recursive pointwise launches it -- the inner rings after the inverse
+transform and the folded outer ring, per chunk of the default plans at
+1.2x10^9 ((6528 x 256, 48), d 8; (6528, 5120)) and 1.5x10^9 ((5376 x 256,
+64), d 8; (5376, 6144)), the 1.5x10^9 even-w norm tail (65536, 6144), and
+the MPIR_FFT_NTT=0 plans' chunks at 10^8 ((8192 x 256, 32), (8192, 3072))
+and 10^9 ((8192 x 128, 72), (8192, 4096)).
+
+Inverse sqrt2 top merges, (C, L, w, lg_conv): the 1.2x10^9 plan's (65536,
+5120), w 5, and the 10^9 plan's (131072, 2048), w 1, each with its norm
+tail; the 10^7 plan's (16384, 256) with a tail (14) and without (0).
+
+--only K runs one family: whole, twiddle, normmod or sqrt2.
 
 For each: raw digits held against the plain version (AssertionError where
 they differ), the kernel's device ms (CUDA events, median of R after a
@@ -42,6 +57,11 @@ from mpir_fft_tpu_torch.utils.profile import _events_ms, bound
 SEED = 20261016
 
 WHOLE_SHAPES = ((6528, 256, 48, 6), (5376, 256, 64, 8), (8192, 256, 32, 4), (65536, 128, 72, 18))
+NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (5376, 6144, 0),
+                  (65536, 6144, 16), (8192 * 256, 32, 8), (8192, 3072, 0),
+                  (8192 * 128, 72, 7), (8192, 4096, 0))
+SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
+                    (16384, 256, 1, 0))
 TWIDDLE_SHAPES = ((6528 * 256, 48, 256, 0, 6), (5376 * 256, 64, 256, 0, 8),
                   (32768, 4096, 32768, 0, -4), (8192 * 256, 32, 256, 0, 4),
                   (64 * 128, 256, 128, 3, 1), (64 * 64, 71, 64, 0, 5))
@@ -56,6 +76,14 @@ def _once_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _burst_ms(fn, reps: int, k: int = 10) -> float:
+    """Device ms of one fn() from k back-to-back calls between two CUDA
+    events (median of reps after a warm-up): the host's per-call work
+    overlaps the kernels, as on the main path, where the host runs ahead."""
+    fn()
+    return _events_ms(lambda: [fn() for _ in range(k)], reps) / k
 
 
 def _half_plain(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
@@ -116,9 +144,48 @@ def measure_twiddle(rows: int, L: int, h: int, e0: int, step: int, rand, reps: i
                         plain_ms=pms, nbytes=8 * x.numel(), ops=4 * x.numel()))
 
 
+def measure_normmod(rows: int, L: int, d: int, rand, reps: int) -> dict:
+    """fused_normmod_div of (rows, L) digits by 2^d, the ripple edge rows
+    among them: held against normmod_rows_plain (raw digits), then timed
+    in bursts (_burst_ms)."""
+    W = 16 * L
+    s = (2 * W - d) % (2 * W)
+    x = rand((rows, L), -(1 << 18), 1 << 18)
+    x[0] = 0xFFFF
+    x[1] = 0
+    x[1, 0] = -1
+    x[2] = 0
+    x[2, L - 1] = 1 << 16
+    got = fused.fused_normmod_div(x, s, W)
+    want, pms = _once_ms(lambda: fused.normmod_rows_plain(x, s, W))
+    assert torch.equal(got, want), ("normmod", (rows, L), d, "digits differ")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _burst_ms(lambda: fused.fused_normmod_div(x, s, W), reps)
+    return _record(dict(name="normmod", shape=[rows, L], d=d, ms=ms, plain_ms=pms,
+                        nbytes=8 * x.numel(), ops=3 * x.numel()))
+
+
+def measure_sqrt2_inv(C: int, L: int, w: int, nd: int, rand, reps: int) -> dict:
+    """fused_sqrt2_top_inv of (C, L) digits at root w with norm_div nd (0:
+    no norm tail): held against sqrt2_top_inv_plain (raw digits), then
+    timed in bursts (_burst_ms)."""
+    W = 16 * L
+    x = rand((C, L), -(1 << 17), 1 << 17)
+    got = fused.fused_sqrt2_top_inv(x, w, W, nd)
+    want, pms = _once_ms(lambda: fused.sqrt2_top_inv_plain(x, w, W, nd))
+    assert torch.equal(got, want), ("sqrt2_top_inv", (C, L), nd, "digits differ")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _burst_ms(lambda: fused.fused_sqrt2_top_inv(x, w, W, nd), reps)
+    return _record(dict(name="sqrt2_top_inv", shape=[C, L], w=w, norm_div=nd, ms=ms,
+                        plain_ms=pms, nbytes=8 * x.numel(), ops=9 * x.numel()))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("transform_bench needs a CUDA device")
@@ -129,13 +196,23 @@ def main(argv=None) -> None:
     def rand(shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
 
-    for shape in WHOLE_SHAPES:
-        for rec in measure_whole(*shape, rand, args.reps):
-            print(json.dumps(rec), flush=True)
-        torch.cuda.empty_cache()
-    for shape in TWIDDLE_SHAPES:
-        print(json.dumps(measure_twiddle(*shape, rand, args.reps)), flush=True)
-        torch.cuda.empty_cache()
+    if args.only in (None, "whole"):
+        for shape in WHOLE_SHAPES:
+            for rec in measure_whole(*shape, rand, args.reps):
+                print(json.dumps(rec), flush=True)
+            torch.cuda.empty_cache()
+    if args.only in (None, "twiddle"):
+        for shape in TWIDDLE_SHAPES:
+            print(json.dumps(measure_twiddle(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
+    if args.only in (None, "normmod"):
+        for shape in NORMMOD_SHAPES:
+            print(json.dumps(measure_normmod(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
+    if args.only in (None, "sqrt2"):
+        for shape in SQRT2_INV_SHAPES:
+            print(json.dumps(measure_sqrt2_inv(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

@@ -32,6 +32,9 @@ from mpir_fft_tpu_torch.ops.fused import (
     ladder_stages,
     mfa_col_fits,
     mfa_cols_plain,
+    NORMMOD_ROW_MAX,
+    NORMMOD_SHORT_MAX,
+    normmod_route,
     normmod_rows_plain,
     sqrt2_top_fwd_plain,
     sqrt2_top_inv_plain,
@@ -150,25 +153,78 @@ def test_conv_base_matches_plain(dev, B, L):
     assert torch.equal(_canon(got), _canon(want))
 
 
-@pytest.mark.parametrize("L", [1, 16, 71, 512, 2048, 8193, 20000])
-def test_normmod_matches_plain(dev, L):
-    """L > 8192: the streaming long-row kernel."""
+def _normmod_inputs(rng, B, L):
+    """B random rows with the ripple edge rows spread over the batch (the
+    last one in the last row); for B < 4 each edge row also alone."""
+    x = rng.integers(-(1 << 29), 1 << 29, (B, L)).astype(np.int32)
+    e = np.zeros((4, L), np.int32)
+    e[0] = 0xFFFF               # +1 ripple through every digit -> -1 form
+    e[2, 0] = -1                # the -1 form itself
+    e[3, -1] = 1 << 16          # carry out of the top digit
+    if B < 4:
+        return [x] + [e[k:k + 1] for k in range(4)]
+    x[[0, B // 3, 2 * B // 3, B - 1]] = e
+    return [x]
+
+
+@pytest.mark.parametrize("L,B", [
+    (L, B) for L in (1, 16, 32, 48, 64, 71, 72, 128, 256, 512, 2048, 2049, 3072, 5120, 6144,
+                      8192)
+    for B in (1, 7, 1003)] + [(8193, 8), (20000, 8)])
+def test_normmod_matches_plain(dev, L, B):
+    """Every route (ops/fused.normmod_route): short rows up to 512 digits
+    (several a warp), block rows up to 8192 (one CTA each), L > 8192 the
+    streaming long-row kernel; batches that no rows-per-CTA count divides;
+    odd L (one-digit runs)."""
     rng = np.random.default_rng(3)
     W = 16 * L
-    x = rng.integers(-(1 << 29), 1 << 29, (8, L)).astype(np.int32)
-    x[0] = 0xFFFF
-    x[1] = 0
-    x[2] = 0
-    x[2, 0] = -1
-    x[3] = 0
-    x[3, -1] = 1 << 16
-    xt = torch.from_numpy(x)
-    for s in sorted({0, 1, 15, 16, 17, W - 1, W, W + 5, 2 * W - 14, 2 * W - 1}):
-        if not 0 <= s < 2 * W:
-            continue
-        got = fused_normmod_div(xt.to(dev), s, W)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), normmod_rows_plain(xt, s, W)), s
+    for x in _normmod_inputs(rng, B, L):
+        xt = torch.from_numpy(x)
+        xd = xt.to(dev)
+        for s in sorted({0, 1, 15, 16, 17, W - 1, W, W + 5, 2 * W - 14, 2 * W - 1}):
+            if not 0 <= s < 2 * W:
+                continue
+            got = _launched("normmod", lambda: fused_normmod_div(xd, s, W))
+            assert torch.equal(got.cpu(), normmod_rows_plain(xt, s, W)), (s, normmod_route(L))
+
+
+@pytest.mark.parametrize("L", [48, 5120])
+def test_normmod_unaligned_rows_match_plain(dev, L):
+    """Rows that are not 16-byte aligned take one-digit runs (V 1) on the
+    short and the block route: digits identical to the plain version."""
+    rng = np.random.default_rng(8)
+    W = 16 * L
+    flat = _rand(rng, (7 * L + 1,), -(1 << 29), 1 << 29, dev)
+    x = flat[1:].view(7, L)
+    assert x.data_ptr() % 16
+    for s in (0, 5, W + 17):
+        got = _launched("normmod", lambda: fused_normmod_div(x, s, W))
+        assert torch.equal(got.cpu(), normmod_rows_plain(x.cpu(), s, W)), s
+
+
+def test_normmod_every_width_matches_plain(dev):
+    """Every L of the short and the block route, 16-byte aligned and not:
+    each layout csrc/normmod.cu chooses from L and the alignment (runs of 4
+    or 1 digits, the lanes or warps a row takes) launches and gives the
+    plain version's digits, a +1 ripple through every digit among them."""
+    rng = np.random.default_rng(9)
+    for L in range(1, NORMMOD_ROW_MAX + 1):
+        W = 16 * L
+        s = 37 * L % (2 * W)
+        x = _rand(rng, (3, L), -(1 << 29), 1 << 29, dev)
+        x[1] = 0xFFFF
+        flat = torch.empty(3 * L + 1, dtype=torch.int32, device=dev)
+        flat[1:] = x.reshape(-1)
+        want = normmod_rows_plain(x, s, W)
+        for xs in (x, flat[1:].view(3, L)):
+            got = _launched("normmod", lambda: fused_normmod_div(xs, s, W))
+            assert torch.equal(got, want), (L, xs.data_ptr() % 16)
+
+
+def test_normmod_routes_match_kernel_limits(dev):
+    """The host predicate's limits are the kernel library's."""
+    assert kernels.lib().mf_normmod_short_max() == NORMMOD_SHORT_MAX
+    assert kernels.lib().mf_normmod_row_max() == NORMMOD_ROW_MAX
 
 
 @pytest.mark.parametrize("Bt,N", [(1, 1), (1, 2049), (3, 5000), (2, 1 << 16)])
@@ -214,8 +270,12 @@ def test_twiddle_half_matches_plain(dev, B, h, L, e0, step):
     assert int(got.abs().max()) < 1 << 18
 
 
-@pytest.mark.parametrize("N,h,L,w", [(2, 4, 16, 1), (1, 8, 71, 3), (3, 2, 64, 157), (2, 16, 256, 1)])
+@pytest.mark.parametrize("N,h,L,w", [(2, 4, 16, 1), (1, 8, 71, 3), (3, 2, 64, 157), (2, 16, 256, 1),
+                                     (1, 2, 2071, 3), (1, 4, 5120, 5)])
 def test_sqrt2_top_matches_plain(dev, N, h, L, w):
+    """L 5120, w 5: the 1.2x10^9-bit plan's rows; the norm tail (nd 5) is
+    csrc/normmod.cu's block-row body, raw digits identical (L 2071: odd,
+    one-digit runs, nine and more a thread)."""
     rng = np.random.default_rng(6)
     W = 16 * L
     x = _rand(rng, (N, 2 * h, L), -(1 << 17), 1 << 17, dev)
