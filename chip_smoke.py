@@ -53,9 +53,13 @@
        rows; the post leg K 16 / 8) against the plain Garner then
        ifft_innermost_body, raw digits identical, with its bound
        (utils/ladder_bench.measure_post);
-     conv_base -- under MPIR_FFT_NTT=0, the pointwise of the 3,162,277-bit
-       (8192, 128) and 2x10^7-bit (16384, 512) plans and the 10^8-bit
-       plan's inner rings (2097152, 32);
+     conv_base -- the 1.2x10^9-bit default plan's chunk of inner rings
+       (6528 x 256, 48), and under MPIR_FFT_NTT=0 the inner rings of the
+       10^8 and 10^9-bit plans (8192 x 256, 32), (8192 x 128, 72) and the
+       pointwise of the 3,162,277-bit (8192, 128) and 2x10^7-bit (16384,
+       512) plans: equal to conv_base_plain after normmod, digits inside
+       (-2^6, 2^16 + 2^6), with a float64 grouped conv1d of the same rows
+       as the library yardstick (utils/transform_bench.measure_conv_base);
      transform_small and transform_small_half (the weighted negacyclic
        transforms), forward and inverse, raw digits identical -- one
        pointwise chunk of the 1.2x10^9 and 1.5x10^9-bit default plans,
@@ -82,7 +86,8 @@
    digit for digit) and inside their bounds.  Each kernel's bound_ms is the
    least time the card could take for the same work: the larger of its
    bytes (inputs read once, outputs written once) over 3.35 TB/s and its
-   operations over the INT32 rate (the int8 tensor-core rate for the GEMM).
+   operations over the INT32 rate (the int8 tensor-core rate for the GEMM,
+   the FP64 FMA rate for conv_base's L^2 FMAs a row).
 4. Drives the main path, the launch counters reset before each size and
    read after it; every kernel the path should reach must have launched,
    and at the power-of-two plans conv_base must not have:
@@ -368,15 +373,14 @@ def main() -> int:
         ntt4_inv_twiddle_plain, ntt4_pointwise, ntt4_pointwise_plain, ntt4_residues,
         ntt4_residues_plain)
     from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
-    from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
-    from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
     from mpir_fft_tpu_torch.utils.transform_bench import (
-        NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_normmod, measure_twiddle,
-        measure_whole)
+        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_conv_base,
+        measure_normmod, measure_twiddle, measure_whole)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
-    from mpir_fft_tpu_torch.utils.profile import INT8_OPS_PER_S, INT32_OPS_PER_S, bound
+    from mpir_fft_tpu_torch.utils.profile import (FP64_FMA_PER_S, INT8_OPS_PER_S,
+                                                  INT32_OPS_PER_S, bound)
 
     dev = torch.device("cuda", 0)
 
@@ -803,6 +807,7 @@ def main() -> int:
         mplan = mulmod_plan(rplan.W)
         hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
         hmp = mulmod_plan(hplan.W)
+        hchunk = _pw_chunk_rows(hplan)
         assert choose_params(PLAN_BITS, PLAN_BITS, sqrt2=True) == plan
     sL = splan.W // DIGIT_BITS
     print(f"MPIR_FFT_NTT=0 plans: 3,162,277 {splan} L={sL}; 10^8 {rplan} "
@@ -811,18 +816,26 @@ def main() -> int:
     assert (splan.depth, splan.w, sL, splan.conv_len) == (11, 1, 128, 8192), splan
     assert (rplan.W // DIGIT_BITS, mplan.m, mplan.Lp, mplan.wp) == (3072, 256, 32, 4)
     assert (hplan.depth, hplan.w, hplan.W // DIGIT_BITS, hmp.m, hmp.Lp) == (14, 4, 4096, 128, 72)
-    for shape in ((splan.conv_len, sL), (C, L), (rplan.conv_len * mplan.m, mplan.Lp)):
-        a = rand(shape, -(1 << 17), 1 << 17)
-        b = rand(shape, -(1 << 17), 1 << 17)
-        cL = shape[1]
-        err, _ = compare("conv_base", mulmod_base_fused(a, b), conv_base_plain(a, b))
-        ms = time_ms(lambda: mulmod_base_fused(a, b), 10, 2)
-        pms = time_ms(lambda: conv_base_plain(a, b), 2)
+    # the schoolbook at the 1.2x10^9 default plan's chunk of inner rings
+    # (the main path) and at those MPIR_FFT_NTT=0 shapes (utils/transform_bench
+    # measure_conv_base: equal after normmod, digits inside (-2^6, 2^16 +
+    # 2^6), a float64 grouped conv1d beside it as the library yardstick)
+    bplan = choose_params(REC5_BITS, REC5_BITS, sqrt2=True)
+    bmp = inner_plan(bplan.W)
+    assert CONV_SHAPES == ((_pw_chunk_rows(bplan) * bmp.m, bmp.Lp),
+                           (rplan.conv_len * mplan.m, mplan.Lp), (hchunk * hmp.m, hmp.Lp),
+                           (splan.conv_len, sL), (C, L)), CONV_SHAPES
+    for shape in CONV_SHAPES:
+        r = measure_conv_base(*shape, rand, 10)
+        assert -(1 << 6) < r["out_min"] and r["out_max"] < (1 << 16) + (1 << 6), r
         add_row("conv_base", "mpir_fft_tpu_torch/csrc/conv_base.cu",
-                "mpir_fft_tpu/ops/pointwise_fused.py:77", err, ms, pms, 12 * a.numel(),
-                4 * cL * cL * shape[0])
-        print(f"conv_base {shape}: equal after normmod; {ms:.3f} ms (plain {pms:.3f} ms)")
-        del a, b
+                "mpir_fft_tpu/ops/pointwise_fused.py:77", 0, r["ms"], r["plain_ms"], r["nbytes"],
+                r["ops"], library_ms=r["library_ms"], ops_per_s=FP64_FMA_PER_S)
+        print(f"conv_base {shape}: equal after normmod, digits in [{r['out_min']}, "
+              f"{r['out_max']}]; {r['ms']:.3f} ms, {r['bound_by']} bound {r['bound_ms']:.3f} ms "
+              f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms, float64 conv1d "
+              f"{r['library_ms']:.3f} ms")
+        torch.cuda.empty_cache()
     # the whole-row transform, plain and weighted, at one pointwise chunk of
     # the default plans at 1.2 and 1.5x10^9 bits and at the MPIR_FFT_NTT=0
     # inner batches of 10^8 and 10^9; the standalone twiddle at the same row

@@ -175,7 +175,8 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     so.mf_error_string.argtypes = [ctypes.c_int]
     so.mf_error_string.restype = ctypes.c_char_p
-    for fn in (so.mf_canonicalize_tile, so.mf_normmod_short_max, so.mf_normmod_row_max):
+    for fn in (so.mf_canonicalize_tile, so.mf_normmod_short_max, so.mf_normmod_row_max,
+               so.mf_conv_base_short_max):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     return so

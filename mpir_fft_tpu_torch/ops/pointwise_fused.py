@@ -1,14 +1,16 @@
 """Wrapper of the schoolbook pointwise kernel (counterpart of
 mpir_fft_tpu/ops/pointwise_fused.py; kernel: csrc/conv_base.cu).
 
-The kernel forms the product from separated lo/hi byte planes:
+The kernel accumulates the negacyclic digit convolution
 
-    a = alo + 2^8 ahi,  b = blo + 2^8 bhi   (per base-2^16 digit position)
-    c = conv(alo,blo) + 2^8 (conv(alo,bhi)+conv(ahi,blo)) + 2^16 conv(ahi,bhi)
+    c_j = sum_i a_i b_(j-i)     (a wrapped term negated: 2^(16L) == -1)
 
-negacyclic over digit positions (2^(16L) == -1), then one carry pass.  With
-redundant inputs |digit| <= ~2^17 every accumulator stays below ~2^29 for
-L <= 2048 -- exact in int32."""
+in fp64, one fused multiply-add a digit product, exact while L max|a|
+max|b| < 2^53 (with redundant inputs |digit| <= ~2^17, below 2^45 for
+L <= 2048); then it splits each c_j into 16-bit pieces and recombines them
+with one carry pass into digits in (-2^6, 2^16 + 2^6).  Short rows (L up
+to the library's mf_conv_base_short_max()) run several to a warp, longer
+ones a CTA each; the C side picks the layout from L."""
 
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ def mulmod_base_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"vs {tuple(b.shape)} on {b.device}")
     B, L = a.shape
     if 2 * L > SCHOOLBOOK_MAX_CHUNKS:
-        raise ValueError(f"conv_base: L={L} exceeds the int32 accumulation bound")
+        raise ValueError(f"conv_base: L={L} is past the schoolbook's rings "
+                         f"(2L <= {SCHOOLBOOK_MAX_CHUNKS}, pointwise.base_serves)")
     if a.device.type == "cpu":
         return conv_base_plain(a, b)
     out = torch.empty_like(a)

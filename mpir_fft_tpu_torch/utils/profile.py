@@ -53,6 +53,8 @@ SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 INT8_OPS_PER_S = 1979e12
+# 64 FP64 lanes per SM: the same 16.7 x 10^12 fused multiply-adds per second
+FP64_FMA_PER_S = 64 * 132 * 1.98e9
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
@@ -70,7 +72,7 @@ KERNEL_NAMES = (
     # "ladder"; the Garner kernels' post form runs its own kernel
     ("garner_post_kernel", "garner_post"),
     ("ladder_kernel", "ladder"), ("mfa_cols_kernel", "mfa_cols"),
-    ("conv_base_kernel", "conv_base"),
+    ("conv_short_kernel", "conv_base"), ("conv_block_kernel", "conv_base"),
     ("normmod_short_kernel", "normmod"), ("normmod_block_kernel", "normmod"),
     ("normmod_long_kernel", "normmod"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),

@@ -1,7 +1,8 @@
-"""The whole-row transform, the half-bit twiddle, the normmod rows and the
-inverse sqrt2 top merge at the shapes the main path gives them, on the
-card: the per-shape measurement chip_smoke.py also runs (measure_whole,
-measure_twiddle, measure_normmod), and a tool beside utils/profile.py.
+"""The whole-row transform, the half-bit twiddle, the normmod rows, the
+inverse sqrt2 top merge and the schoolbook at the shapes the main path
+gives them, on the card: the per-shape measurement chip_smoke.py also runs
+(measure_whole, measure_twiddle, measure_normmod, measure_conv_base), and
+a tool beside utils/profile.py.
 
     python -m mpir_fft_tpu_torch.utils.transform_bench [--reps R] [--only K]
 
@@ -32,7 +33,18 @@ Inverse sqrt2 top merges, (C, L, w, lg_conv): the 1.2x10^9 plan's (65536,
 5120), w 5, and the 10^9 plan's (131072, 2048), w 1, each with its norm
 tail; the 10^7 plan's (16384, 256) with a tail (14) and without (0).
 
---only K runs one family: whole, twiddle, normmod or sqrt2.
+The schoolbook (mulmod_base_fused), (rows, L): the 1.2x10^9 default plan's
+chunk of inner rings (6528 x 256, 48), and under MPIR_FFT_NTT=0 the inner
+rings at 10^8 ((8192 x 256, 32)) and 10^9 ((8192 x 128, 72)) and the
+outer rings of the 3,162,277 and 2x10^7-bit plans ((8192, 128), (16384,
+512)).  Its output is held against conv_base_plain after normmod (raw
+digits differ: the plain version carries chunk by chunk) and its digit
+range recorded; its bound counts L^2 FMAs a row at the FP64 rate beside 12
+bytes a digit; library_ms is a float64 grouped torch conv1d of the same
+rows (the convolution without the recombination), a yardstick the port
+never calls.
+
+--only K runs one family: whole, twiddle, normmod, sqrt2 or conv.
 
 For each: raw digits held against the plain version (AssertionError where
 they differ), the kernel's device ms (CUDA events, median of R after a
@@ -52,7 +64,9 @@ import torch
 
 from mpir_fft_tpu_torch import kernels
 from mpir_fft_tpu_torch.ops import fused, negacyclic
-from mpir_fft_tpu_torch.utils.profile import _events_ms, bound
+from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, negacyclic_conv_chunks
+from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
+from mpir_fft_tpu_torch.utils.profile import FP64_FMA_PER_S, INT32_OPS_PER_S, _events_ms, bound
 
 SEED = 20261016
 
@@ -62,6 +76,7 @@ NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (53
                   (8192 * 128, 72, 7), (8192, 4096, 0))
 SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
                     (16384, 256, 1, 0))
+CONV_SHAPES = ((6528 * 256, 48), (8192 * 256, 32), (8192 * 128, 72), (8192, 128), (16384, 512))
 TWIDDLE_SHAPES = ((6528 * 256, 48, 256, 0, 6), (5376 * 256, 64, 256, 0, 8),
                   (32768, 4096, 32768, 0, -4), (8192 * 256, 32, 256, 0, 4),
                   (64 * 128, 256, 128, 3, 1), (64 * 64, 71, 64, 0, 5))
@@ -93,8 +108,8 @@ def _half_plain(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
         x.reshape(-1, L), fused._affine_half_exps(j, e0, step, W), W).reshape(x.shape)
 
 
-def _record(rec: dict) -> dict:
-    b, by = bound(rec["nbytes"], rec["ops"])
+def _record(rec: dict, ops_per_s: float = INT32_OPS_PER_S) -> dict:
+    b, by = bound(rec["nbytes"], rec["ops"], ops_per_s)
     return dict(rec, bound_ms=b, bound_by=by, share=b / rec["ms"])
 
 
@@ -182,10 +197,44 @@ def measure_sqrt2_inv(C: int, L: int, w: int, nd: int, rand, reps: int) -> dict:
                         plain_ms=pms, nbytes=8 * x.numel(), ops=9 * x.numel()))
 
 
+def _conv1d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The negacyclic convolutions of the rows of a and b as one float64
+    grouped conv1d (a row a group): [-b, b] correlated with a reversed."""
+    x = torch.cat([-b, b], dim=-1).double()[None]
+    y = torch.nn.functional.conv1d(x, a.double().flip(-1)[:, None], groups=a.shape[0])
+    return y[0, :, 1:]
+
+
+def measure_conv_base(rows: int, L: int, rand, reps: int) -> dict:
+    """mulmod_base_fused on (rows, L) digits: held against conv_base_plain
+    after normmod, its digit range recorded, then timed in bursts
+    (_burst_ms); the float64 grouped conv1d of the same rows beside it as
+    library_ms (checked on the first rows against the exact convolution)."""
+    a = rand((rows, L), -(1 << 17), 1 << 17)
+    b = rand((rows, L), -(1 << 17), 1 << 17)
+    got = mulmod_base_fused(a, b)
+    want, pms = _once_ms(lambda: conv_base_plain(a, b))
+    W = 16 * L
+    assert torch.equal(fused.normmod_rows_plain(got, 0, W), fused.normmod_rows_plain(want, 0, W)), \
+        ("conv_base", (rows, L), "differs from the plain version after normmod")
+    lo, hi = int(got.min()), int(got.max())
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _burst_ms(lambda: mulmod_base_fused(a, b), reps)
+    k = min(rows, 64)
+    exact = negacyclic_conv_chunks(a[:k].long(), b[:k].long())
+    assert torch.equal(_conv1d(a[:k], b[:k]).long(), exact), ("conv1d", (rows, L))
+    lib_ms = _burst_ms(lambda: _conv1d(a, b), 3, 1)
+    torch.cuda.empty_cache()
+    return _record(dict(name="conv_base", shape=[rows, L], ms=ms, plain_ms=pms, library_ms=lib_ms,
+                        out_min=lo, out_max=hi, nbytes=12 * rows * L, ops=rows * L * L),
+                   ops_per_s=FP64_FMA_PER_S)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2"))
+    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2", "conv"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("transform_bench needs a CUDA device")
@@ -213,6 +262,9 @@ def main(argv=None) -> None:
         for shape in SQRT2_INV_SHAPES:
             print(json.dumps(measure_sqrt2_inv(*shape, rand, args.reps)), flush=True)
             torch.cuda.empty_cache()
+    if args.only in (None, "conv"):
+        for shape in CONV_SHAPES:
+            print(json.dumps(measure_conv_base(*shape, rand, args.reps)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

@@ -142,15 +142,66 @@ def test_ladder_unaligned_rows_match_plain(dev, kind):
     assert torch.equal(got.cpu(), ladder_plain(kind, x.cpu(), steps, W))
 
 
-@pytest.mark.parametrize("B,L", [(5, 1), (7, 16), (3, 71), (4, 126), (9, 512), (2, 2048)])
+CONV_LO, CONV_HI = -(1 << 6), (1 << 16) + (1 << 6)   # conv_base's output bound (exclusive)
+
+
+def _conv_check(a, b):
+    """mulmod_base_fused on the card against conv_base_plain: equal after
+    normmod, digits inside the kernel's bound."""
+    got = _launched("conv_base", lambda: mulmod_base_fused(a, b))
+    want = conv_base_plain(a.cpu(), b.cpu())
+    assert torch.equal(_canon(got), _canon(want)), tuple(a.shape)
+    assert CONV_LO < int(got.min()) and int(got.max()) < CONV_HI, tuple(a.shape)
+
+
+# L 32 / 48 / 72: the inner rings of the main path's plans; row counts of 1,
+# 7 and 1003, which no rows-per-CTA count divides; L 128-1024 the
+# MPIR_FFT_NTT=0 plans' outer rings, 2047 / 2048 the widest block rows
+@pytest.mark.parametrize("B,L", [(5, 1), (7, 16), (3, 71), (4, 126), (9, 512), (2, 2048)] + [
+    (B, L) for L in (32, 48, 72) for B in (1, 7, 1003)] + [
+    (33, 128), (17, 256), (7, 512), (5, 1024), (3, 2047)])
 def test_conv_base_matches_plain(dev, B, L):
     rng = np.random.default_rng(2)
-    a = _rand(rng, (B, L), -(1 << 17), 1 << 17, dev)
-    b = _rand(rng, (B, L), -(1 << 17), 1 << 17, dev)
-    got = mulmod_base_fused(a, b)
-    torch.cuda.synchronize()
-    want = conv_base_plain(a.cpu(), b.cpu())
-    assert torch.equal(_canon(got), _canon(want))
+    _conv_check(_rand(rng, (B, L), -(1 << 17), 1 << 17, dev),
+                _rand(rng, (B, L), -(1 << 17), 1 << 17, dev))
+
+
+def test_conv_base_every_short_width_matches_plain(dev):
+    """Every L 1..130, rows 16-byte aligned and not (int4 or one-digit
+    runs), and the short / block boundary on both sides: each layout the C
+    side picks from L (the outputs a lane owns, the lanes a row, padded
+    steps) gives the plain version's values."""
+    rng = np.random.default_rng(10)
+    short_max = kernels.lib().mf_conv_base_short_max()
+    for L in list(range(1, 131)) + [short_max - 1, short_max, short_max + 1, short_max + 8]:
+        a = _rand(rng, (3, L), -(1 << 17), 1 << 17, dev)
+        b = _rand(rng, (3, L), -(1 << 17), 1 << 17, dev)
+        _conv_check(a, b)
+        fa = torch.empty(3 * L + 1, dtype=torch.int32, device=dev)
+        fb = torch.empty(3 * L + 1, dtype=torch.int32, device=dev)
+        fa[1:] = a.reshape(-1)
+        fb[1:] = b.reshape(-1)
+        _conv_check(fa[1:].view(3, L), fb[1:].view(3, L))
+
+
+@pytest.mark.parametrize("L", [48, 2048])
+def test_conv_base_extreme_rows_match_oracle(dev, L):
+    """Rows at the extreme magnitudes (all +2^17, all -2^17, alternating
+    signs, the -1 form), every pair, against Python's product mod
+    2^(16L)+1: the fp64 sums reach L 2^34."""
+    e = 1 << 17
+    alt = np.where(np.arange(L) % 2 == 0, e, -e)
+    minus_one = np.zeros(L, np.int64)
+    minus_one[0] = -1
+    x = np.stack([np.full(L, e), np.full(L, -e), alt, -alt, minus_one]).astype(np.int32)
+    a, b = np.repeat(x, len(x), axis=0), np.tile(x, (len(x), 1))
+    got = _launched("conv_base", lambda: mulmod_base_fused(
+        torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))).cpu()
+    assert CONV_LO < int(got.min()) and int(got.max()) < CONV_HI
+    p = (1 << (16 * L)) + 1
+    for r in range(len(a)):
+        assert int_from_digits(got[r].numpy()) % p == \
+            int_from_digits(a[r]) * int_from_digits(b[r]) % p, r
 
 
 def _normmod_inputs(rng, B, L):
