@@ -13,7 +13,11 @@
        L 512, conv 16384): every ladder group of the forward (operands
        stacked) and inverse transforms, normmod_div on (16384, 512) and
        normmod on one 2^18-digit row (the mulmod_int ring at N = 2^22,
-       streamed), canonicalize on the 2.5 M-digit product;
+       streamed), canonicalize on the 2.5 M-digit product (chained
+       route), random and all one ripple, and on the recursive pointwise's
+       chunk combines (6528, 5169) and (5376, 6209) at 1.2 and 1.5x10^9
+       bits (row route, a ripple row among them; utils/transform_bench
+       measure_canon, ms beside bound and share);
      normmod at the recursive pointwise's shapes (utils/transform_bench
        measure_normmod, raw digits identical, ms beside bound and share):
        the inner rings' normmod_div (short rows) and the folded outer
@@ -358,11 +362,10 @@ def main() -> int:
         DRIVERS, _pw_chunk_rows, _staged_flagship, flagship_is_staged, mpn_mul_flagship,
         mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
-        canonicalize_plain_torch, fused_butterfly_ladder, fused_canonicalize_plain,
-        fused_mfa_cols, fused_normmod_div, fused_sqrt2_top_fwd, fused_sqrt2_top_inv,
-        ladder_groups, ladder_plain, ladder_stages, mfa_col_fits, mfa_cols_plain,
-        mfa_cols_schedule, normmod_route, normmod_rows_plain, sqrt2_top_fwd_plain,
-        sqrt2_top_inv_plain, NORMMOD_ROW_MAX, NORMMOD_SHORT_MAX)
+        CANON_ROW_MAX, CANON_TILE, fused_butterfly_ladder, fused_mfa_cols, fused_normmod_div,
+        fused_sqrt2_top_fwd, fused_sqrt2_top_inv, ladder_groups, ladder_plain, ladder_stages,
+        mfa_col_fits, mfa_cols_plain, mfa_cols_schedule, normmod_route, normmod_rows_plain,
+        sqrt2_top_fwd_plain, sqrt2_top_inv_plain, NORMMOD_ROW_MAX, NORMMOD_SHORT_MAX)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
@@ -376,8 +379,8 @@ def main() -> int:
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
     from mpir_fft_tpu_torch.utils.transform_bench import (
-        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_conv_base,
-        measure_normmod, measure_twiddle, measure_whole)
+        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_canon,
+        measure_conv_base, measure_normmod, measure_twiddle, measure_whole)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import (FP64_FMA_PER_S, INT8_OPS_PER_S,
                                                   INT32_OPS_PER_S, bound)
@@ -508,23 +511,24 @@ def main() -> int:
               f"plain {rec['plain_ms']:.3f} ms)")
         torch.cuda.empty_cache()
 
-    # exact carry of the product's digits
+    # exact carry: the recursive pointwise's chunk combines at 1.2 and
+    # 1.5x10^9 bits (row route, a ripple row among them) and the product row
+    # of this plan, random and all one ripple (chained route)
+    assert (kernels.lib().mf_canonicalize_row_max(), kernels.lib().mf_canonicalize_tile()) == \
+        (CANON_ROW_MAX, CANON_TILE)
     N = out_len_digits(plan)
-    v = rand((N,), 0, 1 << 20)
-    v[-2:] = 0
-    ripple = torch.full((N,), 0xFFFF, dtype=torch.int32, device=dev)
-    ripple[0] = 0x1FFFF
-    ripple[-2:] = 0
-    for vec in (v, ripple):
-        compare("canonicalize", fused_canonicalize_plain(vec), canonicalize_plain_torch(vec),
-                canonical=True)
-    ms = time_ms(lambda: fused_canonicalize_plain(v), 10, 2)
-    pms = time_ms(lambda: canonicalize_plain_torch(v), 3)
-    add_row("canonicalize", "mpir_fft_tpu_torch/csrc/canonicalize.cu",
-            "mpir_fft_tpu/ops/fused.py:574", 0, ms, pms, 8 * N, 3 * N)
-    print(f"canonicalize ({N},): exact (random + full-length ripple); "
-          f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    del x, v, ripple
+    for shape in ((6528, 5169, "random", 0), (5376, 6209, "random", 0), (1, N, "random", 0),
+                  (1, N, "ripple", 0)):
+        rec = measure_canon(*shape, rand, 10)
+        add_row("canonicalize", "mpir_fft_tpu_torch/csrc/canonicalize.cu",
+                "mpir_fft_tpu/ops/fused.py:574", 0, rec["ms"], rec["plain_ms"], rec["nbytes"],
+                rec["ops"])
+        route = "row" if shape[1] <= CANON_ROW_MAX else "chained"
+        print(f"canonicalize {tuple(rec['shape'])} {rec['fill']} ({route} route): exact; "
+              f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ({rec['share']:.0%}; "
+              f"plain {rec['plain_ms']:.3f} ms)")
+        torch.cuda.empty_cache()
+    del x
 
     # sqrt2 top pair at the 10^7-bit plan (odd w)
     oplan = choose_params(ODD_BITS, ODD_BITS, sqrt2=True)

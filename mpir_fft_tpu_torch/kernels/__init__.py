@@ -132,8 +132,9 @@ _SIGNATURES = {
     # x, out, scratch (2*B*L ints for L > mf_normmod_row_max(), else null),
     # B, L, s (shift exponent in [0, 2W)), stream
     "mf_normmod": (_P, _P, _P, _LL, _I, _I, _P),
-    # x, out, y, t, g, p, rc, Bt, N, R, stream
-    "mf_canonicalize": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    # x, out, scratch (mf_canonicalize_scratch(Bt, N) ints, or null where
+    # that is 0), its ints, Bt, N, stream
+    "mf_canonicalize": (_P, _P, _P, _LL, _LL, _LL, _P),
     # x, out, B, L, h, e0, step (half-bit exponents), stream
     "mf_twiddle_half": (_P, _P, _LL, _I, _LL, _LL, _LL, _P),
     # x, out, N, h, L, w, stream
@@ -175,10 +176,12 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     so.mf_error_string.argtypes = [ctypes.c_int]
     so.mf_error_string.restype = ctypes.c_char_p
-    for fn in (so.mf_canonicalize_tile, so.mf_normmod_short_max, so.mf_normmod_row_max,
-               so.mf_conv_base_short_max):
+    for fn in (so.mf_canonicalize_tile, so.mf_canonicalize_row_max, so.mf_normmod_short_max,
+               so.mf_normmod_row_max, so.mf_conv_base_short_max):
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    so.mf_canonicalize_scratch.argtypes = [_LL, _LL]
+    so.mf_canonicalize_scratch.restype = ctypes.c_longlong
     return so
 
 

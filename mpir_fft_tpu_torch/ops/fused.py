@@ -56,6 +56,10 @@ LADDER_BUF_BYTES = 64 * 1024
 # the normmod routes' limits (csrc/normmod.cu kShortMaxL, kRowMaxL)
 NORMMOD_SHORT_MAX = 512
 NORMMOD_ROW_MAX = 8192
+# the canonicalize routes: rows up to CANON_ROW_MAX digits one CTA each,
+# longer ones tiles of CANON_TILE (csrc/canonicalize.cu kRowMax, kTile)
+CANON_ROW_MAX = 8192
+CANON_TILE = 2048
 
 
 def ladder_stages(L: int) -> int:
@@ -347,24 +351,22 @@ def canonicalize_plain_torch(x: torch.Tensor) -> torch.Tensor:
 def fused_canonicalize_plain(x: torch.Tensor) -> torch.Tensor:
     """Exact non-modular carry canonicalization of nonnegative redundant
     digit vectors (digits < 2^20); every leading index is an independent
-    vector whose true value must fit it.  The kernel is a three-pass tiled
-    scan (tile carry passes + (g, p) summaries, a scan of the summaries per
-    vector, a seeded per-tile apply); carries never cross vectors."""
+    vector whose true value must fit it.  The kernel reads each digit once
+    and writes it once: one CTA a row up to CANON_ROW_MAX digits, longer
+    rows a single-pass chained scan over CANON_TILE-digit tiles, whose
+    status words are the only scratch; carries never cross vectors."""
     _require(x, "canonicalize")
     if x.device.type == "cpu":
         return canonicalize_plain_torch(x)
     N = x.shape[-1]
-    Bt = x.numel() // N
-    T = kernels.lib().mf_canonicalize_tile()
-    R = -(-N // T)
+    Bt = x.numel() // N if N else 0
     out = torch.empty_like(x)
-    y = torch.empty((Bt, R * T), dtype=torch.int32, device=x.device)
-    summ = torch.empty((4, Bt, R), dtype=torch.int32, device=x.device)
+    n = kernels.lib().mf_canonicalize_scratch(Bt, N)
+    scratch = torch.empty(n, dtype=torch.int32, device=x.device) if n else None
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_canonicalize(
-            x.data_ptr(), out.data_ptr(), y.data_ptr(), summ[0].data_ptr(),
-            summ[1].data_ptr(), summ[2].data_ptr(), summ[3].data_ptr(),
-            Bt, N, R, kernels.stream_of(x))
+            x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n,
+            Bt, N, kernels.stream_of(x))
     kernels.check(rc, "canonicalize")
     kernels.LAUNCHES["canonicalize"] += 1
     return out

@@ -1,8 +1,8 @@
 """The whole-row transform, the half-bit twiddle, the normmod rows, the
-inverse sqrt2 top merge and the schoolbook at the shapes the main path
-gives them, on the card: the per-shape measurement chip_smoke.py also runs
-(measure_whole, measure_twiddle, measure_normmod, measure_conv_base), and
-a tool beside utils/profile.py.
+inverse sqrt2 top merge, the schoolbook and the exact carry at the shapes
+the main path gives them, on the card: the per-shape measurement
+chip_smoke.py also runs (measure_whole, measure_twiddle, measure_normmod,
+measure_conv_base, measure_canon), and a tool beside utils/profile.py.
 
     python -m mpir_fft_tpu_torch.utils.transform_bench [--reps R] [--only K]
 
@@ -44,7 +44,18 @@ bytes a digit; library_ms is a float64 grouped torch conv1d of the same
 rows (the convolution without the recombination), a yardstick the port
 never calls.
 
---only K runs one family: whole, twiddle, normmod, sqrt2 or conv.
+The exact carry (fused_canonicalize_plain), (rows, N, fill, offset): the
+recursive pointwise's combines, one per chunk, at 1.2x10^9 ((6528, 5169),
+the last chunk (256, 5169)) and 1.5x10^9 ((5376, 6209), last (1024,
+6209)); the final product row of a mul at 2x10^7, 10^8, 10^9 and 1.2x10^9
+bits ((1, 2500002), (1, 12500002), (1, 125000002), (1, 150000002)).  Each
+"random" (digits in [0, 2^20); where rows > 1, row 0 a ripple from digit 0
+that must stop at row 1) and "ripple" (every row all 0xFFFF but digit 0:
+the carry runs the whole row, the look-back's worst case); two shapes
+again one word off 16-byte alignment (offset 1: single-word runs).  Its
+bound is 8 bytes a digit.
+
+--only K runs one family: whole, twiddle, normmod, sqrt2, conv or canon.
 
 For each: raw digits held against the plain version (AssertionError where
 they differ), the kernel's device ms (CUDA events, median of R after a
@@ -77,6 +88,11 @@ NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (53
 SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
                     (16384, 256, 1, 0))
 CONV_SHAPES = ((6528 * 256, 48), (8192 * 256, 32), (8192 * 128, 72), (8192, 128), (16384, 512))
+CANON_SHAPES = tuple((r, n, f, 0) for r, n in ((6528, 5169), (256, 5169), (5376, 6209),
+                                               (1024, 6209), (1, 2500002), (1, 12500002),
+                                               (1, 125000002), (1, 150000002))
+                     for f in ("random", "ripple")) + ((6528, 5169, "random", 1),
+                                                       (1, 12500002, "random", 1))
 TWIDDLE_SHAPES = ((6528 * 256, 48, 256, 0, 6), (5376 * 256, 64, 256, 0, 8),
                   (32768, 4096, 32768, 0, -4), (8192 * 256, 32, 256, 0, 4),
                   (64 * 128, 256, 128, 3, 1), (64 * 64, 71, 64, 0, 5))
@@ -231,10 +247,33 @@ def measure_conv_base(rows: int, L: int, rand, reps: int) -> dict:
                    ops_per_s=FP64_FMA_PER_S)
 
 
+def measure_canon(rows: int, N: int, fill: str, offset: int, rand, reps: int) -> dict:
+    """fused_canonicalize_plain of (rows, N) digits (fill as above; offset:
+    the input's words past a 16-byte boundary): held against
+    canonicalize_plain_torch (digits equal), then timed in bursts
+    (_burst_ms)."""
+    buf = torch.empty(rows * N + offset, dtype=torch.int32, device="cuda")
+    x = buf[offset:].view(rows, N)
+    if fill == "random":
+        x.copy_(rand((rows, N), 0, 1 << 20))
+    ripple = x if fill == "ripple" else x[:1] if rows > 1 else x[:0]
+    ripple.fill_(0xFFFF)
+    ripple[:, 0] = 0x1FFFF
+    x[:, -2:] = 0
+    got = fused.fused_canonicalize_plain(x)
+    want, pms = _once_ms(lambda: fused.canonicalize_plain_torch(x))
+    assert torch.equal(got, want), ("canonicalize", (rows, N), fill, offset, "digits differ")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _burst_ms(lambda: fused.fused_canonicalize_plain(x), reps)
+    return _record(dict(name="canonicalize", shape=[rows, N], fill=fill, offset=offset, ms=ms,
+                        plain_ms=pms, nbytes=8 * x.numel(), ops=3 * x.numel()))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2", "conv"))
+    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2", "conv", "canon"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("transform_bench needs a CUDA device")
@@ -265,6 +304,10 @@ def main(argv=None) -> None:
     if args.only in (None, "conv"):
         for shape in CONV_SHAPES:
             print(json.dumps(measure_conv_base(*shape, rand, args.reps)), flush=True)
+    if args.only in (None, "canon"):
+        for shape in CANON_SHAPES:
+            print(json.dumps(measure_canon(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

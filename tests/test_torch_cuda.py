@@ -19,6 +19,8 @@ from mpir_fft_tpu_torch.models.mul import (DRIVERS, _staged_flagship, flagship_i
                                            mpn_mul_flagship, mpn_sqr_flagship, mul, sqr)
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
+    CANON_ROW_MAX,
+    CANON_TILE,
     canonicalize_plain_torch,
     fused_butterfly_ladder,
     fused_canonicalize_plain,
@@ -278,20 +280,54 @@ def test_normmod_routes_match_kernel_limits(dev):
     assert kernels.lib().mf_normmod_row_max() == NORMMOD_ROW_MAX
 
 
-@pytest.mark.parametrize("Bt,N", [(1, 1), (1, 2049), (3, 5000), (2, 1 << 16)])
-def test_canonicalize_matches_plain(dev, Bt, N):
+def test_canonicalize_route_limits_match_kernel(dev):
+    """The host's route limit and tile are the kernel library's."""
+    lib = kernels.lib()
+    assert lib.mf_canonicalize_row_max() == CANON_ROW_MAX
+    assert lib.mf_canonicalize_tile() == CANON_TILE
+    assert lib.mf_canonicalize_scratch(3, CANON_ROW_MAX) == 0
+    # tiles of a row: its digits and up to 3 words of alignment offset
+    tiles = -(-(CANON_ROW_MAX + 1 + 3) // CANON_TILE)
+    assert lib.mf_canonicalize_scratch(3, CANON_ROW_MAX + 1) == 3 * tiles + 1
+
+
+# (Bt, N, fill): "random" (with Bt > 1, row 0 a ripple from digit 0 that must
+# stop at row 1), "ripple" (every row all 0xFFFF but digit 0: the carry runs
+# the whole row, the look-back's worst case) or "max" (digits 2^20 - 1)
+CANON_CASES = [
+    (1, 1, "random"), (1, 2049, "random"), (3, 5000, "random"), (2, 1 << 16, "random"),
+    (1, 2, "random"), (1, 3, "random"), (4, CANON_ROW_MAX - 1, "random"),
+    (4, CANON_ROW_MAX, "random"), (4, CANON_ROW_MAX + 1, "random"),
+    (1, 5169, "random"), (3, 5169, "random"), (257, 5169, "random"), (1, 6209, "random"),
+    (3, 6209, "random"), (257, 6209, "random"), (257, 5169, "ripple"), (3, 6209, "ripple"),
+    (1, 5 * CANON_TILE + 7, "random"), (3, 3 * CANON_TILE + 1001, "random"),
+    (1, 40 * CANON_TILE + 3, "ripple"), (2, 2500002, "ripple"), (3, 9000, "max"),
+    (2, 5169, "max"),
+]
+
+
+@pytest.mark.parametrize("Bt,N,fill", CANON_CASES)
+def test_canonicalize_matches_plain(dev, Bt, N, fill):
     rng = np.random.default_rng(4)
-    x = rng.integers(0, 1 << 20, (Bt, N)).astype(np.int32)
-    x[:, -2:] = 0
-    if Bt > 1:
-        # a ripple from digit 0 through every tile of row 0 must not reach row 1
-        x[0] = 0xFFFF
-        x[0, 0] = 0x1FFFF
-        x[0, -2:] = 0
+    if fill == "max":
+        x = np.full((Bt, N), (1 << 20) - 1, dtype=np.int32)
+    else:
+        x = rng.integers(0, 1 << 20, (Bt, N)).astype(np.int32)
+    ripple = range(Bt) if fill == "ripple" else [0] if Bt > 1 else []
+    for r in ripple:
+        x[r] = 0xFFFF
+        x[r, 0] = 0x1FFFF
+    if N > 4:
+        x[:, -2:] = 0
     xt = torch.from_numpy(x)
-    got = fused_canonicalize_plain(xt.to(dev))
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), canonicalize_plain_torch(xt))
+    want = canonicalize_plain_torch(xt)
+    got = _launched("canonicalize", lambda: fused_canonicalize_plain(xt.to(dev)))
+    assert torch.equal(got.cpu(), want)
+    # one word off 16-byte alignment: the single-word runs
+    flat = torch.empty(Bt * N + 1, dtype=torch.int32, device=dev)
+    xs = flat[1:].view(Bt, N)
+    xs.copy_(xt)
+    assert torch.equal(_launched("canonicalize", lambda: fused_canonicalize_plain(xs)).cpu(), want)
 
 
 def _launched(name, fn):

@@ -68,18 +68,34 @@ def test_combine_matches_reference(rng, bits, L):
         assert int_from_digits(got[b]) == sum(v << (j * bits) for j, v in enumerate(vals[b]))
 
 
-def test_canonicalize_matches_reference(rng):
-    N = 9000
-    x = rng.integers(0, 1 << 20, (3, N)).astype(np.int32)
+def _canon_rows(rng, Bt, N, fill):
+    """(Bt, N) digits in [0, 2^20) whose values fit their rows: random,
+    random with a ripple from digit 0 through row 1 ("mixed": it must stop
+    at row 2), every row that ripple, or every digit 2^20 - 1 ("max")."""
+    if fill == "max":
+        x = np.full((Bt, N), (1 << 20) - 1, dtype=np.int32)
+    else:
+        x = rng.integers(0, 1 << 20, (Bt, N)).astype(np.int32)
+    ripple = {"mixed": [1], "ripple": list(range(Bt))}.get(fill, [])
+    x[ripple] = 0xFFFF
+    x[ripple, 0] = 0x1FFFF
     x[:, -2:] = 0
-    x[1] = 0xFFFF                          # ripple from digit 0 across every row
-    x[1, 0] = 0x1FFFF
-    x[1, -2:] = 0
+    return x
+
+
+# the main path's row widths: the recursive pointwise's combine at 1.2 / 1.5
+# x 10^9 bits (LN + K = 5120 + 49, 6144 + 65), several rows a launch
+@pytest.mark.parametrize("Bt,N,fill", [
+    (3, 9000, "mixed"), (4, 5169, "random"), (4, 5169, "ripple"), (4, 6209, "random"),
+    (4, 6209, "ripple"), (3, 6209, "max")])
+def test_canonicalize_matches_reference(rng, Bt, N, fill):
+    x = _canon_rows(rng, Bt, N, fill)
     got = tsplit.canonicalize_plain(T(x)).numpy()
     assert np.array_equal(got, np.asarray(jsplit.canonicalize_plain(jnp.asarray(x))))
     assert np.array_equal(got, np.asarray(j_fused_canon(jnp.asarray(x))))
     assert np.array_equal(got[0], np.asarray(j_fused_canon(jnp.asarray(x[0]))))
     assert ((got >= 0) & (got < 1 << 16)).all()
-    for b in range(3):
-        want = sum(int(v) << (16 * i) for i, v in enumerate(x[b].tolist()))
-        assert int_from_digits(got[b]) == want
+    for b in range(Bt):      # value = sum x_i 2^(16 i): low and high halves as 16-bit digits
+        lo, hi = (int.from_bytes(h.astype("<u2").tobytes(), "little")
+                  for h in (x[b] & 0xFFFF, x[b] >> 16))
+        assert int_from_digits(got[b]) == lo + (hi << 16)
