@@ -27,8 +27,10 @@
        the MPIR_FFT_NTT=0 chunks at 10^8 and 10^9 bits;
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
-       without a tail, and the 1.2x10^9-bit plan's (65536, 5120), w 5, with
-       its norm tail (lg_conv 16) on block rows;
+       without a tail, and its launches in the 10^9-bit plan, (131072,
+       2048), w 1, and the 1.2x10^9-bit plan, (65536, 5120), w 5, each with
+       its norm tail (lg_conv 17 / 16) (utils/transform_bench
+       measure_sqrt2_fwd / measure_sqrt2_inv, ms beside bound and share);
      mfa_cols -- the column pass of the 10^7 x 7x10^6-bit plan (depth 12,
        w 1, trunc_mfa 8896): the stacked halves' (2 x 64, 128, 256)
        columns, forward full and fft_trunc1 at trunc2 11, then the inverse
@@ -363,9 +365,9 @@ def main() -> int:
         mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
         CANON_ROW_MAX, CANON_TILE, fused_butterfly_ladder, fused_mfa_cols, fused_normmod_div,
-        fused_sqrt2_top_fwd, fused_sqrt2_top_inv, ladder_groups, ladder_plain, ladder_stages,
-        mfa_col_fits, mfa_cols_plain, mfa_cols_schedule, normmod_route, normmod_rows_plain,
-        sqrt2_top_fwd_plain, sqrt2_top_inv_plain, NORMMOD_ROW_MAX, NORMMOD_SHORT_MAX)
+        ladder_groups, ladder_plain, ladder_stages, mfa_col_fits, mfa_cols_plain,
+        mfa_cols_schedule, normmod_route, normmod_rows_plain, NORMMOD_ROW_MAX,
+        NORMMOD_SHORT_MAX)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
@@ -380,7 +382,8 @@ def main() -> int:
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
     from mpir_fft_tpu_torch.utils.transform_bench import (
         CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_canon,
-        measure_conv_base, measure_normmod, measure_twiddle, measure_whole)
+        measure_conv_base, measure_normmod, measure_sqrt2_fwd, measure_sqrt2_inv,
+        measure_twiddle, measure_whole)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import (FP64_FMA_PER_S, INT8_OPS_PER_S,
                                                   INT32_OPS_PER_S, bound)
@@ -530,48 +533,37 @@ def main() -> int:
         torch.cuda.empty_cache()
     del x
 
-    # sqrt2 top pair at the 10^7-bit plan (odd w)
+    # the sqrt2 top layer at the 10^7-bit plan (odd w), and the inverse's
+    # launch in the 10^9 and 1.2x10^9-bit plans (w 1, L 2048; w 5, L 5120)
+    # with the norm tail (utils/transform_bench measure_sqrt2_fwd /
+    # measure_sqrt2_inv: canonical digits bit for bit with the tail, equal
+    # after normmod without)
     oplan = choose_params(ODD_BITS, ODD_BITS, sqrt2=True)
     oW, oL, oC = oplan.W, oplan.W // DIGIT_BITS, oplan.conv_len
     print(f"plan 10^7: {oplan} L={oL} conv={oC}")
     assert (oplan.depth, oplan.w, oL, oC) == (12, 1, 256, 16384), oplan
-    x = rand((2, oC, oL), -(1 << 17), 1 << 17)
-    err, same = compare("sqrt2_top_fwd", fused_sqrt2_top_fwd(x, oplan.w, oW),
-                        sqrt2_top_fwd_plain(x, oplan.w, oW), digit_bound=1 << 18)
-    ms = time_ms(lambda: fused_sqrt2_top_fwd(x, oplan.w, oW), 10, 2)
-    pms = time_ms(lambda: sqrt2_top_fwd_plain(x, oplan.w, oW), 3)
-    add_row("sqrt2_top_fwd", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
-            "mpir_fft_tpu/ops/fused.py:739", err, ms, pms, 8 * x.numel(), 6 * x.numel())
-    print(f"sqrt2_top_fwd {tuple(x.shape)} w={oplan.w}: raw digits identical: {same}; "
-          f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    x = rand((oC, oL), -(1 << 17), 1 << 17)
-    for nd in (oplan.lg_conv, 0):
-        err, same = compare(("sqrt2_top_inv", nd), fused_sqrt2_top_inv(x, oplan.w, oW, nd),
-                            sqrt2_top_inv_plain(x, oplan.w, oW, nd), canonical=nd > 0)
-        ms = time_ms(lambda: fused_sqrt2_top_inv(x, oplan.w, oW, nd), 10, 2)
-        pms = time_ms(lambda: sqrt2_top_inv_plain(x, oplan.w, oW, nd), 3)
-        add_row("sqrt2_top_inv", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
-                "mpir_fft_tpu/ops/fused.py:783", err, ms, pms, 8 * x.numel(),
-                (9 if nd else 6) * x.numel())
-        print(f"sqrt2_top_inv {tuple(x.shape)} norm_div={nd}: raw digits identical: {same}; "
-              f"{ms:.3f} ms (plain {pms:.3f} ms)")
-    del x
-    # and its launch in the 1.2x10^9-bit plan (w 5, L 5120): the norm tail
-    # on block rows (csrc/normmod_row.cuh), raw digits identical
+    hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
     rplan = choose_params(REC5_BITS, REC5_BITS, sqrt2=True)
-    rW, rL, rC = rplan.W, rplan.W // DIGIT_BITS, rplan.conv_len
-    assert (rplan.w, rL, rC) == (5, 5120, 65536), rplan
-    x = rand((rC, rL), -(1 << 17), 1 << 17)
-    err, same = compare("sqrt2_top_inv 1.2e9", fused_sqrt2_top_inv(x, rplan.w, rW, rplan.lg_conv),
-                        sqrt2_top_inv_plain(x, rplan.w, rW, rplan.lg_conv), canonical=True)
-    ms = time_ms(lambda: fused_sqrt2_top_inv(x, rplan.w, rW, rplan.lg_conv), 10, 2)
-    pms = time_ms(lambda: sqrt2_top_inv_plain(x, rplan.w, rW, rplan.lg_conv), 1)
-    add_row("sqrt2_top_inv", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
-            "mpir_fft_tpu/ops/fused.py:783", err, ms, pms, 8 * x.numel(), 9 * x.numel())
-    print(f"sqrt2_top_inv {tuple(x.shape)} w={rplan.w} norm_div={rplan.lg_conv} (the 1.2x10^9 "
-          f"plan): raw digits identical; {ms:.3f} ms (plain {pms:.3f} ms)")
-    del x
-    torch.cuda.empty_cache()
+    assert (hplan.w, hplan.W // DIGIT_BITS, hplan.conv_len) == (1, 2048, 131072), hplan
+    assert (rplan.w, rplan.W // DIGIT_BITS, rplan.conv_len) == (5, 5120, 65536), rplan
+    rec = measure_sqrt2_fwd(2, oC, oL, oplan.w, rand, 10)
+    add_row("sqrt2_top_fwd", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
+            "mpir_fft_tpu/ops/fused.py:739", 0, rec["ms"], rec["plain_ms"], rec["nbytes"],
+            rec["ops"])
+    print(f"sqrt2_top_fwd {tuple(rec['shape'])} w={oplan.w}: equal after normmod; "
+          f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ({rec['share']:.0%}; "
+          f"plain {rec['plain_ms']:.3f} ms)")
+    for p_, what in ((oplan, "10^7"), (oplan, "10^7, no tail"), (hplan, "10^9"),
+                     (rplan, "1.2x10^9")):
+        nd = 0 if what.endswith("no tail") else p_.lg_conv
+        rec = measure_sqrt2_inv(p_.conv_len, p_.W // DIGIT_BITS, p_.w, nd, rand, 10)
+        add_row("sqrt2_top_inv", "mpir_fft_tpu_torch/csrc/sqrt2_top.cu",
+                "mpir_fft_tpu/ops/fused.py:783", 0, rec["ms"], rec["plain_ms"], rec["nbytes"],
+                rec["ops"])
+        print(f"sqrt2_top_inv {tuple(rec['shape'])} w={p_.w} norm_div={nd} (the {what} plan): "
+              f"{'raw digits identical' if nd else 'equal after normmod'}; {rec['ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ({rec['share']:.0%}; plain {rec['plain_ms']:.3f} ms)")
+        torch.cuda.empty_cache()
 
     # the MFA column pass of the 10^7 x 7x10^6-bit plan: the stacked halves'
     # columns, forward full and fft_trunc1, then the inverse of each on its

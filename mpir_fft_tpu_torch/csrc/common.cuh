@@ -110,40 +110,6 @@ __device__ __forceinline__ void butterfly_digit(const int* A, const int* B, int 
   }
 }
 
-// One row times 2^(e2/2) mod 2^(16L)+1, half-bit exponent e2 in [0, 4W): the
-// row body of mpir_fft_tpu/ops/fused.py _twiddle_half_rows (fused.py:714-736)
-// and of the plain version ops/fused.py twiddle_half_rows_plain.  k = e2 >> 1.
-// Even e2: out = shift_mod(x, k).  Odd e2: 2^(k + 1/2) = 2^(k + 3W/4) -
-// 2^(k + W/4), so out = carry_pass(hi - lo), where hi and lo are the static
-// rotations by 3L/4 and L/4 digits of base = shift_mod(x, k) when L % 4 == 0,
-// else the two sub-digit shift_mods of x.
-// x, t1, t2: L-int buffers in shared memory; out may alias t1 (not x or t2)
-// and may lie in global memory.  Every thread of the block calls it with the
-// same e2; it ends in __syncthreads.
-__device__ inline void twiddle_half_row(const int* x, int* t1, int* t2, int* out, long long e2,
-                                        int L) {
-  const long long W = 16LL * L;
-  const long long k = e2 >> 1;
-  if (!(e2 & 1)) {
-    for (int i = threadIdx.x; i < L; i += blockDim.x) out[i] = shift_mod_digit(x, i, k, L);
-  } else {
-    if (L % 4 == 0) {
-      for (int i = threadIdx.x; i < L; i += blockDim.x) t1[i] = shift_mod_digit(x, i, k, L);
-      __syncthreads();
-      for (int i = threadIdx.x; i < L; i += blockDim.x)
-        t2[i] = rot_digit(t1, i, 3 * L / 4, L) - rot_digit(t1, i, L / 4, L);
-    } else {
-      const long long khi = (k + 3 * W / 4) % (2 * W);
-      const long long klo = (k + W / 4) % (2 * W);
-      for (int i = threadIdx.x; i < L; i += blockDim.x)
-        t2[i] = shift_mod_digit(x, i, khi, L) - shift_mod_digit(x, i, klo, L);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < L; i += blockDim.x) out[i] = carry_digit(t2, i, L);
-  }
-  __syncthreads();
-}
-
 // (a * b) mod m for a, b >= 0 and m < 2^31.
 __device__ __forceinline__ long long mulmod_small(long long a, long long b, long long m) {
   return (a % m) * (b % m) % m;

@@ -19,9 +19,10 @@
 // With pre_half = (e0, step2) (forward, the first group of a transform:
 // the zero-top staged forward's t-leg, fused.py:275, :384, :416-417), each
 // loaded row at transform position j = q*h + hpos is first multiplied by
-// 2^((e0 + j*step2)/2), half-bit exponents (the row body of
-// mf::twiddle_half_row, run by run: mf::twiddle_half_run, ladder_group.cuh,
-// shared with the whole-row transform and the standalone twiddle).
+// 2^((e0 + j*step2)/2), half-bit exponents (the row body of the plain
+// twiddle_half_rows_plain, run by run: mf::twiddle_half_run,
+// ladder_group.cuh, shared with the whole-row transform and the standalone
+// twiddle).
 //
 // What bounds it on an H100: shared-memory traffic and integer issue, then
 // device memory.  Each launch moves 8 bytes per digit; each stage reads

@@ -81,13 +81,23 @@ __device__ __forceinline__ void load_run(const int* p, int (&v)[V]) {
   }
 }
 
-template <int V>
+// CS: streaming stores (evict first: the data is not read again soon).
+template <int V, bool CS = false>
 __device__ __forceinline__ void store_run(int* p, const int (&v)[V]) {
   if constexpr (V == 4) {
-    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+    const int4 t = make_int4(v[0], v[1], v[2], v[3]);
+    if constexpr (CS)
+      __stcs(reinterpret_cast<int4*>(p), t);
+    else
+      *reinterpret_cast<int4*>(p) = t;
   } else {
 #pragma unroll
-    for (int t = 0; t < V; ++t) p[t] = v[t];
+    for (int t = 0; t < V; ++t) {
+      if constexpr (CS)
+        __stcs(p + t, v[t]);
+      else
+        p[t] = v[t];
+    }
   }
 }
 
@@ -344,7 +354,7 @@ __device__ __forceinline__ void carry_rows(int* buf, int R, int L) {
 }
 
 // Digit j of the odd half-bit twiddle's pre-carry row t2 = hi - lo of the
-// row x (mf::twiddle_half_row): hi, lo the static rotations by 3L/4 and L/4
+// row x (twiddle_half_run below): hi, lo the static rotations by 3L/4 and L/4
 // digits of base = shift_mod(x, k) when L % 4 == 0, else the two sub-digit
 // shift_mods of x.
 __device__ __forceinline__ int half_t2(const int* x, int j, long long k, int L) {
@@ -378,9 +388,12 @@ __device__ __forceinline__ void rot_base_run(const int* x, int i0, int kdig, int
 
 // Digits i0 .. i0+V-1 of x * 2^(e2/2) mod 2^(16L)+1 (one row of L digits,
 // shared or global memory; 16-byte aligned for V == 4), half-bit exponent
-// e2 in [0, 4W): shift_mod(x, e2/2) for even e2, else carry_pass(t2) -- the
-// row body of mf::twiddle_half_row and of the plain version
-// ops/fused.py twiddle_half_rows_plain, run by run.
+// e2 in [0, 4W): shift_mod(x, e2/2) for even e2, else carry_pass(t2), where
+// 2^(k + 1/2) = 2^(k + 3W/4) - 2^(k + W/4) and hi, lo are the static
+// rotations by 3L/4 and L/4 digits of base = shift_mod(x, k) when L % 4 ==
+// 0, else the two sub-digit shift_mods of x -- the row body of the
+// reference's _twiddle_half_rows (fused.py:714-736) and of the plain
+// version ops/fused.py twiddle_half_rows_plain, run by run.
 template <int V>
 __device__ __forceinline__ void twiddle_half_run(const int* x, int i0, int e2, int L,
                                                  int (&v)[V]) {

@@ -19,7 +19,8 @@
 //   * block rows, up to kRowMaxL (the outer rings L 1024-8192):
 //     normmod_block_kernel, one CTA a row, 8 digits a thread in as many
 //     whole warps as the row needs, O(L) work and two or three barriers
-//     (mf::normmod_row, also the inverse sqrt2 top merge's norm tail);
+//     (mf::normmod_row; its exact carry is also the inverse sqrt2 top merge's
+//     norm tail);
 //   * longer rows -- the single ring of a mulmod_int product at N = 2^22..
 //     2^25 bits, L = 2^18..2^21 -- stream: normmod_long_kernel, one CTA per
 //     row, the shift and the two carry passes through global scratch, then

@@ -1,6 +1,7 @@
 // The exact canonicalization of ring elements, run by run: the row bodies of
-// csrc/normmod.cu (its short-row and block-row kernels) and of the inverse
-// sqrt2 top merge's fused norm tail (csrc/sqrt2_top.cu).
+// csrc/normmod.cu (its short-row and block-row kernels); the block rows'
+// exact carry (exact_rows) is also the inverse sqrt2 top merge's norm tail
+// (csrc/sqrt2_top.cu), on both output rows at once.
 //
 // out = normmod(v * 2^s mod 2^(16L)+1) for a static shift s in [0, 2W): the
 // shift (rotation, sub-digit shift, sign: shifted_digits), two carry passes
@@ -23,11 +24,13 @@
 //     __ballot_sync / __ffs find the first digit that stops the carry-out's
 //     ripple.  No shared memory, no barrier.
 //   * block rows (normmod_row): one CTA a row, kBlockDigits = 8 digits a
-//     thread in whole warps (block_row_threads, the layout csrc/normmod.cu's
-//     block kernel and the sqrt2 norm tail share).  A thread recomputes the two shifted digits
-//     below its run, so the carry passes need no exchange; a warp-shuffle
-//     scan, then one scan of the <= 32 warp totals through shared memory:
-//     two barriers, a third only when the carry-out is not 0.
+//     thread in whole warps (block_row_threads).  A thread recomputes the
+//     two shifted digits below its run, so the carry passes need no
+//     exchange; then exact_rows: a warp-shuffle scan, then one scan of the
+//     <= 32 warp totals through shared memory: two barriers, a third only
+//     when the carry-out is not 0.  One carry pass would do (its digits'
+//     transitions already map {-1,0,1} into itself); the second keeps the
+//     reference's sequence.
 //
 // A transition is a code word of four bytes: byte 0 holds e(f(-1)), bytes 1
 // and 2 e(f(0)), byte 3 e(f(1)), with e(-1, 0, 1) = (0, 1, 3) -- each value a
@@ -159,6 +162,29 @@ __device__ __forceinline__ int runs_code(const int (&v)[V * R], int i0, int L) {
   return code;
 }
 
+// The transition of a thread's digits below L (digits in [-2^16+1,
+// 2^17-2]), and in place their canonical form for a carry in of 0: f(0) is
+// that chain's carry out c, f(1) = c + 1 where the canonical digits are all
+// 0xFFFF, f(-1) = c - 1 where they are all 0 (one chain, not three).
+template <int V, int R>
+__device__ __forceinline__ int canon_code(int (&v)[V * R], int i0, int L) {
+  int c = 0, ones = DIGIT_MASK, any = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (i0 + V * r < L) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const int t = v[V * r + u] + c;
+        v[V * r + u] = t & DIGIT_MASK;
+        c = t >> DIGIT_BITS;
+        ones &= t;
+        any |= t & DIGIT_MASK;
+      }
+    }
+  }
+  return code_pack(any == 0 ? c - 1 : c, c, (ones & DIGIT_MASK) == DIGIT_MASK ? c + 1 : c);
+}
+
 // Exact carries from cin: canonical digits in [0, 2^16).
 template <int D>
 __device__ __forceinline__ void apply_carries(int (&v)[D], int cin) {
@@ -206,7 +232,7 @@ __device__ __forceinline__ void fold_digits(int (&r)[D], int cout, int g, int fi
   }
 }
 
-template <int V, int R>
+template <int V, int R, bool CS = false>
 __device__ __forceinline__ void store_runs(int* outr, int i0, int L, const int (&r)[V * R]) {
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -214,7 +240,7 @@ __device__ __forceinline__ void store_runs(int* outr, int i0, int L, const int (
       int t[V];
 #pragma unroll
       for (int u = 0; u < V; ++u) t[u] = r[V * q + u];
-      store_run<V>(outr + i0 + V * q, t);
+      store_run<V, CS>(outr + i0 + V * q, t);
     }
   }
 }
@@ -266,6 +292,84 @@ __device__ __forceinline__ void normmod_short(const int* x, int* outr, int L, in
   if (live) store_runs<V, R>(outr, i0, L, v);
 }
 
+// The exact carry of NR rows held by the CTA, thread t the digits i0 ..
+// i0+D-1 of each (i0 = t*D; blockDim.x a multiple of 32, blockDim.x * D >=
+// L), after one carry pass: digits in [-2^16+1, 2^17-2], where every
+// digit's transition maps {-1,0,1} into itself (one carry pass of any int32
+// row lands there).  A warp-shuffle scan of the transitions, then one scan
+// of the <= 32 warp totals through shared memory (row q's on warp q mod the
+// warp count), the carry-out's fold;
+// writes the L canonical digits of row q to outr[q].  The rows share every
+// barrier: two, a third only when a row's carry-out is not 0.  Every thread
+// of the block calls it; it may be called again (a loop over rows) without
+// a barrier between.
+template <int V, int R, int NR, bool CS = false>
+__device__ __forceinline__ void exact_rows(int (&v)[NR][V * R], int i0, int L,
+                                           int* const (&outr)[NR]) {
+  __shared__ int warp_code[NR][32], warp_before[NR][32], warp_first[NR][32], row_cout[NR];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = static_cast<int>(blockDim.x >> 5);
+  const bool on = i0 < L;
+  // exact carries: warp scan, then a scan of the warp totals
+  int code[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) code[q] = canon_code<V, R>(v[q], i0, L);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const int c = __shfl_up_sync(kFullMask, code[q], off);
+      if (lane >= off) code[q] = code_then(code[q], c);
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int q = 0; q < NR; ++q) warp_code[q][warp] = code[q];
+  }
+  __syncthreads();
+  for (int q = warp; q < NR; q += nwarps) {   // row q's warp totals on warp q (mod nwarps)
+    int w = lane < nwarps ? warp_code[q][lane] : kCodeIdentity;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int c = __shfl_up_sync(kFullMask, w, off);
+      if (lane >= off) w = code_then(w, c);
+    }
+    const int b = __shfl_up_sync(kFullMask, w, 1);
+    warp_before[q][lane] = lane == 0 ? kCodeIdentity : b;
+    if (lane == 31) row_cout[q] = code_carry0(w);
+  }
+  __syncthreads();
+  int cout[NR], first[NR];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    int before = __shfl_up_sync(kFullMask, code[q], 1);
+    if (lane == 0) before = kCodeIdentity;
+    apply_carries(v[q], code_carry0(code_then(before, warp_before[q][warp])));
+    cout[q] = row_cout[q];
+    first[q] = -1;
+    any |= cout[q] != 0;
+  }
+  if (any) {                // the same for every thread of the block
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const unsigned ballot =
+          __ballot_sync(kFullMask, on && cout[q] != 0 && stops_ripple(v[q], i0, L, cout[q]));
+      if (lane == 0)
+        warp_first[q][warp] = ballot ? warp * 32 + __ffs(static_cast<int>(ballot)) - 1 : -1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      for (int w = nwarps - 1; w >= 0; --w) first[q] = warp_first[q][w] >= 0 ? warp_first[q][w] : first[q];
+  }
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    fold_digits(v[q], cout[q], t, first[q], i0);
+    if (on) store_runs<V, R, CS>(outr[q], i0, L, v[q]);
+  }
+}
+
 // Block rows: the CTA holds the row x (global or shared memory; read only
 // before the first barrier), thread t the digits t*D .. t*D+D-1 (blockDim.x
 // a multiple of 32, blockDim.x * D >= L), and writes the L canonical digits
@@ -274,65 +378,29 @@ __device__ __forceinline__ void normmod_short(const int* x, int* outr, int L, in
 template <int V, int R>
 __device__ __forceinline__ void normmod_row(const int* x, int L, int s, int* outr) {
   constexpr int D = V * R;
-  __shared__ int warp_code[32], warp_before[32], warp_first[32], row_cout;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int nwarps = static_cast<int>(blockDim.x >> 5);
-  const int i0 = t * D;
-  const bool on = i0 < L;
-  int v[D];
+  const int i0 = threadIdx.x * D;
+  int v[1][D];
   int u2 = 0, u1 = 0;       // the shifted digits i0-2, i0-1 (mod L)
-  if (on) {
+  if (i0 < L) {
     int w[D + 2];
     shifted_digits<V, D + 2>(x, i0 - 2, s, L, w);
     u2 = w[0];
     u1 = w[1];
 #pragma unroll
-    for (int j = 0; j < D; ++j) v[j] = w[j + 2];
+    for (int j = 0; j < D; ++j) v[0][j] = w[j + 2];
   } else {
 #pragma unroll
-    for (int j = 0; j < D; ++j) v[j] = 0;
+    for (int j = 0; j < D; ++j) v[0][j] = 0;
   }
   // two carry passes on the thread's own digits: the first pass's digit
   // i0-1 from the two below it
   const int im1 = i0 == 0 ? L - 1 : i0 - 1;
   const int c1 = u2 >> DIGIT_BITS;
   const int p1 = (u1 & DIGIT_MASK) + (im1 == 0 ? -c1 : c1);
-  carry_digits(v, u1, i0);
-  carry_digits(v, p1, i0);
-  // exact carries: warp scan, then a scan of the warp totals
-  int code = runs_code<V, R>(v, i0, L);
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int c = __shfl_up_sync(kFullMask, code, off);
-    if (lane >= off) code = code_then(code, c);
-  }
-  if (lane == 31) warp_code[warp] = code;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? warp_code[lane] : kCodeIdentity;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int c = __shfl_up_sync(kFullMask, w, off);
-      if (lane >= off) w = code_then(w, c);
-    }
-    const int b = __shfl_up_sync(kFullMask, w, 1);
-    warp_before[lane] = lane == 0 ? kCodeIdentity : b;
-    if (lane == 31) row_cout = code_carry0(w);
-  }
-  __syncthreads();
-  int before = __shfl_up_sync(kFullMask, code, 1);
-  if (lane == 0) before = kCodeIdentity;
-  apply_carries(v, code_carry0(code_then(before, warp_before[warp])));
-  const int cout = row_cout;
-  int first = -1;
-  if (cout != 0) {          // the same for every thread of the row
-    const unsigned ballot = __ballot_sync(kFullMask, on && stops_ripple(v, i0, L, cout));
-    if (lane == 0) warp_first[warp] = ballot ? warp * 32 + __ffs(static_cast<int>(ballot)) - 1 : -1;
-    __syncthreads();
-    for (int w = nwarps - 1; w >= 0; --w) first = warp_first[w] >= 0 ? warp_first[w] : first;
-  }
-  fold_digits(v, cout, t, first, i0);
-  if (on) store_runs<V, R>(outr, i0, L, v);
+  carry_digits(v[0], u1, i0);
+  carry_digits(v[0], p1, i0);
+  int* const o[1] = {outr};
+  exact_rows<V, R, 1>(v, i0, L, o);
 }
 
 // The layout of a row, one rule for every caller.  V: runs of 4 digits

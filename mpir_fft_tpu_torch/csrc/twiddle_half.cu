@@ -8,8 +8,8 @@
 // transform kernel: the inverse unweighting of a negacyclic transform on the
 // ladder route (ops/transforms.py post_half; mulmod_int's rings), the MFA
 // tail reconstruction (ops/sqrt2.py) and a length-1 transform's pre_half.
-// The whole-row transform (csrc/transform_small.cu), the ladder's pre_half
-// and the sqrt2 top layer run the same row body inside their own kernels.
+// The whole-row transform (csrc/transform_small.cu) and the ladder's pre_half
+// run the same row body inside their own kernels.
 //
 // Per row: even e2 is a plain shift_mod by k = e2/2; odd e2 is the sqrt2
 // shift carry_pass(hi - lo), 2^(k+1/2) = 2^(k+3W/4) - 2^(k+W/4)

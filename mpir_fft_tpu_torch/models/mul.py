@@ -234,6 +234,57 @@ def flagship_is_staged(plan: MulPlan) -> bool:
     return plan.conv_len * (plan.W // DIGIT_BITS) > _STAGED_THRESHOLD_ELEMS
 
 
+# ---------------------------------------------------------------------------
+# Plan-time refusal (the reference's models/mul.py:257-260, :557-584,
+# :650-662 and models/huge.py:717-726): above 2^29 coefficient elements the
+# reference serves a flagship plan out of core (mul_huge) or, for extreme
+# imbalance, as balanced pieces (_mul_piecewise), and refuses the rest
+# before any work.  The port has neither route yet: it runs those plans
+# staged, and refuses the same plans, with the same error, at the same point.
+# ---------------------------------------------------------------------------
+
+# above this many coefficient int32 elements the staged pipeline's
+# whole-spectrum buffers outgrow the reference's device memory
+_HUGE_THRESHOLD_ELEMS = 1 << 29
+
+
+def huge_serves(plan: MulPlan) -> bool:
+    """The shape constraints of the reference's out-of-core pipeline."""
+    h = plan.conv_len // 2
+    return (plan.sqrt2 and plan.bits1 % DIGIT_BITS == 0 and plan.j1 <= h and plan.j2 <= h
+            and plan.trunc_mfa % plan.n1 == 0)
+
+
+def _require_huge_servable(plan: MulPlan) -> None:
+    """Raise ValueError, naming the violated constraints, for a plan past the
+    out-of-core threshold that the out-of-core engine cannot serve."""
+    if plan.conv_len * (plan.W // DIGIT_BITS) <= _HUGE_THRESHOLD_ELEMS or huge_serves(plan):
+        return
+    h = plan.conv_len // 2
+    why = []
+    if plan.j1 > h or plan.j2 > h:
+        why.append(
+            f"unbalanced operands: j1={plan.j1}, j2={plan.j2} must both be "
+            f"<= conv_len/2 = {h} (pick a deeper plan or balance the inputs)")
+    if plan.bits1 % DIGIT_BITS:
+        why.append(f"bits1={plan.bits1} not digit-aligned")
+    if plan.trunc_mfa % plan.n1:
+        why.append(f"trunc_mfa={plan.trunc_mfa} not a multiple of n1={plan.n1}")
+    raise ValueError(
+        "plan exceeds the in-HBM staged pipeline's capacity "
+        f"({plan.conv_len}x{plan.W // DIGIT_BITS} int32 elems > "
+        f"{_HUGE_THRESHOLD_ELEMS}) but the out-of-core engine cannot serve "
+        "it: " + "; ".join(why))
+
+
+def _piecewise_serves(plan: MulPlan) -> bool:
+    """Does the reference take this plan as balanced pieces: past the
+    threshold, not out-of-core servable, and the cause is imbalance?"""
+    h = plan.conv_len // 2
+    return (plan.conv_len * (plan.W // DIGIT_BITS) > _HUGE_THRESHOLD_ELEMS
+            and not huge_serves(plan) and (plan.j1 > h or plan.j2 > h))
+
+
 def _pw_chunk_rows(plan: MulPlan) -> int:
     """Rows per pointwise chunk (the reference's :493-503): max(256,
     bytes / 4L), at most trunc_mfa, rounded down to whole n1 groups (the
@@ -334,7 +385,9 @@ def _select_plan(bits_a: int, bits_b: int, driver: str = "flagship") -> MulPlan:
 
 def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     """Multiply two nonnegative Python ints through a driver of DRIVERS on
-    `device`.  Small products are computed on the host."""
+    `device`.  Small products are computed on the host.  A flagship plan the
+    reference refuses (`_require_huge_servable`) raises ValueError before
+    any work."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r}; one of {sorted(DRIVERS)}")
     if a < 0 or b < 0:
@@ -345,6 +398,8 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     if ba + bb <= _SMALL_THRESHOLD_BITS:
         return a * b
     plan = _select_plan(ba, bb, driver)
+    if driver == "flagship" and not _piecewise_serves(plan):
+        _require_huge_servable(plan)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
     if driver == "flagship" and flagship_is_staged(plan):
@@ -353,7 +408,8 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
 
 
 def sqr(a: int, device="cuda") -> int:
-    """Square a nonnegative Python int with one forward transform."""
+    """Square a nonnegative Python int with one forward transform; a plan
+    the reference refuses raises ValueError before any work."""
     if a < 0:
         raise ValueError("nonnegative operand only (mpn semantics)")
     if a == 0:
@@ -362,6 +418,7 @@ def sqr(a: int, device="cuda") -> int:
     if 2 * ba <= _SMALL_THRESHOLD_BITS:
         return a * a
     plan = _select_plan(ba, ba)
+    _require_huge_servable(plan)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     if flagship_is_staged(plan):
         return int_from_digits(tensor_to_digits(_staged_flagship(plan)(da)))

@@ -17,9 +17,11 @@ The NTT's link kernels (csrc/ntt_links.cu) are wrapped in ops/ntt.py, beside
 the integer helpers their plain versions are built from.
 
 A wrapper takes its plain version only for a CPU tensor; for a CUDA tensor
-it launches its kernel or raises.  The plain versions compute exactly what
-the kernels compute (same integer sequence, so equal digits), and are what
-the CPU tests hold against the JAX package.
+it launches its kernel or raises.  The plain versions compute what the
+kernels compute, and are what the CPU tests hold against the JAX package:
+the same integer sequence, so equal digits, except the sqrt2 top layer's
+redundant outputs (a different sequence of the same values: equal after
+normmod; its canonical norm tail is identical).
 
 Blocking is Hopper's, not Mosaic's: a ladder CTA keeps K = 2^k ring
 elements of one h-position in one shared-memory buffer (K*L*4 bytes, the
@@ -468,9 +470,10 @@ def _require_top(x: torch.Tensor, what: str, W: int) -> tuple[int, int, int]:
 def fused_sqrt2_top_fwd(x: torch.Tensor, w: int, W: int) -> torch.Tensor:
     """Forward sqrt2 top layer of a length-C = 2h transform over the 4n-th
     root q = sqrt2^w (odd w) in one pass over x [..., C, L]: row j of the
-    output holds s_j = carry(a_j + b_j), row h + j holds t_j = (a_j - b_j) q^j
-    (a, b: the halves).  Both halves then transform as one [..., 2, h, L]
-    array."""
+    output holds s_j = a_j + b_j, row h + j holds t_j = (a_j - b_j) q^j (a,
+    b: the halves), carried (digits in [-1, 2^16]; the kernel's digits
+    equal the plain version's after normmod).  Both halves then transform
+    as one [..., 2, h, L] array."""
     N, h, L = _require_top(x, "sqrt2_top_fwd", W)
     if x.device.type == "cpu":
         return sqrt2_top_fwd_plain(x, w, W)
@@ -486,9 +489,12 @@ def fused_sqrt2_top_fwd(x: torch.Tensor, w: int, W: int) -> torch.Tensor:
 def fused_sqrt2_top_inv(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> torch.Tensor:
     """Inverse sqrt2 top merge in one pass over x [..., C, L] = [sL, oR] (the
     two inverse half transforms): u_j = oR_j q^-j, rows j and h + j of the
-    output hold carry(sL_j + u_j) and carry(sL_j - u_j).  norm_div > 0
-    instead divides both by 2^norm_div and canonicalizes in the same pass
-    (the drivers' scale + normalize tail)."""
+    output hold sL_j + u_j and sL_j - u_j, carried (digits in [-1, 2^16];
+    the kernel's digits equal the plain version's after normmod).
+    norm_div > 0 instead divides both by 2^norm_div and canonicalizes in
+    the same pass (the drivers' scale + normalize tail; canonical digits,
+    identical to the plain version's).  Rows up to 8192 digits on the
+    card."""
     N, h, L = _require_top(x, "sqrt2_top_inv", W)
     if x.device.type == "cpu":
         return sqrt2_top_inv_plain(x, w, W, norm_div)

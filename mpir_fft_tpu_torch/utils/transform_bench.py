@@ -31,7 +31,10 @@ and 10^9 ((8192 x 128, 72), (8192, 4096)).
 
 Inverse sqrt2 top merges, (C, L, w, lg_conv): the 1.2x10^9 plan's (65536,
 5120), w 5, and the 10^9 plan's (131072, 2048), w 1, each with its norm
-tail; the 10^7 plan's (16384, 256) with a tail (14) and without (0).
+tail (canonical digits, held bit for bit); the 10^7 plan's (16384, 256)
+with a tail (14) and without (0: redundant digits, held after normmod).
+The forward top layer, (N, C, L, w): the 10^7 plan's stacked operands (2,
+16384, 256), w 1 (held after normmod).
 
 The schoolbook (mulmod_base_fused), (rows, L): the 1.2x10^9 default plan's
 chunk of inner rings (6528 x 256, 48), and under MPIR_FFT_NTT=0 the inner
@@ -87,6 +90,7 @@ NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (53
                   (8192 * 128, 72, 7), (8192, 4096, 0))
 SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
                     (16384, 256, 1, 0))
+SQRT2_FWD_SHAPES = ((2, 16384, 256, 1),)
 CONV_SHAPES = ((6528 * 256, 48), (8192 * 256, 32), (8192 * 128, 72), (8192, 128), (16384, 512))
 CANON_SHAPES = tuple((r, n, f, 0) for r, n in ((6528, 5169), (256, 5169), (5376, 6209),
                                                (1024, 6209), (1, 2500002), (1, 12500002),
@@ -197,20 +201,45 @@ def measure_normmod(rows: int, L: int, d: int, rand, reps: int) -> dict:
                         nbytes=8 * x.numel(), ops=3 * x.numel()))
 
 
+def _same_value(got: torch.Tensor, want: torch.Tensor, W: int) -> bool:
+    """Equal digits after normmod, row by row (redundant outputs)."""
+    L = got.shape[-1]
+    return torch.equal(fused.normmod_rows_plain(got.reshape(-1, L), 0, W),
+                       fused.normmod_rows_plain(want.reshape(-1, L), 0, W))
+
+
 def measure_sqrt2_inv(C: int, L: int, w: int, nd: int, rand, reps: int) -> dict:
     """fused_sqrt2_top_inv of (C, L) digits at root w with norm_div nd (0:
-    no norm tail): held against sqrt2_top_inv_plain (raw digits), then
-    timed in bursts (_burst_ms)."""
+    no norm tail): held against sqrt2_top_inv_plain (canonical digits bit
+    for bit with the tail, equal after normmod without), then timed in
+    bursts (_burst_ms)."""
     W = 16 * L
     x = rand((C, L), -(1 << 17), 1 << 17)
     got = fused.fused_sqrt2_top_inv(x, w, W, nd)
     want, pms = _once_ms(lambda: fused.sqrt2_top_inv_plain(x, w, W, nd))
-    assert torch.equal(got, want), ("sqrt2_top_inv", (C, L), nd, "digits differ")
+    same = torch.equal(got, want) if nd else _same_value(got, want, W)
+    assert same, ("sqrt2_top_inv", (C, L), nd, "digits differ")
     del got, want
     torch.cuda.empty_cache()
     ms = _burst_ms(lambda: fused.fused_sqrt2_top_inv(x, w, W, nd), reps)
     return _record(dict(name="sqrt2_top_inv", shape=[C, L], w=w, norm_div=nd, ms=ms,
                         plain_ms=pms, nbytes=8 * x.numel(), ops=9 * x.numel()))
+
+
+def measure_sqrt2_fwd(N: int, C: int, L: int, w: int, rand, reps: int) -> dict:
+    """fused_sqrt2_top_fwd of (N, C, L) digits at root w: held against
+    sqrt2_top_fwd_plain (equal after normmod), then timed in bursts
+    (_burst_ms)."""
+    W = 16 * L
+    x = rand((N, C, L), -(1 << 17), 1 << 17)
+    got = fused.fused_sqrt2_top_fwd(x, w, W)
+    want, pms = _once_ms(lambda: fused.sqrt2_top_fwd_plain(x, w, W))
+    assert _same_value(got, want, W), ("sqrt2_top_fwd", (N, C, L), "values differ")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _burst_ms(lambda: fused.fused_sqrt2_top_fwd(x, w, W), reps)
+    return _record(dict(name="sqrt2_top_fwd", shape=[N, C, L], w=w, ms=ms, plain_ms=pms,
+                        nbytes=8 * x.numel(), ops=6 * x.numel()))
 
 
 def _conv1d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -300,6 +329,9 @@ def main(argv=None) -> None:
     if args.only in (None, "sqrt2"):
         for shape in SQRT2_INV_SHAPES:
             print(json.dumps(measure_sqrt2_inv(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
+        for shape in SQRT2_FWD_SHAPES:
+            print(json.dumps(measure_sqrt2_fwd(*shape, rand, args.reps)), flush=True)
             torch.cuda.empty_cache()
     if args.only in (None, "conv"):
         for shape in CONV_SHAPES:

@@ -357,25 +357,76 @@ def test_twiddle_half_matches_plain(dev, B, h, L, e0, step):
     assert int(got.abs().max()) < 1 << 18
 
 
+@pytest.mark.parametrize("fill", ["random", "ones"])
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("N,h,L,w", [(2, 4, 16, 1), (1, 8, 71, 3), (3, 2, 64, 157), (2, 16, 256, 1),
-                                     (1, 2, 2071, 3), (1, 4, 5120, 5)])
-def test_sqrt2_top_matches_plain(dev, N, h, L, w):
-    """L 5120, w 5: the 1.2x10^9-bit plan's rows; the norm tail (nd 5) is
-    csrc/normmod.cu's block-row body, raw digits identical (L 2071: odd,
-    one-digit runs, nine and more a thread)."""
+                                     (1, 2, 2071, 3), (1, 4, 5120, 5), (1, 6, 2048, 1),
+                                     (3, 700, 64, 3), (2, 1, 100, 7), (1, 2, 8192, 5)])
+def test_sqrt2_top_matches_plain(dev, N, h, L, w, offset, fill):
+    """The forward layer equal to the plain version after normmod (digits in
+    [-1, 2^16]); the inverse merge without a tail equal after normmod, with
+    it (norm_div 5, 16, 17) canonical and identical.  L 5120, w 5 and L
+    2048, w 1 are the 1.2x10^9 and 10^9-bit plans' rows; L 2071, 71 and 100
+    take runs of one digit (L % 4 != 0 or, L 100, the partial last thread's
+    runs of four), offset 1 a view one int off 16-byte alignment (runs of
+    one); (3, 700, 64) gives a CTA many row pairs; L 8192 is the widest
+    row; "ones" fills every digit with 0xFFFF."""
     rng = np.random.default_rng(6)
     W = 16 * L
-    x = _rand(rng, (N, 2 * h, L), -(1 << 17), 1 << 17, dev)
+    buf = torch.empty(N * 2 * h * L + offset, dtype=torch.int32, device=dev)
+    x = buf[offset:].view(N, 2 * h, L)
+    if fill == "ones":
+        x.fill_(0xFFFF)
+    else:
+        x.copy_(_rand(rng, (N, 2 * h, L), -(1 << 17), 1 << 17, dev))
     got = _launched("sqrt2_top_fwd", lambda: fused_sqrt2_top_fwd(x, w, W))
     assert torch.equal(_canon(got), _canon(sqrt2_top_fwd_plain(x.cpu(), w, W)))
-    assert int(got.abs().max()) < 1 << 18
-    for nd in (0, 5):
+    assert int(got.min()) >= -1 and int(got.max()) <= 1 << 16
+    for nd in (0, 5, 16, 17):
         got = _launched("sqrt2_top_inv", lambda: fused_sqrt2_top_inv(x, w, W, norm_div=nd))
         want = sqrt2_top_inv_plain(x.cpu(), w, W, norm_div=nd)
         if nd:
             assert torch.equal(got.cpu(), want)       # canonical output
         else:
             assert torch.equal(_canon(got), _canon(want))
+            assert int(got.min()) >= -1 and int(got.max()) <= 1 << 16
+
+
+def _ring_row(rng, value, L):
+    """Digits of value mod 2^(16L)+1 (the -1 form for 2^(16L)), made
+    redundant by moves of 2^16 from a digit to the one below."""
+    p = (1 << (16 * L)) + 1
+    value %= p
+    if value == p - 1:
+        d = np.zeros(L, np.int64)
+        d[0] = -1
+    else:
+        d = np.array([(value >> (16 * i)) & 0xFFFF for i in range(L)], np.int64)
+    for i in rng.integers(0, L - 1, L // 3):
+        d[i] += 1 << 16
+        d[i + 1] -= 1
+    return d.astype(np.int32)
+
+
+@pytest.mark.parametrize("nd", [5, 16, 17])
+@pytest.mark.parametrize("L", [64, 100, 2048, 5120])
+def test_sqrt2_top_inv_edge_rows(dev, L, nd):
+    """The norm tail's carry-out folds and ripples: with oR = 0 the outputs
+    are sL / 2^nd, and sL is chosen so that they are 2^W (the -1 form),
+    2^W - 1 (every digit 0xFFFF), 0, 1 and values whose low digits ripple."""
+    rng = np.random.default_rng(8)
+    W = 16 * L
+    p = (1 << W) + 1
+    targets = [p - 1, p - 2, 0, 1, (1 << (W - 16)) - 1, p - (1 << 40), 1 << (W - 1)]
+    h = len(targets)
+    x = np.zeros((1, 2 * h, L), np.int32)
+    for j, t in enumerate(targets):
+        x[0, j] = _ring_row(rng, t * pow(2, nd, p), L)
+    x = torch.from_numpy(x).to(dev)
+    got = _launched("sqrt2_top_inv", lambda: fused_sqrt2_top_inv(x, 1, W, norm_div=nd))
+    want = sqrt2_top_inv_plain(x.cpu(), 1, W, norm_div=nd)
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0, 0, 0]) == -1 and bool((want[0, 1] == 0xFFFF).all())
 
 
 @pytest.mark.parametrize("half", [None, (0, 1), (5, -3)])
