@@ -33,11 +33,17 @@
        measure_sqrt2_fwd / measure_sqrt2_inv, ms beside bound and share);
      mfa_cols -- the column pass of the 10^7 x 7x10^6-bit plan (depth 12,
        w 1, trunc_mfa 8896): the stacked halves' (2 x 64, 128, 256)
-       columns, forward full and fft_trunc1 at trunc2 11, then the inverse
-       full and ifft_trunc1 at 11 on those spectra, raw digits identical to
-       the plain version (the truncate.py recursion; its sub-transforms
-       would launch kernels on the card, so it runs on the host's CPU, and
-       its time is a CPU time);
+       columns (one CTA a column), forward full and fft_trunc1 at trunc2
+       11, then the inverse full and ifft_trunc1 at 11 on those spectra;
+       then one shape for each cluster size, n1 columns: (128, 128, 512)
+       at trunc2 7, trunc1 (R 2; the 6.3x10^7 x 5x10^6 plan), (128, 128,
+       1024) full (R 4; the mfa driver's 13 / 2 / 1024 plan), (128, 256,
+       1024) at trunc2 135 (R 8; the 7.4x10^7 x 6.6x10^7 plan), forward
+       then inverse, each beside the route its columns took before (the
+       truncate.py recursion on the ladder) at the same shape; raw digits
+       identical to the plain version (the truncate.py recursion; its
+       sub-transforms would launch kernels on the card, so it runs on the
+       host's CPU, and its time is a CPU time);
      ladder_pe -- the last group of the 10^9 x 10^8-bit plan's column
        transforms (L 2048, columns of 256: K 4, h 1, the stacked operands'
        512 columns) with the real cross-twiddle table, forward and inverse;
@@ -119,13 +125,14 @@
      mul at four unbalanced default plans that truncate the MFA
        (trunc_mfa < conv_len): 10^7 x 7x10^6 (full compare; the column
        kernel, the whole-row transform, the odd-w top layer), 6.3x10^7 x
-       5x10^6 (odd w, L 512: columns of (128, 512) exceed the column kernel
-       and take the ladder with its table, as at L 2048), 3.98x10^8 x
+       5x10^6 (odd w, L 512: its (128, 512) columns on the column kernel,
+       clusters of 2, no ladder_pe), 3.98x10^8 x
        1.99x10^8 (even w, L 2048) and 10^9 x 10^8 (odd w, L 2048; peak
        memory at most 24 GiB), residues; the two L 2048 ones staged (the
        row-IFFT leg per chunk, no Garner post leg); at each an A/B record
        against the full-length flat pair (the same plan with trunc_mfa =
-       conv_len), the two interleaved in one run, products identical; the
+       conv_len), the two interleaved in one run, products identical, and
+       the truncated route's device kernels per call (torch.profiler); the
        balanced sizes above must launch neither mfa_cols nor ladder_pe;
      at every staged cell an A/B record (not a claim): the staged route
        against the unstaged mpn_mul_flagship / mpn_sqr_flagship on the same
@@ -331,23 +338,6 @@ def kernel_name(sym: str) -> str:
     return sym
 
 
-def mfa_cols_ops(sched, B: int, L: int) -> int:
-    """Digit operations of one column-kernel launch over B columns: each op
-    of its schedule (ops/fused.py mfa_cols_schedule) times the rows it
-    passes over -- a sub-transform of C rows log2(C) stages of C rows --
-    one operation per digit and row pass, the convention of the ladder's
-    rows."""
-    from mpir_fft_tpu_torch.ops import fused as f
-
-    rows = 0
-    for op, lo, n, k, e1, e2, w, pe in sched:
-        rows += {f._OP_FFT: (n.bit_length() - 1) * n, f._OP_IFFT: (n.bit_length() - 1) * n,
-                 f._OP_TOP_FWD: n + k, f._OP_FOLD: e1 - k, f._OP_DOUBLE: n, f._OP_RESTORE: n,
-                 f._OP_PE_DIV: n, f._OP_TAIL0: 2 * (n - k), f._OP_TAIL1: 2 * (n - k),
-                 f._OP_BFLY_INV: 2 * k, f._OP_OUT1: k}[op]
-    return rows * B * L
-
-
 def main() -> int:
     import torch
 
@@ -365,8 +355,8 @@ def main() -> int:
         mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
         CANON_ROW_MAX, CANON_TILE, fused_butterfly_ladder, fused_mfa_cols, fused_normmod_div,
-        ladder_groups, ladder_plain, ladder_stages, mfa_col_fits, mfa_cols_plain,
-        mfa_cols_schedule, normmod_route, normmod_rows_plain, NORMMOD_ROW_MAX,
+        ladder_groups, ladder_plain, ladder_stages, mfa_col_cluster, mfa_col_fits,
+        mfa_cols_plain, mfa_cols_schedule, normmod_route, normmod_rows_plain, NORMMOD_ROW_MAX,
         NORMMOD_SHORT_MAX)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
@@ -381,12 +371,13 @@ def main() -> int:
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
     from mpir_fft_tpu_torch.utils.transform_bench import (
-        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, measure_canon,
+        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, ladder_route, measure_canon,
         measure_conv_base, measure_normmod, measure_sqrt2_fwd, measure_sqrt2_inv,
-        measure_twiddle, measure_whole)
+        measure_twiddle, measure_whole, mfa_cols_ops)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import (FP64_FMA_PER_S, INT8_OPS_PER_S,
-                                                  INT32_OPS_PER_S, bound)
+                                                  INT32_OPS_PER_S, bound,
+                                                  device_kernels_per_call)
 
     dev = torch.device("cuda", 0)
 
@@ -574,7 +565,7 @@ def main() -> int:
     print(f"plan 10^7 x 7x10^6: {uplan} L={uL} n1={n1} n2={n2} trunc_mfa={uplan.trunc_mfa}")
     assert (uplan.depth, uplan.w, uL, uplan.trunc_mfa, n1, n2, k2) == \
         (12, 1, 256, 8896, 64, 128, 11), uplan
-    assert mfa_col_fits(n2, uL)
+    assert mfa_col_fits(n2, uL, True) and mfa_col_cluster(n2, uL) == 1
     x = rand((2 * n1, n2, uL), -(1 << 17), 1 << 17)
     spectra = {}
     for kind, trunc2, src in (("fwd", n2, None), ("fwd", k2, None),
@@ -596,6 +587,40 @@ def main() -> int:
               f"raw digits identical; {ms:.3f} ms (plain, on the host CPU, {pms:.1f} ms); "
               f"{ops / xin.numel():.1f} digit ops per digit")
     del x, spectra, xh, want
+    # the columns the parent ran on the ladder, one shape for each cluster
+    # size R, a batch of n1 columns (every j1 once): the 6.3x10^7 x 5x10^6
+    # plan's (128, 512) at trunc2 7 (trunc1), the 3.7x10^7 x 3.3x10^7 mfa
+    # driver's full (128, 1024), the 7.4x10^7 x 6.6x10^7 plan's (256, 1024)
+    # at trunc2 135; forward, then the inverse on its spectra, each beside
+    # that route (the truncate.py recursion on the ladder) at the same shape
+    for cn1, cn2, cL, cw, ct2, cone, cR in ((128, 128, 512, 1, 7, True, 2),
+                                            (128, 128, 1024, 2, 128, False, 4),
+                                            (128, 256, 1024, 1, 135, False, 8)):
+        assert mfa_col_fits(cn2, cL, ct2 == cn2) and mfa_col_cluster(cn2, cL) == cR
+        cW = DIGIT_BITS * cL
+        xin = rand((cn1, cn2, cL), -(1 << 17), 1 << 17)
+        if not cone:
+            xin[:, ct2:] = 0
+        for kind in ("fwd", "inv"):
+            got = fused_mfa_cols(kind, xin, cw, cW, cn1, ct2, cone)
+            xh = xin.cpu()
+            t0 = time.perf_counter()
+            want = mfa_cols_plain(kind, xh, cw, cW, cn1, ct2, cone)
+            pms = (time.perf_counter() - t0) * 1e3
+            identical(("mfa_cols", kind, cn2, cL, ct2), got.cpu(), want)
+            ms = time_ms(lambda: fused_mfa_cols(kind, xin, cw, cW, cn1, ct2, cone), 10, 2)
+            route_ms = time_ms(lambda: ladder_route(kind, xin, cw, cn1, ct2, cone), 5, 1)
+            ops = mfa_cols_ops(mfa_cols_schedule(kind, cn2, cw * cn1, ct2, cone), cn1, cL)
+            add_row("mfa_cols", "mpir_fft_tpu_torch/csrc/mfa_cols.cu",
+                    "mpir_fft_tpu/ops/fused.py:200", 0, ms, pms, 8 * xin.numel(), ops)
+            bms, _ = bound(8 * xin.numel(), ops)
+            print(f"mfa_cols {kind} {tuple(xin.shape)} trunc2={ct2}{' (trunc1)' if cone else ''}"
+                  f", a cluster of {cR}: raw digits identical; {ms:.4f} ms, bound {bms:.4f} "
+                  f"({bms / ms:.0%}); the ladder route {route_ms:.4f} ms ({route_ms / ms:.1f}x); "
+                  f"plain, on the host CPU, {pms:.1f} ms")
+            xin = got
+        del xin, got, xh, want
+    torch.cuda.empty_cache()
 
     # the ladder with its last-stage table: the group at the end (forward)
     # and start (inverse) of the 10^9 x 10^8-bit plan's column transforms --
@@ -605,7 +630,7 @@ def main() -> int:
     hW, hL, hn1, hn2 = hup.W, hup.W // DIGIT_BITS, hup.n1, hup.n2
     print(f"plan 10^9 x 10^8: {hup} L={hL} n1={hn1} n2={hn2} trunc_mfa={hup.trunc_mfa}")
     assert (hup.depth, hup.w, hL, hup.trunc_mfa, hn1, hn2) == (15, 1, 2048, 67840, 256, 256), hup
-    assert not mfa_col_fits(hn2, hL)
+    assert not mfa_col_fits(hn2, hL, False)
     D2 = hn2.bit_length() - 1
     cross = _block_cross_exps(2 * hn1, 0, hn1 - 1, hn2, hup.w, hW, dev)
     for kind, (l, kg) in (("fwd", ladder_groups(hn2, hL, "fwd")[-1]),
@@ -1136,6 +1161,8 @@ def main() -> int:
                            lambda: mpn_mul_flagship(dx, dy, fp), reps)
             e2e[f"mul_{label}_truncated_device_ms"] = tr
             e2e[f"mul_{label}_flat_pair_device_ms"] = fl
+            e2e[f"mul_{label}_truncated_kernels_per_call"] = device_kernels_per_call(
+                lambda: mpn_mul_flagship(dx, dy, tplan))
         if staged:
             # A/B record (not a claim): the staged route mul() takes against
             # the unstaged flagship on the same plan and operands
@@ -1196,9 +1223,9 @@ def main() -> int:
           ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt,
           True, primes, 3, no_school, bits_b=UNB_SMALL[1])
     drive(UNB_MID[0], "6.3e7x5e6", (13, 1, 512, 17280),
-          ("ladder_pe", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
+          ("mfa_cols", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
            "canonicalize") + ntt,
-          False, primes, 3, no_school + ("mfa_cols",), bits_b=UNB_MID[1])
+          False, primes, 3, no_school + ("ladder_pe",), bits_b=UNB_MID[1])
     # staged and truncated: the row-IFFT leg per chunk, no Garner post leg
     drive(UNB_EVEN[0], "3.98e8x1.99e8", (14, 2, 2048, 36736),
           ("ladder_pe", "ladder", "normmod", "canonicalize") + ntt,

@@ -34,43 +34,48 @@ __device__ __forceinline__ int shift_bits_digit(int r_i, int r_prev, int i, int 
   return shl(r_i & ((1 << sh) - 1), b) + (i == 0 ? -hi_prev : hi_prev);
 }
 
-// Digit i of carry_pass(v): (v_i mod 2^16) + floor(v_{i-1} / 2^16), the top
-// digit's carry wrapping to digit 0 negated (2^W == -1).
-__device__ __forceinline__ int carry_digit(const int* v, int i, int L) {
-  const int c = v[i == 0 ? L - 1 : i - 1] >> DIGIT_BITS;
-  return (v[i] & DIGIT_MASK) + (i == 0 ? -c : c);
+// Digit i of carry_pass of the row whose digit x is f(x): (f(i) mod 2^16)
+// + floor(f(i-1) / 2^16), the top digit's carry wrapping to digit 0
+// negated (2^W == -1).
+template <class F>
+__device__ __forceinline__ int carry_of(F f, int i, int L) {
+  const int c = f(i == 0 ? L - 1 : i - 1) >> DIGIT_BITS;
+  return (f(i) & DIGIT_MASK) + (i == 0 ? -c : c);
 }
 
-// Digit i of shift_mod(A + sgn * B, s), s in [0, 2W), sgn in {-1, 0, 1}
-// (B unread at sgn 0): the sequence of limb.shift_mod's tensor path on the
-// row combination, formed on the fly at the two rotated source digits:
-// s = (neg ? W : 0) + 16 kd + b, a rotation by kd (wrapped digits negated),
-// the sub-digit shift by b (a carry pass at b == 0), the sign.
-__device__ __forceinline__ int shift_comb_digit(const int* A, const int* B, int sgn, int i,
-                                                long long s, int L) {
+// Digit i of carry_pass(v).
+__device__ __forceinline__ int carry_digit(const int* v, int i, int L) {
+  return carry_of([v](int x) { return v[x]; }, i, L);
+}
+
+// Digit i of shift_mod of the row whose digit x is f(x), s in [0, 2W): the
+// sequence of limb.shift_mod's tensor path, formed on the fly at the two
+// rotated source digits: s = (neg ? W : 0) + 16 kd + b, a rotation by kd
+// (wrapped digits negated), the sub-digit shift by b (a carry pass at
+// b == 0), the sign.
+template <class F>
+__device__ __forceinline__ int shift_of(F f, int i, long long s, int L) {
   const long long W = 16LL * L;
   const bool neg = s >= W;
   const int r = static_cast<int>(neg ? s - W : s);
   const int kd = r >> 4;
   const int ip = i == 0 ? L - 1 : i - 1;
-  const int si = i >= kd ? i - kd : L - kd + i;
-  const int sp = ip >= kd ? ip - kd : L - kd + ip;
-  int vi = A[si], vp = A[sp];
-  if (sgn > 0) {
-    vi += B[si];
-    vp += B[sp];
-  } else if (sgn < 0) {
-    vi -= B[si];
-    vp -= B[sp];
-  }
+  const int vi = f(i >= kd ? i - kd : L - kd + i);
+  const int vp = f(ip >= kd ? ip - kd : L - kd + ip);
   const int d = shift_bits_digit(i >= kd ? vi : -vi, ip >= kd ? vp : -vp, i, r & 15);
   return neg ? -d : d;
 }
 
-// Digit i of shift_mod(v, s) with a per-row exponent s in [0, 2W): the
-// sequence of limb.shift_mod's tensor path, s = (neg ? W : 0) + 16 kd + b, a
-// rotation by kd, the sub-digit shift by b (a carry pass at b == 0), the
-// sign -- shift_comb_digit on v alone, the one routine that holds it.
+// Digit i of shift_mod(A + sgn * B, s), s in [0, 2W), sgn in {-1, 0, 1}
+// (B unread at sgn 0).
+__device__ __forceinline__ int shift_comb_digit(const int* A, const int* B, int sgn, int i,
+                                                long long s, int L) {
+  return shift_of([=](int x) { return sgn > 0 ? A[x] + B[x] : sgn < 0 ? A[x] - B[x] : A[x]; },
+                  i, s, L);
+}
+
+// Digit i of shift_mod(v, s) with a per-row exponent s in [0, 2W): shift_of
+// on v alone.
 __device__ __forceinline__ int shift_mod_digit(const int* v, int i, long long s, int L) {
   return shift_comb_digit(v, nullptr, 0, i, s, L);
 }

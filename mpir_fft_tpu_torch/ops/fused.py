@@ -512,17 +512,44 @@ def fused_sqrt2_top_inv(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> t
 # 6. MFA column transforms with their cross twiddles
 # ---------------------------------------------------------------------------
 
-# shared memory one column CTA may take: its (n2, L) column and three scratch
-# rows per warp, all int32; the kernel takes its warp count from here
-MFA_COL_SMEM_BYTES = 200 * 1024
-MFA_COL_WARPS = 8
+# which columns the column kernel takes: the reference's rule (copied from
+# mpir_fft_tpu/ops/fused.py MAX_FUSED_L :42, _padded_row_bytes / whole_row_ok
+# :83-94, MAX_FUSED_ROW_BYTES :89, and ops/mfa.py _run_cols :131-133)
+MFA_MAX_FUSED_L = 1024
+MFA_MAX_FULL_COL_BYTES = 512 * 1024
+# the rows one CTA of the column kernel holds (the rest of its 227 KB block
+# is tables); a wider column takes a cluster of MFA_COL_CLUSTERS CTAs
+MFA_COL_CTA_BYTES = 192 * 1024
+MFA_COL_CLUSTERS = (1, 2, 4, 8)
 
 
-def mfa_col_fits(n2: int, L: int) -> bool:
-    """Does an (n2, L) column, with its warps' scratch rows, fit one column
-    CTA's shared memory?  (128, 256) does (the 10^7-bit plans); (128, 512)
-    and every L 2048 column do not, and take the ladder route."""
-    return (n2 + 3 * MFA_COL_WARPS) * L * 4 <= MFA_COL_SMEM_BYTES
+def _padded_col_bytes(n2: int, L: int) -> int:
+    """The reference's padded block of an (n2, L) int32 column: n2 up to a
+    multiple of 8 rows, L to one of 128 lanes."""
+    return -(-n2 // 8) * 8 * (-(-L // 128) * 128) * 4
+
+
+def mfa_col_fits(n2: int, L: int, full: bool) -> bool:
+    """Does the column kernel take an (n2, L) column?  The reference's
+    condition: L <= 1024, and a full column (trunc2 == n2) only where its
+    padded block is at most 512 KB.  The rest -- full columns past 512 KB,
+    every column at L 2048 -- takes the truncate.py recursion on the ladder,
+    in both packages."""
+    return L <= MFA_MAX_FUSED_L and (not full or _padded_col_bytes(n2, L) <= MFA_MAX_FULL_COL_BYTES)
+
+
+def mfa_col_cluster(n2: int, L: int) -> int | None:
+    """The CTAs that hold one (n2, L) column: the fewest of 1, 2, 4, 8 whose
+    share, n2 / R rows, fits MFA_COL_CTA_BYTES (R > 1: a thread-block
+    cluster, at least 2 rows a CTA); None past a cluster of 8.  Every column
+    of a plan the planner makes is held: its columns at L <= 1024 are at
+    most (256, 1024), 1 MB, R 8.  The truncated columns of more than 1.5 MB
+    that the reference's rule fuses but no plan gives take the truncate.py
+    recursion (mfa._run_cols)."""
+    for R in MFA_COL_CLUSTERS:
+        if n2 % R == 0 and (R == 1 or n2 // R >= 2) and (n2 // R) * L * 4 <= MFA_COL_CTA_BYTES:
+            return R
+    return None
 
 
 def mfa_cols_plain(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: int,
@@ -642,7 +669,9 @@ def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: 
     w * n1 by the truncated transform of `kind` and flavour at trunc2 rows
     (full at trunc2 == n2), with the cross twiddles 2^(w revbin(j2) j1)
     multiplied in at the forward's last stage (divided out at the inverse's
-    first).  One CTA per column, resident in shared memory (mfa_col_fits).
+    first).  Each column resident in the shared memory of one CTA or of a
+    cluster of R CTAs (mfa_col_cluster); the columns the reference fuses
+    (mfa_col_fits), else ValueError, as on the card past a cluster of 8.
     Output: bounded redundant digits."""
     if kind not in ("fwd", "inv"):
         raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
@@ -653,16 +682,21 @@ def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: 
         raise ValueError(f"mfa_cols: shape {tuple(x.shape)}, n1={n1}, trunc2={trunc2}, W={W}: "
                          "B a nonzero multiple of n1, n1 and n2 powers of two, "
                          "1 <= trunc2 <= n2, W = 16 L required")
+    if not mfa_col_fits(n2, L, trunc2 == n2):
+        raise ValueError(f"mfa_cols: the reference does not fuse an ({n2}, {L}) column "
+                         f"at trunc2 {trunc2}")
     if x.device.type == "cpu":
         return mfa_cols_plain(kind, x, w, W, n1, trunc2, no_zero_tail)
-    if not mfa_col_fits(n2, L):
-        raise ValueError(f"mfa_cols: an ({n2}, {L}) column exceeds the shared-memory block")
+    R = mfa_col_cluster(n2, L)
+    if R is None:
+        raise ValueError(f"mfa_cols: an ({n2}, {L}) column exceeds a cluster of "
+                         f"{MFA_COL_CLUSTERS[-1]} CTAs")
     sched = _schedule_on((kind, n2, w * n1, trunc2, bool(no_zero_tail)), x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_mfa_cols(
             x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.shape[0], B, n2, L,
-            n1 - 1, int(w), ladder_stages(L), MFA_COL_WARPS, kernels.stream_of(x))
+            n1 - 1, int(w), ladder_stages(L), R, kernels.stream_of(x))
     kernels.check(rc, "mfa_cols")
     kernels.LAUNCHES["mfa_cols"] += 1
     return out

@@ -13,10 +13,12 @@ only the first trunc2 rows get row transforms.
 
 The passes on the card:
   * columns (_run_cols): one launch of the column kernel (ops/fused.py
-    fused_mfa_cols, csrc/mfa_cols.cu) when an (n2, L) column fits its
-    shared memory (mfa_col_fits), else the truncate.py recursion with the
-    cross table on the ladder (its `pe` option), as the reference does when
-    L > MAX_FUSED_L (mfa.py:131-142);
+    fused_mfa_cols, csrc/mfa_cols.cu: one CTA a column, or a cluster of 2,
+    4 or 8) for every column the reference fuses (mfa_col_fits: L <= 1024,
+    truncated or full within 512 KB) that a cluster of 8 holds
+    (mfa_col_cluster), else the truncate.py recursion with
+    the cross table on the ladder (its `pe` option), as the reference does
+    (mfa.py:131-142);
   * rows: fft_radix2 / ifft_radix2 at root w*n2 -- the whole-transform
     kernel when an (n1, L) row fits (whole_fits), the ladder otherwise.
 
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from .fused import fused_mfa_cols, mfa_col_fits
+from .fused import fused_mfa_cols, mfa_col_cluster, mfa_col_fits
 from .limb import mul_2expmod
 from .sqrt2 import _fft_trunc_sqrt2, _ifft_trunc_sqrt2, ifft_sqrt2
 from .transforms import fft_radix2, ifft_radix2, inner_group, revbin_vec
@@ -70,9 +72,11 @@ def _run_cols(xc: torch.Tensor, kind: str, w: int, W: int, trunc2: int,
     """Column pass over xc [..., n1, n2, L]: the truncated transform of
     `kind` and flavour at trunc2 rows (full at trunc2 == n2) of each column
     at root w*n1 with its cross twiddles.  Leading axes flatten into the
-    column kernel's batch."""
+    column kernel's batch.  The columns the reference fuses take the
+    kernel, all but those no cluster of 8 CTAs holds (truncated, past
+    1.5 MB: no plan gives them), which take the recursion as the rest do."""
     n1, n2, L = xc.shape[-3:]
-    if mfa_col_fits(n2, L):
+    if mfa_col_fits(n2, L, trunc2 == n2) and mfa_col_cluster(n2, L):
         flat = xc.contiguous().reshape(-1, n2, L)
         return fused_mfa_cols(kind, flat, w, W, n1, trunc2, no_zero_tail).reshape(xc.shape)
     return truncated(kind, no_zero_tail)(xc, w * n1, W, trunc2,

@@ -108,6 +108,20 @@ def _events_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_kernels_per_call(fn, reps: int = 1) -> float:
+    """Device kernels that fn() launches per call (torch.profiler over reps
+    calls after one warm-up), PyTorch's own ops and copies included."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
 def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     dev = torch.device("cuda", 0)
     rnd = random.Random(SEED + bits_a + bits_b)

@@ -58,7 +58,18 @@ the carry runs the whole row, the look-back's worst case); two shapes
 again one word off 16-byte alignment (offset 1: single-word runs).  Its
 bound is 8 bytes a digit.
 
---only K runs one family: whole, twiddle, normmod, sqrt2, conv or canon.
+MFA column passes (fused_mfa_cols), (B, n1, n2, L, w, kind, trunc2,
+trunc1): the 10^7 x 7x10^6-bit plan's four (128, 128, 256) launches (one
+CTA a column); the 2x10^6-bit mfa driver's (64, 32, 512) columns, 64 KB
+(one CTA each, 64 CTAs); the 6.3x10^7 x 5x10^6 plan's (256, 128, 512) columns (a
+cluster of 2), full and truncated; the 3.7x10^7 x 3.3x10^7 mfa / mfa_trunc
+plan's (128, 128, 1024), full and at trunc2 68 (4); the 7.4x10^7 x
+6.6x10^7 plan's (256, 256, 1024) at trunc2 135 (8).  Each beside the
+route a column pass takes without the kernel -- the truncate.py recursion
+on the ladder with the cross table (mfa._run_cols' other branch) -- on the
+same input: raw digits identical, both timed.
+
+--only K runs one family: whole, twiddle, normmod, sqrt2, conv, canon or mfa.
 
 For each: raw digits held against the plain version (AssertionError where
 they differ), the kernel's device ms (CUDA events, median of R after a
@@ -77,7 +88,8 @@ import subprocess
 import torch
 
 from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.ops import fused, negacyclic
+from mpir_fft_tpu_torch.ops import fused, mfa, negacyclic
+from mpir_fft_tpu_torch.ops.truncate import truncated
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, negacyclic_conv_chunks
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
 from mpir_fft_tpu_torch.utils.profile import FP64_FMA_PER_S, INT32_OPS_PER_S, _events_ms, bound
@@ -97,6 +109,12 @@ CANON_SHAPES = tuple((r, n, f, 0) for r, n in ((6528, 5169), (256, 5169), (5376,
                                                (1, 125000002), (1, 150000002))
                      for f in ("random", "ripple")) + ((6528, 5169, "random", 1),
                                                        (1, 12500002, "random", 1))
+MFA_SHAPES = tuple((2 * 64, 64, 128, 256, 1, k, t, t < 128) for k, t in
+                   (("fwd", 128), ("fwd", 11), ("inv", 128), ("inv", 11))) + \
+    tuple((2 * 32, 32, 32, 512, 16, k, 32, False) for k in ("fwd", "inv")) + \
+    tuple((2 * 128, 128, 128, 512, 1, k, t, t < 128) for k in ("fwd", "inv") for t in (128, 7)) + \
+    tuple((128, 128, 128, 1024, 2, k, t, False) for k in ("fwd", "inv") for t in (128, 68)) + \
+    tuple((2 * 128, 128, 256, 1024, 1, k, 135, False) for k in ("fwd", "inv"))
 TWIDDLE_SHAPES = ((6528 * 256, 48, 256, 0, 6), (5376 * 256, 64, 256, 0, 8),
                   (32768, 4096, 32768, 0, -4), (8192 * 256, 32, 256, 0, 4),
                   (64 * 128, 256, 128, 3, 1), (64 * 64, 71, 64, 0, 5))
@@ -299,10 +317,62 @@ def measure_canon(rows: int, N: int, fill: str, offset: int, rand, reps: int) ->
                         plain_ms=pms, nbytes=8 * x.numel(), ops=3 * x.numel()))
 
 
+def mfa_cols_ops(sched, B: int, L: int) -> int:
+    """Digit operations of one column-kernel launch over B columns: each op
+    of its schedule (ops/fused.py mfa_cols_schedule) times the rows it
+    passes over -- a sub-transform of C rows log2(C) stages of C rows --
+    one operation per digit and row pass, the convention of the ladder's
+    rows."""
+    rows = 0
+    for op, lo, n, k, e1, e2, w, pe in sched:
+        rows += {fused._OP_FFT: (n.bit_length() - 1) * n,
+                 fused._OP_IFFT: (n.bit_length() - 1) * n,
+                 fused._OP_TOP_FWD: n + k, fused._OP_FOLD: e1 - k, fused._OP_DOUBLE: n,
+                 fused._OP_RESTORE: n, fused._OP_PE_DIV: n, fused._OP_TAIL0: 2 * (n - k),
+                 fused._OP_TAIL1: 2 * (n - k), fused._OP_BFLY_INV: 2 * k, fused._OP_OUT1: k}[op]
+    return rows * B * L
+
+
+def ladder_route(kind: str, x: torch.Tensor, w: int, n1: int, trunc2: int,
+                 one: bool) -> torch.Tensor:
+    """The column pass of x (B, n2, L) without the column kernel: the
+    truncate.py recursion on the ladder with the cross table, as
+    mfa._run_cols runs the columns it does not fuse."""
+    B, n2, L = x.shape
+    W = 16 * L
+    pe = mfa._cross_exps(n1, n2, w, W, x.device)
+    return truncated(kind, one)(x.view(B // n1, n1, n2, L), w * n1, W, trunc2,
+                                pe).reshape(B, n2, L)
+
+
+def measure_mfa(B: int, n1: int, n2: int, L: int, w: int, kind: str, trunc2: int, one: bool,
+                rand, reps: int) -> dict:
+    """One column pass: the kernel against the ladder route on the same
+    input, raw digits identical, each timed in bursts."""
+    W = 16 * L
+    x = rand((B, n2, L), -(1 << 17), 1 << 17)
+    if kind == "fwd" and not one:
+        x[:, trunc2:] = 0
+    route = ladder_route(kind, x, w, n1, trunc2, one)
+    got = fused.fused_mfa_cols(kind, x, w, W, n1, trunc2, one)
+    torch.cuda.synchronize()
+    assert torch.equal(got, route), ("mfa_cols", B, n2, L, kind, trunc2, one)
+    del got, route
+    ms = _burst_ms(lambda: fused.fused_mfa_cols(kind, x, w, W, n1, trunc2, one), reps)
+    route_ms = _burst_ms(lambda: ladder_route(kind, x, w, n1, trunc2, one), reps, 3)
+    rec = dict(name="mfa_cols", shape=[B, n2, L], n1=n1, w=w, kind=kind, trunc2=trunc2,
+               trunc1=one, R=fused.mfa_col_cluster(n2, L), ms=ms,
+               route_ms=route_ms, nbytes=8 * x.numel(),
+               ops=mfa_cols_ops(fused.mfa_cols_schedule(kind, n2, w * n1, trunc2, one), B, L))
+    b, by = bound(rec["nbytes"], rec["ops"])
+    return dict(rec, bound_ms=b, bound_by=by, share=b / ms, speedup=route_ms / ms)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2", "conv", "canon"))
+    ap.add_argument("--only", choices=("whole", "twiddle", "normmod", "sqrt2", "conv", "canon",
+                                       "mfa"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("transform_bench needs a CUDA device")
@@ -339,6 +409,10 @@ def main(argv=None) -> None:
     if args.only in (None, "canon"):
         for shape in CANON_SHAPES:
             print(json.dumps(measure_canon(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
+    if args.only in (None, "mfa"):
+        for shape in MFA_SHAPES:
+            print(json.dumps(measure_mfa(*shape, rand, args.reps)), flush=True)
             torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

@@ -666,17 +666,24 @@ def test_mulmod_int_fused_on_gpu(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
-@pytest.mark.parametrize("B,n1,n2,L,w", [(2 * 64, 64, 128, 256, 1), (2 * 16, 16, 32, 16, 3)])
+@pytest.mark.parametrize("B,n1,n2,L,w", [(2 * 64, 64, 128, 256, 1), (2 * 16, 16, 32, 16, 3),
+                                         (2 * 128, 128, 128, 512, 1), (128, 128, 128, 1024, 2),
+                                         (16, 16, 256, 1024, 1)])
 def test_mfa_cols_matches_plain(dev, kind, B, n1, n2, L, w):
     """The column kernel in both flavours, full and truncated at trunc2 in
     {1, n2/2, n2/2 + 1, n2 - 1}, against its plain version (the truncate.py
-    recursion on the host): identical raw digits.  B spans two copies of
-    the column axis (the stacked operands)."""
+    recursion on the host): identical raw digits.  One CTA a column at
+    (128, 256) and (32, 16); clusters of 2, 4 and 8 at (128, 512), (128,
+    1024) and (256, 1024) (whose full column the reference does not fuse).
+    B spans two copies of the column axis (the stacked operands) where
+    B = 2 n1."""
     rng = np.random.default_rng(11)
     W = 16 * L
-    assert mfa_col_fits(n2, L)
     x = _rand(rng, (B, n2, L), -(1 << 17), 1 << 17, dev)
     for trunc2 in (1, n2 // 2, n2 // 2 + 1, n2 - 1, n2):
+        if not mfa_col_fits(n2, L, trunc2 == n2):
+            assert (n2, L, trunc2) == (256, 1024, 256)
+            continue
         for one in (False, True):
             xin = x
             if kind == "fwd" and not one:       # fft_trunc: zero input tail
@@ -689,9 +696,15 @@ def test_mfa_cols_matches_plain(dev, kind, B, n1, n2, L, w):
 
 def test_mfa_cols_rejects(dev):
     x = torch.zeros((8, 4, 16), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):          # a column past the shared-memory block
-        fused_mfa_cols("fwd", torch.zeros((2, 256, 512), dtype=torch.int32, device=dev),
-                       1, 16 * 512, 2, 256)
+    with pytest.raises(ValueError):          # a full column past the reference's 512 KB
+        fused_mfa_cols("fwd", torch.zeros((2, 256, 1024), dtype=torch.int32, device=dev),
+                       1, 16 * 1024, 2, 256)
+    with pytest.raises(ValueError):          # L 2048: the ladder route in both packages
+        fused_mfa_cols("fwd", torch.zeros((2, 4, 2048), dtype=torch.int32, device=dev),
+                       1, 16 * 2048, 2, 2)
+    with pytest.raises(ValueError):          # truncated, 4 MB: no cluster of 8 holds it
+        fused_mfa_cols("fwd", torch.zeros((1, 1024, 1024), dtype=torch.int32, device=dev),
+                       1, 16 * 1024, 1, 600)
     with pytest.raises(ValueError):          # zero-size batch
         fused_mfa_cols("fwd", x[:0], 1, 256, 4, 4)
     with pytest.raises(TypeError):

@@ -21,10 +21,11 @@ import jax
 import jax.numpy as jnp
 
 from mpir_fft_tpu.ops import mfa as jmfa
-from mpir_fft_tpu.ops.fused import force_pallas
+from mpir_fft_tpu.ops.fused import MAX_FUSED_L, force_pallas, whole_row_ok
 from mpir_fft_tpu_torch.ops import fused as tfused
 from mpir_fft_tpu_torch.ops import mfa as tmfa
 from mpir_fft_tpu_torch.ops.limb import carry_pass, normmod, shift_mod
+from mpir_fft_tpu_torch.utils.params import choose_params
 
 # (n, w, n1, n2) of tests/test_mfa.py's CASES: C = 2n = n1 n2, W = n w
 CASES = [(8, 2, 4, 4), (8, 16, 2, 8), (16, 4, 8, 4), (32, 2, 8, 8)]
@@ -153,20 +154,127 @@ def interpret_cols(kind, x, w, W, n1, trunc2, one):
 
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
 @pytest.mark.parametrize("B,n1,n2,L,w", [(2 * 4, 4, 16, 2, 3), (2 * 2, 2, 32, 1, 1),
-                                         (8, 8, 8, 4, 2)])
+                                         (8, 8, 8, 4, 2), (2, 2, 128, 512, 1),
+                                         (2, 1, 256, 1024, 2)])
 def test_cols_schedule_matches_plain(rng, kind, B, n1, n2, L, w):
     """The kernel's program equals its plain version (the truncate.py
-    recursion with the cross table), raw digits, at every trunc2 and both
-    flavours; B spans more than one copy of the column axis."""
+    recursion with the cross table), raw digits, at every trunc2 (the
+    cluster shapes (128, 512) and (256, 1024): at the ends and around the
+    middle) and both flavours; B spans more than one copy of the column
+    axis where n1 < B."""
     W = 16 * L
-    for trunc2 in range(1, n2 + 1):
+    trunc2s = range(1, n2 + 1) if n2 <= 32 else (1, n2 // 2, n2 // 2 + 1, n2 - 1, n2)
+    for trunc2 in trunc2s:
         for one in (False, True):
+            if not tfused.mfa_col_fits(n2, L, trunc2 == n2):
+                continue                    # (256, 1024) full: the ladder route
             x = T(_rand(rng, (B, n2, L)))
             if kind == "fwd" and not one:
                 x[:, trunc2:] = 0
             want = tfused.fused_mfa_cols(kind, x, w, W, n1, trunc2, one)
             got = interpret_cols(kind, x, w, W, n1, trunc2, one)
             assert torch.equal(got, want), (trunc2, one)
+
+
+def test_cols_route_equals_reference():
+    """mfa_col_fits is the reference's _run_cols condition (mfa.py:131-133):
+    L <= MAX_FUSED_L, and a full column only where whole_row_ok."""
+    for n2 in (4, 8, 16, 32, 64, 128, 256, 512):
+        for L in range(16, 2049, 16):
+            for full in (False, True):
+                want = L <= MAX_FUSED_L and (not full or whole_row_ok(n2, L))
+                assert tfused.mfa_col_fits(n2, L, full) == want, (n2, L, full)
+
+
+# (bits_a, bits_b, driver): the plans whose columns the parent ran on the
+# ladder: 6.3x10^7 x 5x10^6 (13 / 1 / 512, (128, 512) full and truncated),
+# 3.7x10^7 x 3.3x10^7 (flagship 13 / 1 / 512; mfa_trunc and mfa 13 / 2 /
+# 1024: (128, 1024) truncated and full), 7.4x10^7 x 6.6x10^7 (flagship
+# 13 / 2 / 1024: (256, 1024) truncated; mfa_trunc 14 / 1 / 1024 the same)
+ROUTED = [(63_095_734, 5_011_872, "flagship"), (36_869_450, 32_859_931, "flagship"),
+          (36_869_450, 32_859_931, "mfa_trunc"), (36_869_450, 32_859_931, "mfa"),
+          (73_564_225, 65_564_184, "flagship"), (73_564_225, 65_564_184, "mfa_trunc")]
+
+
+@pytest.mark.parametrize("bits_a,bits_b,driver", ROUTED)
+def test_cols_route_plans(monkeypatch, bits_a, bits_b, driver):
+    """Every column pass of these plans' transforms takes the column kernel
+    (fused_mfa_cols), none the truncate.py recursion: the calls into the
+    wrapper are counted, each checked against mfa_col_fits and given its
+    cluster.  The passes are recorded, not computed (a stand-in returns its
+    input; the row transforms likewise), since the columns take 256 MB at
+    these sizes; the values are the other tests' and the card's."""
+    plan = choose_params(bits_a, bits_b, sqrt2=driver == "flagship")
+    W, L, n1 = plan.W, plan.W // 16, plan.n1
+    calls = []
+
+    def record(kind, x, w, W_, n1_, trunc2, one=False):
+        n2 = x.shape[-2]
+        assert tfused.mfa_col_fits(n2, L, trunc2 == n2)
+        calls.append((kind, n2, trunc2 == n2, tfused.mfa_col_cluster(n2, L)))
+        return x
+
+    def ladder_route(kind, one):
+        raise AssertionError("a column pass took the truncate.py recursion")
+
+    monkeypatch.setattr(tmfa, "fused_mfa_cols", record)
+    monkeypatch.setattr(tmfa, "truncated", ladder_route)
+    monkeypatch.setattr(tmfa, "fft_radix2", lambda x, *a, **k: x)
+    monkeypatch.setattr(tmfa, "ifft_radix2", lambda x, *a, **k: x)
+    x = torch.zeros((1, plan.conv_len, L), dtype=torch.int32)
+    if driver == "flagship":
+        t = plan.trunc_mfa
+        assert t < plan.conv_len
+        tmfa.mfa_fft_trunc_sqrt2(x, plan.w, W, n1, t)
+        tmfa.mfa_ifft_trunc_sqrt2(x, plan.w, W, n1, t, norm_div=plan.lg_conv)
+    else:
+        xc = x.reshape(1, plan.n2, n1, L)
+        t2 = plan.trunc_mfa // n1 if driver == "mfa_trunc" else plan.n2
+        assert t2 < plan.n2 or driver == "mfa"
+        tmfa.mfa_fft_trunc(xc, plan.w, W, n1, plan.n2, t2)
+        tmfa.mfa_ifft_trunc(xc, plan.w, W, n1, plan.n2, t2)
+    assert calls and {k for k, *_ in calls} == {"fwd", "inv"}, calls
+    assert all(R > 1 for *_, R in calls), calls         # each a cluster launch
+
+
+def test_cols_wrapper_rejects_unfused():
+    """The wrapper takes only what the reference fuses, on the CPU as on
+    the card: a full (256, 1024) column (1 MB) and any L 2048 column raise.
+    A truncated column past a cluster of 8 CTAs fits the rule but no
+    cluster holds it (the card's wrapper raises there)."""
+    x = torch.zeros((2, 256, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tfused.fused_mfa_cols("fwd", x, 1, 16 * 1024, 2, 256)
+    tfused.fused_mfa_cols("fwd", x[:, :, :16].contiguous(), 1, 256, 2, 256)   # (256, 16): fused
+    with pytest.raises(ValueError):
+        tfused.fused_mfa_cols("inv", torch.zeros((2, 4, 2048), dtype=torch.int32), 1,
+                              16 * 2048, 2, 2)
+    assert tfused.mfa_col_fits(1024, 1024, False)
+    assert tfused.mfa_col_cluster(1024, 1024) is None
+    assert [tfused.mfa_col_cluster(n2, L) for n2, L in
+            ((128, 256), (128, 512), (128, 1024), (256, 1024), (64, 896))] == [1, 2, 4, 8, 2]
+
+
+def test_cols_unheld_column_takes_recursion(rng, monkeypatch):
+    """A truncated (1024, 1024) column, 4 MB: the reference's rule fuses it,
+    no cluster of 8 CTAs holds it, so _run_cols gives it the truncate.py
+    recursion (no plan makes one).  mfa_fft_trunc returns, never entering
+    the column kernel's wrapper, and its column pass equals the wrapper's
+    plain version on the CPU, raw digits."""
+    n1, n2, L, w, trunc2 = 2, 1024, 1024, 1, 600
+    W = 16 * L
+    x = T(_rand(rng, (n2, n1, L)))
+    x[trunc2:] = 0
+    want = tfused.fused_mfa_cols("fwd", tmfa._swap(x).reshape(n1, n2, L), w, W, n1, trunc2)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("an unheld column entered the column kernel's wrapper")
+
+    monkeypatch.setattr(tmfa, "fused_mfa_cols", no_kernel)
+    got = tmfa._run_cols(tmfa._swap(x), "fwd", w, W, trunc2)
+    assert torch.equal(got, want)
+    out = tmfa.mfa_fft_trunc(x, w, W, n1, n2, trunc2)
+    assert out.shape == x.shape
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +371,6 @@ def test_cols_ladder_route_equals_kernel_route(rng, monkeypatch, kind):
                 xin[..., trunc2:, :] = 0
             want = tmfa._run_cols(xin, kind, w, W, trunc2, one)
             with monkeypatch.context() as m:
-                m.setattr(tmfa, "mfa_col_fits", lambda n2, L: False)
+                m.setattr(tmfa, "mfa_col_fits", lambda n2, L, full: False)
                 got = tmfa._run_cols(xin, kind, w, W, trunc2, one)
             assert torch.equal(got, want), (trunc2, one)
