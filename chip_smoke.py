@@ -6,14 +6,13 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the twenty-four kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty-five kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
        L 512, conv 16384): every ladder group of the forward (operands
-       stacked) and inverse transforms, normmod_div on (16384, 512) and
-       normmod on one 2^18-digit row (the mulmod_int ring at N = 2^22,
-       streamed), canonicalize on the 2.5 M-digit product (chained
+       stacked) and inverse transforms, normmod_div on (16384, 512),
+       canonicalize on the 2.5 M-digit product (chained
        route), random and all one ripple, and on the recursive pointwise's
        chunk combines (6528, 5169) and (5376, 6209) at 1.2 and 1.5x10^9
        bits (row route, a ripple row among them; utils/transform_bench
@@ -25,6 +24,10 @@
        1.5x10^9-bit default plans, (6528 x 256, 48), (6528, 5120), (5376 x
        256, 64), (5376, 6144), the 1.5x10^9 norm tail (65536, 6144), and
        the MPIR_FFT_NTT=0 chunks at 10^8 and 10^9 bits;
+     normmod (long) -- the mulmod_int rings' final normmod, one row of
+       2^18, 2^20 and 2^25 digits (N = 2^22, 2^24, 2^29: the chained scan),
+       random and all-0xFFFF ripple, raw digits identical, ms beside bound
+       and share (measure_normmod), and the 2^18 row at three shifts;
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
        without a tail, and its launches in the 10^9-bit plan, (131072,
@@ -141,9 +144,10 @@
      mul(a, b, driver=k) for the six other drivers at 2x10^6 x 1.4x10^6
        bits, full compare (mfa and mfa_trunc through the column kernel);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
-       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier; one ring, so
-       its transforms take the ladder: ladder_pre_half forward, a
-       twiddle_half pass after the inverse), against
+       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier; one ring,
+       so its transforms take the ladder: ladder_pre_half forward, a
+       twiddle_half pass after the inverse; the final normmod on the long
+       route at every N), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
        folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused).
    For each: the plan, the launches, host-clock and CUDA-event times, and
@@ -371,7 +375,8 @@ def main() -> int:
     from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
     from mpir_fft_tpu_torch.utils.transform_bench import (
-        CONV_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, ladder_route, measure_canon,
+        CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES,
+        ladder_route, measure_canon,
         measure_conv_base, measure_normmod, measure_sqrt2_fwd, measure_sqrt2_inv,
         measure_twiddle, measure_whole, mfa_cols_ops)
     # the card's peak rates (H100 SXM data sheet) and the bound they give
@@ -429,8 +434,11 @@ def main() -> int:
     rows = {}
 
     def add_row(name, source, replaces, err, ms, pms, nbytes, ops, library_ms=None,
-                ops_per_s=INT32_OPS_PER_S):
-        r = rows.setdefault(name, dict(name=name, route="cuda", source=source, replaces=replaces,
+                ops_per_s=INT32_OPS_PER_S, counter=None):
+        """Add a timed shape to the kernel's row; counter: its LAUNCHES key
+        (default: name)."""
+        r = rows.setdefault(name, dict(name=name, counter=counter or name, route="cuda",
+                                       source=source, replaces=replaces,
                                        max_abs_err=0, ms=0.0, plain_ms=0.0, nbytes=0.0, ops=0.0,
                                        library_ms=None, ops_per_s=ops_per_s))
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -477,19 +485,23 @@ def main() -> int:
     add_row("normmod", "mpir_fft_tpu_torch/csrc/normmod.cu", "mpir_fft_tpu/ops/fused.py:503",
             err, ms, pms, 8 * x.numel(), 3 * x.numel())
     print(f"normmod_div {tuple(x.shape)} d={plan.lg_conv}: exact; {ms:.3f} ms (plain {pms:.3f} ms)")
-    # a long row (the mulmod_int ring at N = 2^22): the streaming kernel
+    # long rows (the mulmod_int rings' final normmod): the chained scan,
+    # random and all-0xFFFF ripple rows, and the 2^18 row at three shifts
+    for rows_l, Ll, d, fill in NORMMOD_LONG_SHAPES:
+        rec = measure_normmod(rows_l, Ll, d, rand, 10, fill)
+        add_row("normmod (long)", "mpir_fft_tpu_torch/csrc/normmod.cu",
+                "mpir_fft_tpu/ops/fused.py:503", 0, rec["ms"], rec["plain_ms"], rec["nbytes"],
+                rec["ops"], counter="normmod_long")
+        print(f"normmod {tuple(rec['shape'])} {fill} (long row, chained scan): exact; "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), bound "
+              f"{rec['bound_ms']:.4f} ({rec['share']:.0%}; plain {rec['plain_ms']:.3f} ms)")
+        torch.cuda.empty_cache()
     Ll = MULMOD_N[0] // DIGIT_BITS
     xl = rand((1, Ll), -(1 << 18), 1 << 18)
     xl[0, Ll - 1] = 1 << 20
-    for sl in (0, 3, 2 * 16 * Ll - 12):
-        err_l, _ = compare(("normmod long", sl), fused_normmod_div(xl, sl, 16 * Ll),
-                           normmod_rows_plain(xl, sl, 16 * Ll), canonical=True)
-    ms = time_ms(lambda: fused_normmod_div(xl, 0, 16 * Ll), 10, 2)
-    pms = time_ms(lambda: normmod_rows_plain(xl, 0, 16 * Ll), 3)
-    add_row("normmod", "mpir_fft_tpu_torch/csrc/normmod.cu", "mpir_fft_tpu/ops/fused.py:503",
-            err_l, ms, pms, 8 * xl.numel(), 3 * xl.numel())
-    print(f"normmod {tuple(xl.shape)} (long row, streamed): exact; {ms:.3f} ms "
-          f"(plain {pms:.3f} ms)")
+    for sl in (3, 16 * Ll + 5, 2 * 16 * Ll - 12):
+        compare(("normmod long", sl), fused_normmod_div(xl, sl, 16 * Ll),
+                normmod_rows_plain(xl, sl, 16 * Ll), canonical=True)
     del xl
     # normmod at the recursive pointwise's shapes: short rows (the inner
     # rings) and block rows (the outer rings, the even-w norm tail), each
@@ -1104,7 +1116,8 @@ def main() -> int:
     # (mulmod_int) the ladder, its forward weights in the first group and a
     # twiddle_half pass after the inverse
     rec = ("ladder", "transform_small_half", "conv_base", "normmod", "canonicalize")
-    rec_flat_ntt = ("ladder", "ladder_pre_half", "twiddle_half", "normmod", "canonicalize") + ntt
+    rec_flat_ntt = ("ladder", "ladder_pre_half", "twiddle_half", "normmod", "normmod_long",
+                    "canonicalize") + ntt
     no_twiddle = ("twiddle_half", "transform_small")
     no_school = ("conv_base",)
     ntt4 = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
@@ -1133,8 +1146,9 @@ def main() -> int:
         assert got_plan == want_plan, (label, tplan)
         unbalanced = bits_b != bits
         assert (tplan.trunc_mfa < tplan.conv_len) == unbalanced, (label, tplan)
+        forbid = tuple(forbid) + ("normmod_long",)    # no plan's row is long
         if not unbalanced:
-            forbid = tuple(forbid) + ("mfa_cols", "ladder_pe")
+            forbid = forbid + ("mfa_cols", "ladder_pe")
         x, y = operand(bits), operand(bits_b)
 
         def run():
@@ -1297,14 +1311,15 @@ def main() -> int:
         mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa + ("transform_small_half",))
     # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
     mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "ladder_pre_half", "twiddle_half",
-                                                   "normmod", "canonicalize") + ntt4,
+                                                   "normmod", "normmod_long", "canonicalize")
+                                 + ntt4,
                                  tuple(k for k in no_rec if k != "twiddle_half") + no_mfa)
     assert (mp.m, mp.Lp) == (32768, 4096), mp
     old = os.environ.get("MPIR_FFT_NTT_FUSED")
     os.environ["MPIR_FFT_NTT_FUSED"] = "1"
     try:
-        mulmod_case(MULMOD_N[2], " fused", ("ladder", "normmod", "canonicalize", "ntt4_fused",
-                                            "garner_residues"),
+        mulmod_case(MULMOD_N[2], " fused", ("ladder", "normmod", "normmod_long", "canonicalize",
+                                            "ntt4_fused", "garner_residues"),
                     ("ntt4_input_planes", "int8_gemm", "conv_base", "transform_small",
                      "input_planes") + no_mfa,
                     (x, y), want)
@@ -1327,10 +1342,10 @@ def main() -> int:
     for r in rows.values():
         bms, by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
         table.append(dict(name=r["name"], route=r["route"], source=r["source"],
-                          replaces=r["replaces"], launches=launches_total[r["name"]],
+                          replaces=r["replaces"], launches=launches_total[r["counter"]],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
-    assert {r["name"] for r in table} == set(kernels.LAUNCHES)
+    assert {r["counter"] for r in rows.values()} == set(kernels.LAUNCHES)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(gpu_line())

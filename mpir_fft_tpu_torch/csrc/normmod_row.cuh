@@ -1,7 +1,8 @@
 // The exact canonicalization of ring elements, run by run: the row bodies of
-// csrc/normmod.cu (its short-row and block-row kernels); the block rows'
-// exact carry (exact_rows) is also the inverse sqrt2 top merge's norm tail
-// (csrc/sqrt2_top.cu), on both output rows at once.
+// csrc/normmod.cu (its short-row and block-row kernels, and the long rows'
+// tiles); the block rows' exact carry (exact_rows) is also the inverse
+// sqrt2 top merge's norm tail (csrc/sqrt2_top.cu), on both output rows at
+// once.
 //
 // out = normmod(v * 2^s mod 2^(16L)+1) for a static shift s in [0, 2W): the
 // shift (rotation, sub-digit shift, sign: shifted_digits), two carry passes
@@ -64,6 +65,11 @@ __device__ __forceinline__ int code_then(int later, int earlier) {
 // f(0): the carry out of a range whose carry in is 0
 __device__ __forceinline__ int code_carry0(int code) {
   return ((((code >> 8) & 3) + 1) >> 1) - 1;
+}
+
+// f(c): the carry out of a range whose carry in is c in {-1, 0, 1}
+__device__ __forceinline__ int code_apply(int code, int c) {
+  return ((((code >> (8 * code_byte(c))) & 3) + 1) >> 1) - 1;
 }
 
 // Digits j0 .. j0+N-1 (indices mod L, j0 >= -L) of shift_mod(x, s), x one
@@ -140,6 +146,31 @@ __device__ __forceinline__ void carry_digits(int (&v)[D], int prev, int i0) {
     v[j] = (v[j] & DIGIT_MASK) + c;
     c = n;
   }
+}
+
+// Digits i0 .. i0+D-1 of shift_mod(x, s) after two carry passes (digits in
+// [-1, 2^16]), 0 where i0 >= L: the thread recomputes the two shifted
+// digits below its run (mod L: the row's top ones at i0 == 0), so the
+// passes need no exchange; the first pass's digit i0-1 from the two below.
+template <int V, int D>
+__device__ __forceinline__ void carried_digits(const int* x, int i0, int s, int L, int (&v)[D]) {
+  int u2 = 0, u1 = 0;       // the shifted digits i0-2, i0-1 (mod L)
+  if (i0 < L) {
+    int w[D + 2];
+    shifted_digits<V, D + 2>(x, i0 - 2, s, L, w);
+    u2 = w[0];
+    u1 = w[1];
+#pragma unroll
+    for (int j = 0; j < D; ++j) v[j] = w[j + 2];
+  } else {
+#pragma unroll
+    for (int j = 0; j < D; ++j) v[j] = 0;
+  }
+  const int im1 = i0 == 0 ? L - 1 : i0 - 1;
+  const int c1 = u2 >> DIGIT_BITS;
+  const int p1 = (u1 & DIGIT_MASK) + (im1 == 0 ? -c1 : c1);
+  carry_digits(v, u1, i0);
+  carry_digits(v, p1, i0);
 }
 
 // The composed transition of the runs below L (the three carry chains of a
@@ -380,25 +411,7 @@ __device__ __forceinline__ void normmod_row(const int* x, int L, int s, int* out
   constexpr int D = V * R;
   const int i0 = threadIdx.x * D;
   int v[1][D];
-  int u2 = 0, u1 = 0;       // the shifted digits i0-2, i0-1 (mod L)
-  if (i0 < L) {
-    int w[D + 2];
-    shifted_digits<V, D + 2>(x, i0 - 2, s, L, w);
-    u2 = w[0];
-    u1 = w[1];
-#pragma unroll
-    for (int j = 0; j < D; ++j) v[0][j] = w[j + 2];
-  } else {
-#pragma unroll
-    for (int j = 0; j < D; ++j) v[0][j] = 0;
-  }
-  // two carry passes on the thread's own digits: the first pass's digit
-  // i0-1 from the two below it
-  const int im1 = i0 == 0 ? L - 1 : i0 - 1;
-  const int c1 = u2 >> DIGIT_BITS;
-  const int p1 = (u1 & DIGIT_MASK) + (im1 == 0 ? -c1 : c1);
-  carry_digits(v[0], u1, i0);
-  carry_digits(v[0], p1, i0);
+  carried_digits<V, D>(x, i0, s, L, v[0]);
   int* const o[1] = {outr};
   exact_rows<V, R, 1>(v, i0, L, o);
 }

@@ -38,7 +38,7 @@ LIB_STEM = "libmpir_fft_kernels"
 
 LAUNCHES = {
     "ladder": 0, "ladder_pe": 0, "ladder_pre_half": 0, "mfa_cols": 0, "conv_base": 0,
-    "normmod": 0, "canonicalize": 0,
+    "normmod": 0, "normmod_long": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
     "transform_small_half": 0,
     "input_planes": 0, "mid_planes": 0, "garner_carry": 0, "garner_carry_post": 0,
@@ -129,9 +129,9 @@ _SIGNATURES = {
     "mf_mfa_cols": (_P, _P, _P, _I, _LL, _I, _I, _LL, _LL, _I, _I, _P),
     # a, b, out, B, L, stream
     "mf_conv_base": (_P, _P, _P, _LL, _I, _P),
-    # x, out, scratch (2*B*L ints for L > mf_normmod_row_max(), else null),
-    # B, L, s (shift exponent in [0, 2W)), stream
-    "mf_normmod": (_P, _P, _P, _LL, _I, _I, _P),
+    # x, out, scratch (mf_normmod_scratch(B, L) ints, or null where that is
+    # 0), its ints, B, L, s (shift exponent in [0, 2W)), stream
+    "mf_normmod": (_P, _P, _P, _LL, _LL, _I, _I, _P),
     # x, out, scratch (mf_canonicalize_scratch(Bt, N) ints, or null where
     # that is 0), its ints, Bt, N, stream
     "mf_canonicalize": (_P, _P, _P, _LL, _LL, _LL, _P),
@@ -182,6 +182,8 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     so.mf_canonicalize_scratch.argtypes = [_LL, _LL]
     so.mf_canonicalize_scratch.restype = ctypes.c_longlong
+    so.mf_normmod_scratch.argtypes = [_LL, _I]
+    so.mf_normmod_scratch.restype = ctypes.c_longlong
     return so
 
 

@@ -301,9 +301,9 @@ def normmod_rows_plain(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
 def normmod_route(L: int) -> str:
     """The normmod kernel a row of L digits takes: "short" (several rows a
     warp, L <= NORMMOD_SHORT_MAX), "block" (one CTA a row, L <=
-    NORMMOD_ROW_MAX) or "long" (streamed through scratch: the mulmod_int
-    rings).  The limits are csrc/normmod.cu's mf_normmod_short_max and
-    mf_normmod_row_max."""
+    NORMMOD_ROW_MAX) or "long" (a chained scan over 2048-digit tiles, one
+    CTA each: the mulmod_int rings).  The limits are csrc/normmod.cu's
+    mf_normmod_short_max and mf_normmod_row_max."""
     return "short" if L <= NORMMOD_SHORT_MAX else "block" if L <= NORMMOD_ROW_MAX else "long"
 
 
@@ -313,7 +313,11 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     carry-out with the -1 form, in one pass.  normmod_div(x, d) is s = 2W - d;
     normmod is s = 0.  The route is normmod_route(L): short rows several to
     a warp, block rows one CTA each, and rows too long for a block (a
-    mulmod_int ring at N >= 2^18) stream through a scratch buffer."""
+    mulmod_int ring at N >= 2^18) a single-pass chained scan over the card,
+    whose tickets, status words and two words a row are the only scratch
+    (mf_normmod_scratch(B, L) ints), then a launch that folds the carry
+    out into the first digits.  Launches count under "normmod", or
+    "normmod_long" on the long route."""
     _require(x, "normmod")
     L = x.shape[-1]
     if W != DIGIT_BITS * L:
@@ -323,15 +327,15 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
         return normmod_rows_plain(x, s, W)
     B = x.numel() // L
     out = torch.empty_like(x)
-    scratch = None
-    if normmod_route(L) == "long":
-        scratch = torch.empty((2, B, L), dtype=torch.int32, device=x.device)
+    long = normmod_route(L) == "long"
+    n = kernels.lib().mf_normmod_scratch(B, L) if long else 0
+    scratch = torch.empty(n, dtype=torch.int32, device=x.device) if long else None
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_normmod(
-            x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n,
             B, L, s, kernels.stream_of(x))
     kernels.check(rc, "normmod")
-    kernels.LAUNCHES["normmod"] += 1
+    kernels.LAUNCHES["normmod_long" if long else "normmod"] += 1
     return out
 
 

@@ -1,7 +1,7 @@
 """Where the time of a multiply goes on the card (counterpart, in part, of
 mpir_fft_tpu/utils/profile.py).
 
-    python -m mpir_fft_tpu_torch.utils.profile [SIZE ...] [--reps R]
+    python -m mpir_fft_tpu_torch.utils.profile [SIZE ...] [--mulmod LG ...] [--reps R]
 
 For each SIZE -- BITS (both operands BITS bits) or BITS_AxBITS_B (an
 unbalanced product, e.g. 1000000000x100000000); operands random from a
@@ -23,6 +23,12 @@ fixed seed; default 10^7, 10^8 and 10^9:
     (after one warm-up call at the size), device-to-host copy,
     int_from_digits;
   * the peak device memory of one flagship call.
+With --mulmod LG ... (e.g. 22 24 29), the same for mulmod_int at N = 2^LG,
+residues random from the seed: its plan (m, Lp), the device time of
+mulmod(canonical=True) on the digits (CUDA events), the profiler window's
+kernels (the long-row normmod as "normmod (long)"), the host-clock split of
+mulmod_int (digits_from_int, host to device, the synchronised mulmod,
+device to host, int_from_digits) and the peak device memory of one call.
 Prints one JSON object per size, then the card's nvidia-smi name and
 power-limit line.  Needs a CUDA device; without one it raises."""
 
@@ -41,7 +47,7 @@ from mpir_fft_tpu_torch import kernels
 from mpir_fft_tpu_torch.models.mul import (_select_plan, _staged_flagship, flagship_is_staged,
                                            mpn_mul_flagship)
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
-from mpir_fft_tpu_torch.ops.mulmod import inner_plan
+from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_plan
 from mpir_fft_tpu_torch.utils.params import cdiv
 
 SEED = 20261016
@@ -74,7 +80,8 @@ KERNEL_NAMES = (
     ("ladder_kernel", "ladder"), ("mfa_cols_kernel", "mfa_cols"),
     ("conv_short_kernel", "conv_base"), ("conv_block_kernel", "conv_base"),
     ("normmod_short_kernel", "normmod"), ("normmod_block_kernel", "normmod"),
-    ("normmod_long_kernel", "normmod"), ("canon_", "canonicalize"),
+    # the long route's three kernels (the chained scan, its fold, the reset)
+    ("normmod_", "normmod (long)"), ("canon_", "canonicalize"),
     ("twiddle_half_kernel", "twiddle_half"), ("sqrt2_top_fwd", "sqrt2_top_fwd"),
     ("sqrt2_top_inv", "sqrt2_top_inv"), ("transform_small", "transform_small"),
     ("ntt4_input_planes_kernel", "ntt4_input_planes"),
@@ -122,8 +129,34 @@ def device_kernels_per_call(fn, reps: int = 1) -> float:
                if ev.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
-def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
+def _host_steps(run, ha, hb, label: str, steps: dict):
+    """The host-clock steps around one call run(da, db) on the card, into
+    steps: host-to-device copies of the digits ha, hb, the synchronised call
+    (label; after a warm-up call), device-to-host copy, int_from_digits.
+    Returns da, db and the call's peak device memory (bytes)."""
     dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
+    torch.cuda.synchronize()
+    steps["host to device"] = time.perf_counter() - t
+    run(da, db)                           # warm-up: first launches of each op
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    prod = run(da, db)
+    torch.cuda.synchronize()
+    steps[label] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    hp = prod.cpu().numpy()
+    steps["device to host"] = time.perf_counter() - t
+    t = time.perf_counter()
+    int_from_digits(hp)
+    steps["int_from_digits"] = time.perf_counter() - t
+    return da, db, peak
+
+
+def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     rnd = random.Random(SEED + bits_a + bits_b)
     a = rnd.getrandbits(bits_a) | (1 << (bits_a - 1))
     b = rnd.getrandbits(bits_b) | (1 << (bits_b - 1))
@@ -138,32 +171,55 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     ha = digits_from_int(a, cdiv(bits_a, DIGIT_BITS))
     hb = digits_from_int(b, cdiv(bits_b, DIGIT_BITS))
     steps["digits_from_int x2"] = time.perf_counter() - t
-    t = time.perf_counter()
-    da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
-    torch.cuda.synchronize()
-    steps["host to device"] = time.perf_counter() - t
-    run(da, db)                           # warm-up: first launches of each op
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    prod = run(da, db)
-    torch.cuda.synchronize()
-    steps["flagship"] = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated()
-    t = time.perf_counter()
-    hp = prod.cpu().numpy()
-    steps["device to host"] = time.perf_counter() - t
-    t = time.perf_counter()
-    int_from_digits(hp)
-    steps["int_from_digits"] = time.perf_counter() - t
+    da, db, peak = _host_steps(run, ha, hb, "flagship", steps)
+    W = plan.W
+    inner = inner_plan(W)
+    return {
+        "bits": [bits_a, bits_b],
+        "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
+                 "conv": plan.conv_len, "trunc_mfa": plan.trunc_mfa},
+        "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
+        "staged": staged,
+        "device_ms": _events_ms(lambda: run(da, db), reps),
+        **_window(lambda: run(da, db), reps),
+        "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
+        "peak_memory_gib": peak / 2**30,
+    }
 
-    device_ms = _events_ms(lambda: run(da, db), reps)
 
+def profile_mulmod(lg: int, reps: int) -> dict:
+    """mulmod_int at N = 2^lg: as profile_size, on mulmod(canonical=True)."""
+    N = 1 << lg
+    rnd = random.Random(SEED + N)
+    a, b = rnd.randrange((1 << N) + 1), rnd.randrange((1 << N) + 1)
+    L = N // DIGIT_BITS
+    run = lambda x, y: mulmod(x, y, N, canonical=True)   # noqa: E731
+    steps = {}
+    t = time.perf_counter()
+    ha = digits_from_int(a if a < (1 << N) else -1, L)
+    hb = digits_from_int(b if b < (1 << N) else -1, L)
+    steps["digits_from_int x2"] = time.perf_counter() - t
+    da, db, peak = _host_steps(run, ha, hb, "mulmod", steps)
+    plan = mulmod_plan(N)
+    return {
+        "mulmod_N": N,
+        "plan": {"m": plan.m, "Lp": plan.Lp, "wp": plan.wp, "b": plan.b},
+        "device_ms": _events_ms(lambda: run(da, db), reps),
+        **_window(lambda: run(da, db), reps),
+        "mulmod_int_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
+        "host_share": 1.0 - steps["mulmod"] / sum(steps.values()),
+        "peak_memory_gib": peak / 2**30,
+    }
+
+
+def _window(fn, reps: int) -> dict:
+    """A torch.profiler window over reps fn() calls: device ms per call by
+    kernel, kernels per call, the device's busy and idle share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
         for _ in range(reps):
-            run(da, db)
+            fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t) * 1e3
     by_kernel: dict[str, float] = {}
@@ -182,15 +238,7 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
                 ms0, n0 = gemms.get(ev.key[:80], (0.0, 0.0))
                 gemms[ev.key[:80]] = (ms0 + ms, n0 + ev.count / reps)
     busy = sum(by_kernel.values())
-    W = plan.W
-    inner = inner_plan(W)
     return {
-        "bits": [bits_a, bits_b],
-        "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
-                 "conv": plan.conv_len, "trunc_mfa": plan.trunc_mfa},
-        "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
-        "staged": staged,
-        "device_ms": device_ms,
         "profiled_wall_ms_per_call": window_ms / reps,
         "device_busy_ms_per_call": busy,
         "device_idle_share": max(0.0, 1.0 - busy * reps / window_ms),
@@ -198,24 +246,27 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
         "device_kernels_per_call": launches / reps,
         "torch_ops_top5_ms": dict(sorted(torch_ops.items(), key=lambda kv: -kv[1])[:5]),
         "int8_gemm_kernels_ms_and_launches": gemms,
-        "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
-        "peak_memory_gib": peak / 2**30,
     }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sizes", nargs="*", default=["10000000", "100000000", "1000000000"],
-                    help="BITS or BITS_AxBITS_B")
+    ap.add_argument("sizes", nargs="*", help="BITS or BITS_AxBITS_B (default: 10^7, 10^8, "
+                    "10^9 where no --mulmod is given)")
+    ap.add_argument("--mulmod", nargs="+", type=int, default=[], metavar="LG",
+                    help="mulmod_int at N = 2^LG")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
+    sizes = args.sizes or ([] if args.mulmod else ["10000000", "100000000", "1000000000"])
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     kernels.lib()                   # build first: no size pays for nvcc
     torch.empty(1, device="cuda")   # nor for creating the CUDA context
-    for size in args.sizes:
+    for size in sizes:
         bits = [int(v) for v in size.split("x")]
         print(json.dumps(profile_size(bits[0], bits[-1], args.reps)), flush=True)
+    for lg in args.mulmod:
+        print(json.dumps(profile_mulmod(lg, args.reps)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

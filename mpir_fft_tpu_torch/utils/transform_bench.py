@@ -27,7 +27,12 @@ transform and the folded outer ring, per chunk of the default plans at
 1.2x10^9 ((6528 x 256, 48), d 8; (6528, 5120)) and 1.5x10^9 ((5376 x 256,
 64), d 8; (5376, 6144)), the 1.5x10^9 even-w norm tail (65536, 6144), and
 the MPIR_FFT_NTT=0 plans' chunks at 10^8 ((8192 x 256, 32), (8192, 3072))
-and 10^9 ((8192 x 128, 72), (8192, 4096)).
+and 10^9 ((8192 x 128, 72), (8192, 4096)).  Long rows (rows, L, d, fill):
+the mulmod_int rings' final normmod at N = 2^22, 2^24 and 2^29 ((1, 2^18),
+(1, 2^20), (1, 2^25)), each "random" and "ripple" (all 0xFFFF, the top
+digit -1: every tile of the chained scan looks back, and the carry out
+ripples through the whole row into the -1 form); timed under the name
+"normmod (long)".
 
 Inverse sqrt2 top merges, (C, L, w, lg_conv): the 1.2x10^9 plan's (65536,
 5120), w 5, and the 10^9 plan's (131072, 2048), w 1, each with its norm
@@ -73,7 +78,8 @@ same input: raw digits identical, both timed.
 
 For each: raw digits held against the plain version (AssertionError where
 they differ), the kernel's device ms (CUDA events, median of R after a
-warm-up), the plain version's (one run), the bound (utils/profile.bound; 8
+warm-up; normmod also the kernels' own time from the profiler,
+device_ms), the plain version's (one run), the bound (utils/profile.bound; 8
 bytes per digit, inputs read once and outputs written once; one int32
 operation per digit and stage, two more for the weights, four for a
 twiddle) and the share of it.  Prints one JSON object per shape, then the
@@ -100,6 +106,8 @@ WHOLE_SHAPES = ((6528, 256, 48, 6), (5376, 256, 64, 8), (8192, 256, 32, 4), (655
 NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (5376, 6144, 0),
                   (65536, 6144, 16), (8192 * 256, 32, 8), (8192, 3072, 0),
                   (8192 * 128, 72, 7), (8192, 4096, 0))
+NORMMOD_LONG_SHAPES = tuple((1, 1 << lg, 0, fill) for lg in (18, 20, 25)
+                            for fill in ("random", "ripple"))
 SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
                     (16384, 256, 1, 0))
 SQRT2_FWD_SHAPES = ((2, 16384, 256, 1),)
@@ -137,6 +145,21 @@ def _burst_ms(fn, reps: int, k: int = 10) -> float:
     overlaps the kernels, as on the main path, where the host runs ahead."""
     fn()
     return _events_ms(lambda: [fn() for _ in range(k)], reps) / k
+
+
+def _kernel_ms(fn, frag: str, n: int = 20) -> float:
+    """Device ms per fn() call of the kernels whose names hold frag
+    (torch.profiler over n calls after a warm-up): the card's own time,
+    without the gaps a burst leaves where the host's work per call is the
+    longer."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and frag in ev.key) / 1e3 / n
 
 
 def _half_plain(x: torch.Tensor, e0: int, step: int, W: int) -> torch.Tensor:
@@ -197,26 +220,37 @@ def measure_twiddle(rows: int, L: int, h: int, e0: int, step: int, rand, reps: i
                         plain_ms=pms, nbytes=8 * x.numel(), ops=4 * x.numel()))
 
 
-def measure_normmod(rows: int, L: int, d: int, rand, reps: int) -> dict:
-    """fused_normmod_div of (rows, L) digits by 2^d, the ripple edge rows
-    among them: held against normmod_rows_plain (raw digits), then timed
-    in bursts (_burst_ms)."""
+def measure_normmod(rows: int, L: int, d: int, rand, reps: int, fill: str = "random") -> dict:
+    """fused_normmod_div of (rows, L) digits by 2^d: "random", the ripple
+    edge rows among them where rows > 2, or "ripple" (every row all 0xFFFF
+    but its top digit, -1: the carry out -1 ripples through the whole row
+    into the -1 form); held against normmod_rows_plain (raw digits), then
+    timed in bursts (_burst_ms) and by the profiler (device_ms: the
+    kernels' own time, _kernel_ms).  Named "normmod (long)" on the long
+    route."""
     W = 16 * L
     s = (2 * W - d) % (2 * W)
-    x = rand((rows, L), -(1 << 18), 1 << 18)
-    x[0] = 0xFFFF
-    x[1] = 0
-    x[1, 0] = -1
-    x[2] = 0
-    x[2, L - 1] = 1 << 16
+    if fill == "ripple":
+        x = torch.full((rows, L), 0xFFFF, dtype=torch.int32, device="cuda")
+        x[:, L - 1] = -1
+    else:
+        x = rand((rows, L), -(1 << 18), 1 << 18)
+        if rows > 2:
+            x[0] = 0xFFFF
+            x[1] = 0
+            x[1, 0] = -1
+            x[2] = 0
+            x[2, L - 1] = 1 << 16
     got = fused.fused_normmod_div(x, s, W)
     want, pms = _once_ms(lambda: fused.normmod_rows_plain(x, s, W))
-    assert torch.equal(got, want), ("normmod", (rows, L), d, "digits differ")
+    assert torch.equal(got, want), ("normmod", (rows, L), d, fill, "digits differ")
     del got, want
     torch.cuda.empty_cache()
     ms = _burst_ms(lambda: fused.fused_normmod_div(x, s, W), reps)
-    return _record(dict(name="normmod", shape=[rows, L], d=d, ms=ms, plain_ms=pms,
-                        nbytes=8 * x.numel(), ops=3 * x.numel()))
+    dms = _kernel_ms(lambda: fused.fused_normmod_div(x, s, W), "normmod_")
+    name = "normmod (long)" if fused.normmod_route(L) == "long" else "normmod"
+    return _record(dict(name=name, shape=[rows, L], d=d, fill=fill, ms=ms, device_ms=dms,
+                        plain_ms=pms, nbytes=8 * x.numel(), ops=3 * x.numel()))
 
 
 def _same_value(got: torch.Tensor, want: torch.Tensor, W: int) -> bool:
@@ -395,6 +429,9 @@ def main(argv=None) -> None:
     if args.only in (None, "normmod"):
         for shape in NORMMOD_SHAPES:
             print(json.dumps(measure_normmod(*shape, rand, args.reps)), flush=True)
+            torch.cuda.empty_cache()
+        for rows, L, d, fill in NORMMOD_LONG_SHAPES:
+            print(json.dumps(measure_normmod(rows, L, d, rand, args.reps, fill)), flush=True)
             torch.cuda.empty_cache()
     if args.only in (None, "sqrt2"):
         for shape in SQRT2_INV_SHAPES:

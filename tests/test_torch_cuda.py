@@ -220,25 +220,125 @@ def _normmod_inputs(rng, B, L):
     return [x]
 
 
+def _normmod_counter(L):
+    return "normmod_long" if normmod_route(L) == "long" else "normmod"
+
+
 @pytest.mark.parametrize("L,B", [
     (L, B) for L in (1, 16, 32, 48, 64, 71, 72, 128, 256, 512, 2048, 2049, 3072, 5120, 6144,
                       8192)
-    for B in (1, 7, 1003)] + [(8193, 8), (20000, 8)])
+    for B in (1, 7, 1003)] + [(8193, 8), (20000, 8)] + [
+    (10 * 2048 + k, 3) for k in (-1, 0, 1)] + [(1 << 18, 1), (1 << 20, 2), (1 << 25, 1)])
 def test_normmod_matches_plain(dev, L, B):
     """Every route (ops/fused.normmod_route): short rows up to 512 digits
     (several a warp), block rows up to 8192 (one CTA each), L > 8192 the
-    streaming long-row kernel; batches that no rows-per-CTA count divides;
-    odd L (one-digit runs)."""
+    chained scan over 2048-digit tiles (a partial last tile, the mulmod_int
+    rings' 2^18, 2^20 and 2^25 digits); batches that no rows-per-CTA count
+    divides; odd L (one-digit runs).  The plain version runs on the card
+    (the same integer ops as on the host)."""
     rng = np.random.default_rng(3)
     W = 16 * L
     for x in _normmod_inputs(rng, B, L):
-        xt = torch.from_numpy(x)
-        xd = xt.to(dev)
+        xd = torch.from_numpy(x).to(dev)
         for s in sorted({0, 1, 15, 16, 17, W - 1, W, W + 5, 2 * W - 14, 2 * W - 1}):
             if not 0 <= s < 2 * W:
                 continue
-            got = _launched("normmod", lambda: fused_normmod_div(xd, s, W))
-            assert torch.equal(got.cpu(), normmod_rows_plain(xt, s, W)), (s, normmod_route(L))
+            got = _launched(_normmod_counter(L), lambda: fused_normmod_div(xd, s, W))
+            assert torch.equal(got, normmod_rows_plain(xd, s, W)), (s, normmod_route(L))
+
+
+def _ripple_rows(rng, B, L, kind):
+    """Long rows whose carry out ripples back from digit 0: "ones" every
+    digit 0xFFFF, the top one -1 (carry out -1: the +1 runs through the whole
+    row into the -1 form, and every tile looks back); "ones_stop" leading
+    0xFFFF over three tiles, then a stop; "zeros" leading zeros, carry out
+    +1 (a -1 ripple); "mixed" B rows of those three and a random one."""
+    x = rng.integers(0, 1 << 16, (B, L)).astype(np.int32)
+    if kind == "ones":
+        x[:] = 0xFFFF
+        x[:, -1] = -1
+    elif kind == "ones_stop":
+        x[:, :5000] = 0xFFFF
+        x[:, 5000] = 5
+        x[:, -1] = -1
+    elif kind == "zeros":
+        x[:, :3000] = 0
+        x[:, 3000] = 7
+        x[:, -1] += 1 << 16
+    else:
+        for r, k in enumerate(("ones", "ones_stop", "zeros")):
+            x[r] = _ripple_rows(rng, 1, L, k)[0]
+    return x
+
+
+@pytest.mark.parametrize("kind,B,L", [
+    ("ones", 1, 10 * 2048 + 1), ("ones", 2, 1 << 18), ("ones", 1, 1 << 25),
+    ("ones_stop", 1, 1 << 18), ("zeros", 1, 1 << 18), ("zeros", 2, 20000),
+    ("mixed", 4, 20480), ("mixed", 4, 1 << 20)])
+def test_normmod_long_ripples(dev, kind, B, L):
+    """The long route's carry-out fold: the -1 form from an all-0xFFFF row,
+    ripples that stop after three tiles, leading zeros with carry out +1, and
+    in a batch each ripple in its own row only; digits identical to the
+    plain version."""
+    x = torch.from_numpy(_ripple_rows(np.random.default_rng(11), B, L, kind)).to(dev)
+    W = 16 * L
+    for s in (0, W + 3):
+        got = _launched("normmod_long", lambda: fused_normmod_div(x, s, W))
+        assert torch.equal(got, normmod_rows_plain(x, s, W)), (kind, s)
+    got = fused_normmod_div(x, 0, W)
+    if kind in ("ones", "mixed"):      # the -1 form
+        assert int(got[0, 0]) == -1 and not bool(got[0, 1:].any())
+
+
+@pytest.mark.parametrize("L", [20481, 1 << 18])
+def test_normmod_long_unaligned(dev, L):
+    """Long rows with one-digit runs (V 1): rows one word off 16-byte
+    alignment, and L % 4 != 0; digits identical to the plain version."""
+    rng = np.random.default_rng(12)
+    W = 16 * L
+    flat = _rand(rng, (2 * L + 1,), -(1 << 29), 1 << 29, dev)
+    flat[1 + L:1 + 2 * L] = torch.from_numpy(_ripple_rows(rng, 1, L, "ones")[0]).to(dev)
+    x = flat[1:].view(2, L)
+    assert x.data_ptr() % 16
+    for s in (0, 5, W + 17):
+        got = _launched("normmod_long", lambda: fused_normmod_div(x, s, W))
+        assert torch.equal(got, normmod_rows_plain(x, s, W)), s
+
+
+@pytest.mark.parametrize("kind,B,L", [("ones", 3, 1 << 18), ("ones", 1, 1 << 20),
+                                      ("random", 1, 1 << 25)])
+def test_normmod_long_repeatable(dev, kind, B, L):
+    """50 launches on one input give identical digits (a race in the
+    look-back or the fold would show as a launch that differs)."""
+    rng = np.random.default_rng(13)
+    x = _rand(rng, (B, L), -(1 << 29), 1 << 29, dev) if kind == "random" else \
+        torch.from_numpy(_ripple_rows(rng, B, L, kind)).to(dev)
+    W = 16 * L
+    first = fused_normmod_div(x, 0, W)
+    assert torch.equal(first, normmod_rows_plain(x, 0, W))
+    for k in range(50):
+        assert torch.equal(fused_normmod_div(x, 0, W), first), k
+
+
+@pytest.mark.parametrize("B,L", [(1, 8192), (3, 8193), (1, 1 << 18), (2, 10 * 2048 + 1),
+                                 (1, 1 << 25)])
+def test_normmod_scratch_matches_wrapper(dev, monkeypatch, B, L):
+    """mf_normmod_scratch(B, L): none up to NORMMOD_ROW_MAX, else a ticket,
+    a status word a 2048-digit tile and two words a row -- and exactly what
+    fused_normmod_div allocates beside its output (no (2, B, L) buffer)."""
+    want = 0 if L <= NORMMOD_ROW_MAX else B * -(-L // 2048) + 2 * B + 1
+    assert kernels.lib().mf_normmod_scratch(B, L) == want
+    x = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    sizes, empty = [], torch.empty
+
+    def spy(*shape, **kw):
+        t = empty(*shape, **kw)
+        sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    fused_normmod_div(x, 0, 16 * L)
+    assert sizes == ([want] if want else []), sizes
 
 
 @pytest.mark.parametrize("L", [48, 5120])

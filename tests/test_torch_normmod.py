@@ -5,7 +5,9 @@ gives them, and the host predicate that routes each width to its kernel
 
 The inner rings of the recursive pointwise (L 32, 48, 64, 72) are held
 against the reference's plain path, the outer rings (L 3072, 5120) against
-its Pallas row kernel (fused_rows) in interpret mode.  Exact: all arithmetic is
+its Pallas row kernel (fused_rows) in interpret mode, the long rows (L 8193
+to 2^18: the mulmod_int rings' final normmod, the chained-scan route)
+against its plain path, the one mulmod_int takes, and a Python-int oracle.  Exact: all arithmetic is
 integer.  On the CPU the port runs its plain version; the kernels behind the
 routes are held against it on the card (tests/test_torch_cuda.py)."""
 
@@ -19,7 +21,7 @@ from mpir_fft_tpu.ops import limb as jl
 from mpir_fft_tpu.ops.fused import force_pallas
 from mpir_fft_tpu_torch.ops import fused as tf
 from mpir_fft_tpu_torch.ops import limb as tl
-from mpir_fft_tpu_torch.ops.mulmod import inner_plan
+from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod_plan
 from mpir_fft_tpu_torch.utils.params import choose_params
 
 
@@ -95,3 +97,67 @@ def test_plan_widths_take_short_or_block_rows(monkeypatch, ntt):
     for L in (513, 3072, 4096, 5120, 6144, 8192):
         assert tf.normmod_route(L) == "block"
     assert tf.normmod_route(8193) == tf.normmod_route(1 << 18) == "long"
+
+
+def _long_rows(rng, L):
+    """_rows' edge rows and a random row, then a +1 ripple that stops after
+    5000 digits: leading 0xFFFF and a top digit of -1 (carry out -1)."""
+    ripple = rng.integers(0, 1 << 16, (1, L)).astype(np.int32)
+    ripple[0, :5000] = 0xFFFF
+    ripple[0, 5000] = 5
+    ripple[0, -1] = -1
+    return np.concatenate([_rows(rng, 1, L, 1 << 29), ripple])
+
+
+def _oracle(row, d, L):
+    """Canonical digits of normmod_div(row, d) (normmod where d is None) by
+    Python ints: value * 2^-d mod 2^W+1, the residue 2^W as [-1, 0, ...]."""
+    W = 16 * L
+    p = (1 << W) + 1
+    v = sum(int(c) << (16 * i) for i, c in enumerate(row.tolist())) % p
+    v = v * pow(2, 2 * W - (d or 0), p) % p
+    if v == 1 << W:
+        out = np.zeros(L, np.int32)
+        out[0] = -1
+        return out
+    return np.frombuffer(v.to_bytes(2 * L, "little"), dtype="<u2").astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [8193, 20000, 1 << 18])
+@pytest.mark.parametrize("layout", ["ring", "rows"])
+@pytest.mark.parametrize("d", [None, 16, "past W"])
+def test_normmod_long_rows_match_reference(rng, L, layout, d):
+    """Rows over NORMMOD_ROW_MAX digits (the long route): each row as a 1-D
+    ring (mulmod_int's final normmod) or in (3, L) batches, d None, 16 and
+    W + 7, against the reference's plain path, the one its mulmod_int
+    takes; at L 20000 also against Python ints."""
+    assert tf.normmod_route(L) == "long"
+    if d == "past W":
+        d = 16 * L + 7
+    x = _long_rows(rng, L)
+    if layout == "ring":
+        for row in x:
+            _check(row, d, L, False)
+    else:
+        for k in range(0, len(x), 3):
+            _check(x[k:k + 3], d, L, False)
+    if L == 20000 and layout == "ring":
+        for row in x:
+            got = tl.normmod(torch.from_numpy(row)) if d is None else \
+                tl.normmod_div(torch.from_numpy(row), d, 16 * L)
+            assert np.array_equal(got.numpy(), _oracle(row, d, L)), d
+
+
+@pytest.mark.parametrize("lg", [22, 24, 29])
+def test_mulmod_int_rings_take_the_long_route(lg):
+    """mulmod_int's ring of N = 2^lg bits (LN = N/16 digits) takes the long
+    route; every inner ring of its recursion (each Lp) short or block rows."""
+    N = 1 << lg
+    assert tf.normmod_route(N // 16) == "long"
+    plan, widths = mulmod_plan(N), []
+    while plan is not None:
+        widths.append(plan.Lp)
+        plan = inner_plan(plan.Wp)
+    assert widths
+    for Lp in widths:
+        assert tf.normmod_route(Lp) in ("short", "block"), (N, Lp)
