@@ -13,7 +13,8 @@
        L 512, conv 16384): every ladder group of the forward (operands
        stacked) and inverse transforms, normmod_div on (16384, 512),
        canonicalize on the 2.5 M-digit product (chained
-       route), random and all one ripple, and on the recursive pointwise's
+       route), random and all one ripple, on the 4x10^9-bit product's
+       5x10^8-digit combine (mul_huge's), and on the recursive pointwise's
        chunk combines (6528, 5169) and (5376, 6209) at 1.2 and 1.5x10^9
        bits (row route, a ripple row among them; utils/transform_bench
        measure_canon, ms beside bound and share);
@@ -25,9 +26,10 @@
        256, 64), (5376, 6144), the 1.5x10^9 norm tail (65536, 6144), and
        the MPIR_FFT_NTT=0 chunks at 10^8 and 10^9 bits;
      normmod (long) -- the mulmod_int rings' final normmod, one row of
-       2^18, 2^20 and 2^25 digits (N = 2^22, 2^24, 2^29: the chained scan),
-       random and all-0xFFFF ripple, raw digits identical, ms beside bound
-       and share (measure_normmod), and the 2^18 row at three shifts;
+       2^18, 2^20, 2^25 and 2^26 digits (N = 2^22, 2^24, 2^29, 2^30: the
+       chained scan; at 2^26 a normmod_div shift above 2^31), random and
+       all-0xFFFF ripple, raw digits identical, ms beside bound and share
+       (measure_normmod), and the 2^18 row at three shifts;
      sqrt2_top_fwd -- the 10^7-bit plan (depth 12, w 1, L 256), stacked
        (2, 16384, 256); sqrt2_top_inv -- (16384, 256) with norm_div 14 and
        without a tail, and its launches in the 10^9-bit plan, (131072,
@@ -117,7 +119,10 @@
        transform one transform_small_half launch: no twiddle_half, no plain
        transform_small, no NTT link at 1.2x10^9, no conv_base at 1.5x10^9),
        2x10^9 (depth 15, w 2, L 4096: the 4-step tier; peak memory at most
-       32 GiB);
+       32 GiB), then an A/B record on its operands: models/huge.py mul_huge
+       called directly on that plan (exactly 2^29 elements, so mul() stages
+       it) against the staged route, digits identical, device ms
+       interleaved and the peak of each;
      under MPIR_FFT_NTT=0, its A/B plans, with no NTT kernel launched:
        2x10^6 and 2x10^7 (even-w schoolbook; 2x10^6 full compare),
        3,162,277 (full compare) and 10^7 (odd-w schoolbook), 10^8 and 10^9
@@ -149,7 +154,26 @@
        twiddle_half pass after the inverse; the final normmod on the long
        route at every N), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
-       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused).
+       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused);
+       2^30 (inner m 65536, Lp 4096; the final normmod one row of 2^26
+       digits);
+     the out-of-core engine (models/huge.py) with 64 KB chunks at two small
+       plans (100,000 and 150,000 bits, depth 7: odd w with trunc_mfa > h,
+       even w): every pass's packed output on the card identical to the
+       same engine's on the host (the kernels' plain versions), products
+       exact (full compare);
+     mul/sqr at 4x10^9 bits (depth 16, w 1, L 4096, n1 256: past 2^29
+       elements, out of core; odd w with trunc_mfa > h), residues mod 61-bit
+       primes; the ladder launches recorded and each shape held against
+       ladder_plain on the card and timed (measure_launches); host and
+       device ms and the peak of each;
+     mul at 4x10^9 x 4x10^8 bits (j1 > h: ten balanced pieces,
+       _mul_piecewise, b shipped once), residues; the piece count, host ms
+       and the pieces' device ms;
+     mul_many at 16 pairs of 10^6 and 8 pairs of 10^7 bits (one batched
+       driver call each), equal to a loop of mul, residues, and full
+       compare of the 10^6 batch and one 10^7 pair; ms per product beside
+       the loop (host clock) and beside single driver calls (device).
    For each: the plan, the launches, host-clock and CUDA-event times, and
    torch.cuda.max_memory_allocated().
 5. Prints the kernel table as one JSON line, the card's line again, and the
@@ -180,7 +204,12 @@ HUGE_BITS = 1_000_000_000
 T2_BITS = 2_000_000_000
 REC5_BITS = 1_200_000_000     # the default plans whose pointwise recurses
 REC6_BITS = 1_500_000_000
-MULMOD_N = (1 << 22, 1 << 24, 1 << 29)
+MULMOD_N = (1 << 22, 1 << 24, 1 << 29, 1 << 30)
+# past 2^29 coefficient elements: the out-of-core flagship (odd w, t > h),
+# balanced pieces, and the batches of mul_many (bits, pairs)
+FOUR_BITS = 4_000_000_000
+PIECES = (4_000_000_000, 400_000_000)
+MANY = ((1_000_000, 16), (10_000_000, 8))
 # unbalanced products whose default plans truncate the MFA (trunc_mfa <
 # conv_len), and the drivers' size
 UNB_SMALL = (10_000_000, 7_000_000)
@@ -353,16 +382,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    from mpir_fft_tpu_torch import kernels, mulmod_int
+    from mpir_fft_tpu_torch import kernels, mul_many, mulmod_int
+    from mpir_fft_tpu_torch.models import mul as mm
+    from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
     from mpir_fft_tpu_torch.models.mul import (
-        DRIVERS, _pw_chunk_rows, _staged_flagship, flagship_is_staged, mpn_mul_flagship,
-        mpn_sqr_flagship, mul, out_len_digits, sqr)
+        DRIVERS, _piecewise_serves, _pw_chunk_rows, _staged_flagship, flagship_is_huge,
+        flagship_is_staged, mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
         CANON_ROW_MAX, CANON_TILE, fused_butterfly_ladder, fused_mfa_cols, fused_normmod_div,
         ladder_groups, ladder_plain, ladder_stages, mfa_col_cluster, mfa_col_fits,
         mfa_cols_plain, mfa_cols_schedule, normmod_route, normmod_rows_plain, NORMMOD_ROW_MAX,
         NORMMOD_SHORT_MAX)
-    from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, normmod
+    from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
         _blocks, _dot_raw, _ntt4_blocks, _ntt4_shape, garner_carry, garner_carry_plain,
@@ -372,8 +403,9 @@ def main() -> int:
         ntt4_inv_twiddle_plain, ntt4_pointwise, ntt4_pointwise_plain, ntt4_residues,
         ntt4_residues_plain)
     from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
-    from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls, measure_launches, measure_post
-    from mpir_fft_tpu_torch.utils.params import cdiv, choose_params
+    from mpir_fft_tpu_torch.utils.ladder_bench import (huge_passes, ladder_calls,
+                                                       measure_launches, measure_post)
+    from mpir_fft_tpu_torch.utils.params import cdiv, choose_params, plan_for_depth
     from mpir_fft_tpu_torch.utils.transform_bench import (
         CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES,
         ladder_route, measure_canon,
@@ -382,7 +414,7 @@ def main() -> int:
     # the card's peak rates (H100 SXM data sheet) and the bound they give
     from mpir_fft_tpu_torch.utils.profile import (FP64_FMA_PER_S, INT8_OPS_PER_S,
                                                   INT32_OPS_PER_S, bound,
-                                                  device_kernels_per_call)
+                                                  device_kernels_per_call, random_operand)
 
     dev = torch.device("cuda", 0)
 
@@ -523,8 +555,9 @@ def main() -> int:
     assert (kernels.lib().mf_canonicalize_row_max(), kernels.lib().mf_canonicalize_tile()) == \
         (CANON_ROW_MAX, CANON_TILE)
     N = out_len_digits(plan)
+    N4 = out_len_digits(choose_params(FOUR_BITS, FOUR_BITS, sqrt2=True))   # mul_huge's combine
     for shape in ((6528, 5169, "random", 0), (5376, 6209, "random", 0), (1, N, "random", 0),
-                  (1, N, "ripple", 0)):
+                  (1, N, "ripple", 0), (1, N4, "random", 0)):
         rec = measure_canon(*shape, rand, 10)
         add_row("canonicalize", "mpir_fft_tpu_torch/csrc/canonicalize.cu",
                 "mpir_fft_tpu/ops/fused.py:574", 0, rec["ms"], rec["plain_ms"], rec["nbytes"],
@@ -1034,7 +1067,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the fused kernel at its main-path batch: the mulmod_int 2^29 ring's
-    fplan = mulmod_plan(MULMOD_N[-1])
+    fplan = mulmod_plan(MULMOD_N[2])
     fB = fplan.m
     assert (fB, fplan.Lp) == (32768, 4096), fplan
     x = rand((fB, tM), -(1 << 17), 1 << 17)
@@ -1061,7 +1094,7 @@ def main() -> int:
     e2e = {}
 
     def operand(bits):
-        return rnd.getrandbits(bits) | (1 << (bits - 1))
+        return random_operand(rnd, bits)
 
     def on_card(v, bits):
         return torch.from_numpy(digits_from_int(v, cdiv(bits, DIGIT_BITS))).to(dev)
@@ -1208,6 +1241,7 @@ def main() -> int:
         print(f"{label} times: " + json.dumps({k: v for k, v in e2e.items() if label in k})
               + ("; staged A/B: " + json.dumps({k: v for k, v in ab_staged.items() if label in k})
                  if staged else ""))
+        return dx, dy, tplan
 
     # the default plans: the dense NTT-CRT pointwise at every size
     drive(SMALL_BITS, "2e6", (9, 8, 256), even_ntt, True, primes, 5, no_school)
@@ -1229,9 +1263,26 @@ def main() -> int:
           primes[:2], 1, no_post + ntt + no_ntt4)
     drive(REC6_BITS, "1.5e9", (14, 6, 6144), staged_rec + ntt, False, primes[:2], 1,
           no_post + ("conv_base", "sqrt2_top_inv") + no_ntt4)
-    drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1, no_rec + no_top)
+    dx, dy, p2 = drive(T2_BITS, "2e9", (15, 2, 4096), even_ntt4, False, primes[:2], 1,
+                       no_rec + no_top)
     e2e["peak_memory_2e9_gib"] = peaks["mul/sqr 2e9"]
     assert peaks["mul/sqr 2e9"] <= MAX_PEAK_GIB_2E9, peaks["mul/sqr 2e9"]
+    # A/B record (not a claim): the out-of-core engine called directly on the
+    # 2x10^9 plan (exactly 2^29 elements, so mul() stages it) against the
+    # staged route, whose product drive() held by residues: digits identical
+    assert huge_serves(p2) and not flagship_is_huge(p2)
+    st2 = _staged_flagship(p2)
+    assert torch.equal(mul_huge(dx, dy, p2), st2(dx, dy)), "mul_huge at 2e9"
+    ab_huge = {}
+    ab_huge["huge_ms"], ab_huge["staged_ms"] = ab_ms(lambda: mul_huge(dx, dy, p2),
+                                                     lambda: st2(dx, dy), 1)
+    ab_huge["huge_peak_gib"] = peak_gib(lambda: mul_huge(dx, dy, p2))
+    ab_huge["staged_peak_gib"] = peak_gib(lambda: st2(dx, dy))
+    e2e["mul_2e9_huge_vs_staged"] = ab_huge
+    print("mul 2e9 A/B (record, not a claim; device ms interleaved, peak GiB of one call): "
+          f"out of core against staged, digits identical: {json.dumps(ab_huge)}")
+    del dx, dy, st2
+    torch.cuda.empty_cache()
     # unbalanced default plans: the truncated MFA (trunc_mfa < conv_len)
     drive(UNB_SMALL[0], "1e7x7e6", (12, 1, 256, 8896),
           ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt,
@@ -1310,10 +1361,10 @@ def main() -> int:
     for n_bits in MULMOD_N[:2]:
         mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa + ("transform_small_half",))
     # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
-    mp, x, y, want = mulmod_case(MULMOD_N[2], "", ("ladder", "ladder_pre_half", "twiddle_half",
-                                                   "normmod", "normmod_long", "canonicalize")
-                                 + ntt4,
-                                 tuple(k for k in no_rec if k != "twiddle_half") + no_mfa)
+    ring_4step = ("ladder", "ladder_pre_half", "twiddle_half", "normmod", "normmod_long",
+                  "canonicalize") + ntt4
+    no_ring = tuple(k for k in no_rec if k != "twiddle_half") + no_mfa
+    mp, x, y, want = mulmod_case(MULMOD_N[2], "", ring_4step, no_ring)
     assert (mp.m, mp.Lp) == (32768, 4096), mp
     old = os.environ.get("MPIR_FFT_NTT_FUSED")
     os.environ["MPIR_FFT_NTT_FUSED"] = "1"
@@ -1328,6 +1379,159 @@ def main() -> int:
             del os.environ["MPIR_FFT_NTT_FUSED"]
         else:
             os.environ["MPIR_FFT_NTT_FUSED"] = old
+    # 2^30: the final normmod is one row of 2^26 digits, where 2W = 2^31
+    # passes a C int; inner rings of Lp 4096 on the 4-step tier, as at 2^29
+    mp, *_ = mulmod_case(MULMOD_N[3], "", ring_4step, no_ring)
+    assert (mp.m, mp.Lp) == (65536, 4096), mp
+    e2e["peak_memory_mulmod_2^30_gib"] = peaks["mulmod_int 2^30"]
+
+    # the out-of-core engine's passes at small plans with 64 KB chunks
+    # (several a pass; odd w with t > h, and even w): each pass's packed
+    # output on the card identical to the same engine's on the host, where
+    # every kernel's plain version runs
+    for hb, hd in ((100_000, 7), (150_000, 7)):
+        hp = plan_for_depth(hb, hb, hd, sqrt2=True)
+        hx, hy = operand(hb), operand(hb)
+        hdx, hdy = on_card(hx, hb), on_card(hy, hb)
+        (got, got_sq), passes = huge_passes(
+            lambda: (mul_huge(hdx, hdy, hp), sqr_huge(hdx, hp)), 64 << 10)
+        (want, want_sq), plain = huge_passes(
+            lambda: (mul_huge(hdx.cpu(), hdy.cpu(), hp), sqr_huge(hdx.cpu(), hp)), 64 << 10)
+        assert len(passes) == len(plain) > 8, (hb, len(passes), len(plain))
+        for (name, got_rows), (pname, want_rows) in zip(passes, plain):
+            assert name == pname and len(got_rows) == len(want_rows), (hb, name)
+            assert all(torch.equal(r, q) for r, q in zip(got_rows, want_rows)), (hb, name)
+        assert torch.equal(got.cpu(), want) and torch.equal(got_sq.cpu(), want_sq), hb
+        assert int_from_digits(want.numpy()) == hx * hy, hb
+        assert int_from_digits(want_sq.numpy()) == hx * hx, hb
+        print(f"mul_huge / sqr_huge {hb} bits (plan {hp.depth}/{hp.w}/{hp.W // DIGIT_BITS}, "
+              f"64 KB chunks): {len(passes)} passes, each output identical to the host's "
+              f"plain run; products exact (full compare)")
+
+    # 4x10^9 bits: past 2^29 elements, mul() and sqr() run out of core (odd
+    # w, trunc_mfa > h): packed stores, chunked column and row passes, the
+    # 4-step pointwise per chunk; the ladder launches recorded, then each
+    # shape held against ladder_plain on the card and timed
+    p4 = choose_params(FOUR_BITS, FOUR_BITS, sqrt2=True)
+    L4, h4 = p4.W // DIGIT_BITS, p4.conv_len // 2
+    print(f"4e9 plan: {p4} L={L4} conv={p4.conv_len} trunc_mfa={p4.trunc_mfa} n1={p4.n1}")
+    assert (p4.depth, p4.w, L4) == (16, 1, 4096) and p4.trunc_mfa > h4 and flagship_is_huge(p4)
+    x, y = operand(FOUR_BITS), operand(FOUR_BITS)
+    rx, ry = [x % q for q in primes[:2]], [y % q for q in primes[:2]]
+    huge_route = ("ladder", "ladder_pe", "normmod", "twiddle_half", "canonicalize") + ntt4
+    no_huge = ("sqrt2_top_fwd", "sqrt2_top_inv", "mfa_cols", "ladder_pre_half", "conv_base",
+               "normmod_long", "transform_small", "transform_small_half", "input_planes",
+               "mid_planes", "garner_carry", "ntt4_fused") + posts
+    host = {}
+
+    def run4():
+        with ladder_calls() as seen:
+            t = time.perf_counter()
+            pr = mul(x, y)
+            host["mul"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            sq = sqr(x)
+            host["sqr"] = (time.perf_counter() - t) * 1e3
+        return pr, sq, seen
+
+    pr, sq, seen4 = counted("mul/sqr 4e9", huge_route, run4, no_huge)
+    for q, a_r, b_r in zip(primes[:2], rx, ry):
+        assert pr % q == a_r * b_r % q and sq % q == a_r * a_r % q, "4e9 residues"
+    assert pr.bit_length() in (2 * FOUR_BITS - 1, 2 * FOUR_BITS)
+    del pr, sq
+    print("mul/sqr 4e9: exact (residues mod 2 61-bit primes)")
+    dx, dy = on_card(x, FOUR_BITS), on_card(y, FOUR_BITS)
+    del x, y
+    e2e["mul_4e9_ms"], e2e["sqr_4e9_ms"] = host["mul"], host["sqr"]
+    e2e["mul_4e9_device_ms"] = time_ms(lambda: mul_huge(dx, dy, p4), 1)
+    e2e["sqr_4e9_device_ms"] = time_ms(lambda: sqr_huge(dx, p4), 1)
+    e2e["mul_4e9_peak_gib"] = peak_gib(lambda: mul_huge(dx, dy, p4))
+    e2e["sqr_4e9_peak_gib"] = peak_gib(lambda: sqr_huge(dx, p4))
+    for op in ("mul", "sqr"):
+        e2e[f"{op}_4e9_host_share"] = 1 - e2e[f"{op}_4e9_device_ms"] / e2e[f"{op}_4e9_ms"]
+    print("4e9 times: " + json.dumps({k: v for k, v in e2e.items() if "4e9" in k}))
+    del dx, dy
+    torch.cuda.empty_cache()
+    recs = measure_launches(seen4, rand, 3)
+    for r in recs:
+        add_row(r["name"], "mpir_fft_tpu_torch/csrc/ladder.cu", LADDER_REPLACES[r["name"]],
+                0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+        print(f"{r['name']} 4e9 out of core {r['kind']} {tuple(r['shape'])}: "
+              f"x{r['launches']} per mul + sqr; raw digits identical; {r['ms']:.3f} ms, "
+              f"{r['bound_by']} bound {r['bound_ms']:.3f} ms ({r['share']:.1%}); "
+              f"plain {r['plain_ms']:.3f} ms")
+    print(f"ladder 4e9 out of core: {len(recs)} shapes, "
+          f"{sum(r['launches'] for r in recs)} launches per mul + sqr")
+    del seen4
+    torch.cuda.empty_cache()
+
+    # 4x10^9 x 4x10^8 bits: past 2^29 elements with j1 > h, which the
+    # out-of-core engine cannot take: ten balanced pieces through the staged
+    # route, b converted and shipped once; each piece's driver call timed
+    pp = choose_params(*PIECES, sqrt2=True)
+    print(f"4e9x4e8 plan: {pp} L={pp.W // DIGIT_BITS}; taken as balanced pieces")
+    assert _piecewise_serves(pp)
+    x, y = operand(PIECES[0]), operand(PIECES[1])
+    piece_ms = []
+    real_driver = mm._driver
+
+    def timed_driver(kind, dplan):
+        run = real_driver(kind, dplan)
+
+        def go(da, db):
+            out, ms = timed(lambda: run(da, db))
+            piece_ms.append(ms)
+            return out
+        return go
+
+    mm._driver = timed_driver
+    try:
+        t = time.perf_counter()
+        pr = counted("mul 4e9x4e8 (pieces)", zerotop + ("normmod",) + ntt_post,
+                     lambda: mul(x, y), no_top + ("mfa_cols", "ladder_pe"))
+        e2e["mul_4e9x4e8_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        mm._driver = real_driver
+    assert len(piece_ms) == cdiv(PIECES[0], PIECES[1]) == 10, len(piece_ms)
+    assert residues_agree(pr, x, y, primes[:2]), "4e9x4e8 residues"
+    del pr, x, y
+    e2e["mul_4e9x4e8_pieces"] = len(piece_ms)
+    e2e["mul_4e9x4e8_device_ms"] = sum(piece_ms)
+    e2e["mul_4e9x4e8_host_share"] = 1 - sum(piece_ms) / e2e["mul_4e9x4e8_ms"]
+    print("mul 4e9x4e8: exact (residues mod 2 61-bit primes); "
+          + json.dumps({k: v for k, v in e2e.items() if "4e9x4e8" in k}))
+
+    # mul_many: the batch cells, one driver call a batch; every product
+    # equal to a loop of mul's and held by residues, the 10^6-bit batch and
+    # the first 10^7-bit pair against Python's products (full compare: a
+    # 10^7-bit Python product takes seconds); record beside the loop of mul
+    # (host clock) and of the driver (device)
+    for bits, n in MANY:
+        label = f"{bits:.0e}x{n}"
+        bp = choose_params(bits, bits, sqrt2=True)
+        assert not flagship_is_staged(bp), bp
+        pairs = [(operand(bits), operand(bits)) for _ in range(n)]
+        got = counted(f"mul_many {label}", odd_ntt if bp.w % 2 else even_ntt,
+                      lambda: mul_many(pairs), no_school + no_mfa)
+        assert got == [mul(a, b) for a, b in pairs], f"mul_many {label}"
+        assert all(residues_agree(v, a, b, primes) for v, (a, b) in zip(got, pairs)), label
+        full = pairs if bits <= MANY[0][0] else pairs[:1]
+        assert got[:len(full)] == [a * b for a, b in full], f"mul_many {label}"
+        e2e[f"mul_many_{label}_ms_per_product"] = wall_ms(lambda: mul_many(pairs), 3) / n
+        e2e[f"mul_loop_{label}_ms_per_product"] = wall_ms(
+            lambda: [mul(a, b) for a, b in pairs], 1) / n
+        Lb = cdiv(bits, DIGIT_BITS)
+        da = torch.stack([on_card(a, bits) for a, _ in pairs])
+        db = torch.stack([on_card(b, bits) for _, b in pairs])
+        e2e[f"mul_many_{label}_device_ms_per_product"] = time_ms(
+            lambda: mpn_mul_flagship(da, db, bp), 3) / n
+        e2e[f"mul_loop_{label}_device_ms_per_product"] = time_ms(
+            lambda: [mpn_mul_flagship(da[i], db[i], bp) for i in range(n)], 3) / n
+        assert da.shape == (n, Lb)
+        print(f"mul_many {label} (plan {bp.depth}/{bp.w}/{bp.W // DIGIT_BITS}): exact (equal "
+              f"to mul's, residues; full compare of {len(full)}); "
+              + json.dumps({k: v for k, v in e2e.items() if label in k}))
+        del da, db
 
     print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
           "events, digits on the card): " + json.dumps(e2e))

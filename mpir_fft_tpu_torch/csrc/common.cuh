@@ -57,12 +57,13 @@ template <class F>
 __device__ __forceinline__ int shift_of(F f, int i, long long s, int L) {
   const long long W = 16LL * L;
   const bool neg = s >= W;
-  const int r = static_cast<int>(neg ? s - W : s);
-  const int kd = r >> 4;
+  const long long r = neg ? s - W : s;
+  const int kd = static_cast<int>(r >> 4);
   const int ip = i == 0 ? L - 1 : i - 1;
   const int vi = f(i >= kd ? i - kd : L - kd + i);
   const int vp = f(ip >= kd ? ip - kd : L - kd + ip);
-  const int d = shift_bits_digit(i >= kd ? vi : -vi, ip >= kd ? vp : -vp, i, r & 15);
+  const int d = shift_bits_digit(i >= kd ? vi : -vi, ip >= kd ? vp : -vp, i,
+                                 static_cast<int>(r & 15));
   return neg ? -d : d;
 }
 

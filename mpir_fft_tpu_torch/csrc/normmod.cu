@@ -22,7 +22,9 @@
 //     (mf::normmod_row; its exact carry is also the inverse sqrt2 top merge's
 //     norm tail);
 //   * longer rows -- the single ring of a mulmod_int product at N = 2^22..
-//     2^29 bits, L = 2^18..2^25 -- a single-pass chained scan over the card:
+//     2^30 bits, L = 2^18..2^26, up to mf_normmod_long_max() = 2^30 digits
+//     (the shift and 2W in 64 bits, digit indices in ints) -- a
+//     single-pass chained scan over the card:
 //     normmod_chained_kernel, one CTA of kThreads a tile of kTile digits, 8
 //     digits a thread in registers, the tile taken from an atomic ticket in
 //     row-major order over every row's tiles, so every tile a look-back
@@ -61,7 +63,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kShortMaxL = 512;
 constexpr int kRowMaxL = 8192;
 constexpr int kBlockMaxThreads = 1024;
-constexpr int kMaxL = (1 << 26) - 1;                  // 2W = 32 L fits an int
+// digit indices are ints: i0 + kTile stays below 2^31 (s and W are 64-bit)
+constexpr int kMaxL = 1 << 30;
 constexpr int kTile = kThreads * mf::kBlockDigits;    // a long row's tile: 2048 digits
 constexpr int kProbeDigits = 4;                       // a lane of warp 0, below a tile
 constexpr int kFoldCTAs = 64;                         // a row's CTAs in the fold, at most
@@ -77,8 +80,8 @@ constexpr int kCodeBits = 0x03030303;
 // warp) * rpw + lane / G.
 template <int V, int R>
 __global__ void __launch_bounds__(kThreads)
-normmod_short_kernel(const int* __restrict__ x, int* __restrict__ out, long long B, int L, int s,
-                     int G, int rpw) {
+normmod_short_kernel(const int* __restrict__ x, int* __restrict__ out, long long B, int L,
+                     long long s, int G, int rpw) {
   const int lane = threadIdx.x & 31;
   const int slot = lane / G;
   const int g = lane - slot * G;
@@ -92,7 +95,7 @@ normmod_short_kernel(const int* __restrict__ x, int* __restrict__ out, long long
 // one CTA a row, blockDim.x = mf::block_row_threads(L)
 template <int V>
 __global__ void __launch_bounds__(kBlockMaxThreads)
-normmod_block_kernel(const int* __restrict__ x, int* __restrict__ out, int L, int s) {
+normmod_block_kernel(const int* __restrict__ x, int* __restrict__ out, int L, long long s) {
   const long long off = static_cast<long long>(blockIdx.x) * L;
   mf::normmod_row<V, mf::kBlockDigits / V>(x + off, L, s, out + off);
 }
@@ -147,7 +150,7 @@ __device__ __forceinline__ int look_back(const int* status, long long k, long lo
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 normmod_chained_kernel(const int* __restrict__ x, int* __restrict__ out, int* scratch,
-                       long long B, int L, int s, int R) {
+                       long long B, int L, long long s, int R) {
   constexpr int D = mf::kBlockDigits;
   __shared__ int warp_code[kWarps], warp_before[kWarps], tile_cin, seen[2];
   __shared__ int warp_first[2][kWarps];
@@ -279,7 +282,7 @@ inline int short_runs(int L, int V) {
 }
 
 template <int V, int R>
-int launch_short(const void* x, void* out, long long B, int L, int s, cudaStream_t stream) {
+int launch_short(const void* x, void* out, long long B, int L, long long s, cudaStream_t stream) {
   const int G = (L + V * R - 1) / (V * R);
   const int rpw = 32 / G;
   const long long per = static_cast<long long>(kWarps) * rpw;
@@ -291,7 +294,7 @@ int launch_short(const void* x, void* out, long long B, int L, int s, cudaStream
 }
 
 template <int V>
-int launch_block(const void* x, void* out, long long B, int L, int s, cudaStream_t stream) {
+int launch_block(const void* x, void* out, long long B, int L, long long s, cudaStream_t stream) {
   if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   normmod_block_kernel<V><<<static_cast<unsigned>(B), mf::block_row_threads(L), 0, stream>>>(
       static_cast<const int*>(x), static_cast<int*>(out), L, s);
@@ -301,7 +304,7 @@ int launch_block(const void* x, void* out, long long B, int L, int s, cudaStream
 long long tiles_per_row(int L) { return (L + kTile - 1) / kTile; }
 
 template <int V>
-int launch_long(const void* x, void* out, int* scratch, long long B, int L, int s,
+int launch_long(const void* x, void* out, int* scratch, long long B, int L, long long s,
                 cudaStream_t stream) {
   const long long R = tiles_per_row(L), tiles = B * R, n = tiles + 2 * B + 1;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -325,6 +328,8 @@ int launch_long(const void* x, void* out, int* scratch, long long B, int L, int 
 // longer ones the chained scan.
 MF_EXPORT int mf_normmod_short_max() { return kShortMaxL; }
 MF_EXPORT int mf_normmod_row_max() { return kRowMaxL; }
+// The longest row the chained scan takes.
+MF_EXPORT int mf_normmod_long_max() { return kMaxL; }
 
 // Ints of scratch mf_normmod needs for B rows of L digits (0: none): the
 // long route's ticket, status words and row words.
@@ -332,11 +337,11 @@ MF_EXPORT long long mf_normmod_scratch(long long B, int L) {
   return L <= kRowMaxL ? 0 : B * tiles_per_row(L) + 2 * B + 1;
 }
 
-// x, out: B rows of L digits (L < 2^26); scratch: mf_normmod_scratch(B, L)
-// ints (scratch_ints of them), or null where that is 0; s: the shift
-// exponent in [0, 2W).
+// x, out: B rows of L digits (L <= mf_normmod_long_max()); scratch:
+// mf_normmod_scratch(B, L) ints (scratch_ints of them), or null where that
+// is 0; s: the shift exponent in [0, 2W).
 MF_EXPORT int mf_normmod(const void* x, void* out, void* scratch, long long scratch_ints,
-                         long long B, int L, int s, void* stream) {
+                         long long B, int L, long long s, void* stream) {
   const long long W = 16LL * L;
   if (B < 0 || L < 1 || L > kMaxL || s < 0 || s >= 2 * W ||
       scratch_ints < mf_normmod_scratch(B, L) || (L > kRowMaxL && scratch == nullptr))

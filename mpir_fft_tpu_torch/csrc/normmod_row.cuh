@@ -73,28 +73,26 @@ __device__ __forceinline__ int code_apply(int code, int c) {
 }
 
 // Digits j0 .. j0+N-1 (indices mod L, j0 >= -L) of shift_mod(x, s), x one
-// row of L digits.  V == 4 (L % 4 == 0, x 16-byte aligned): the rotated
+// row of L digits, s in [0, 2W) (64 bits: 2W = 32 L passes an int from L
+// 2^26).  V == 4 (L % 4 == 0, x 16-byte aligned): the rotated
 // sources of destinations j0-1 .. j0+N-1 are N+1 consecutive words mod L,
 // read as (N+7)/4 aligned int4 chunks -- one window for all of a thread's
 // runs, where mf::twist reads two chunks a run -- and picked by two select
 // rounds; then the sub-digit shift (digit 0 takes digit L-1's high part
-// negated) and the sign, twist's sequence.  V == 1: twist<1> a digit.
+// negated) and the sign, twist's sequence.  V == 1: shift_mod_digit a digit.
 template <int V, int N>
-__device__ __forceinline__ void shifted_digits(const int* x, int j0, int s, int L, int (&out)[N]) {
+__device__ __forceinline__ void shifted_digits(const int* x, int j0, long long s, int L,
+                                               int (&out)[N]) {
   if constexpr (V == 1) {
 #pragma unroll
-    for (int t = 0; t < N; ++t) {
-      int d[1];
-      twist<1, 0>(x, nullptr, ((j0 + t) % L + L) % L, s, L, d);
-      out[t] = d[0];
-    }
+    for (int t = 0; t < N; ++t) out[t] = shift_mod_digit(x, ((j0 + t) % L + L) % L, s, L);
   } else {
     static_assert(V == 4, "runs of 1 or 4 digits");
     constexpr int C = (N + 7) / 4;
-    const int W = DIGIT_BITS * L;
+    const long long W = 16LL * L;
     const bool neg = s >= W;
-    const int r = neg ? s - W : s;
-    const int kd = r >> 4, b = r & 15, sh = DIGIT_BITS - b;
+    const long long r = neg ? s - W : s;
+    const int kd = static_cast<int>(r >> 4), b = static_cast<int>(r & 15), sh = DIGIT_BITS - b;
     int e0 = j0 - 1;               // the destination of the window's first word
     if (e0 < 0) e0 += L;
     int s0 = e0 - kd;
@@ -153,7 +151,8 @@ __device__ __forceinline__ void carry_digits(int (&v)[D], int prev, int i0) {
 // digits below its run (mod L: the row's top ones at i0 == 0), so the
 // passes need no exchange; the first pass's digit i0-1 from the two below.
 template <int V, int D>
-__device__ __forceinline__ void carried_digits(const int* x, int i0, int s, int L, int (&v)[D]) {
+__device__ __forceinline__ void carried_digits(const int* x, int i0, long long s, int L,
+                                               int (&v)[D]) {
   int u2 = 0, u1 = 0;       // the shifted digits i0-2, i0-1 (mod L)
   if (i0 < L) {
     int w[D + 2];
@@ -281,7 +280,7 @@ __device__ __forceinline__ void store_runs(int* outr, int i0, int L, const int (
 // batch, or past the warp's whole groups), which still takes part in every
 // shuffle.  Every lane of the warp calls it.
 template <int V, int R>
-__device__ __forceinline__ void normmod_short(const int* x, int* outr, int L, int s, int G,
+__device__ __forceinline__ void normmod_short(const int* x, int* outr, int L, long long s, int G,
                                               int base, int g, bool live) {
   constexpr int D = V * R;
   const int i0 = g * D;
@@ -407,7 +406,7 @@ __device__ __forceinline__ void exact_rows(int (&v)[NR][V * R], int i0, int L,
 // to outr.  Every thread of the block calls it; the caller may overwrite x
 // once it returns.
 template <int V, int R>
-__device__ __forceinline__ void normmod_row(const int* x, int L, int s, int* outr) {
+__device__ __forceinline__ void normmod_row(const int* x, int L, long long s, int* outr) {
   constexpr int D = V * R;
   const int i0 = threadIdx.x * D;
   int v[1][D];

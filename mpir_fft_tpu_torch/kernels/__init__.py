@@ -130,8 +130,8 @@ _SIGNATURES = {
     # a, b, out, B, L, stream
     "mf_conv_base": (_P, _P, _P, _LL, _I, _P),
     # x, out, scratch (mf_normmod_scratch(B, L) ints, or null where that is
-    # 0), its ints, B, L, s (shift exponent in [0, 2W)), stream
-    "mf_normmod": (_P, _P, _P, _LL, _LL, _I, _I, _P),
+    # 0), its ints, B, L, s (shift exponent in [0, 2W), 64-bit), stream
+    "mf_normmod": (_P, _P, _P, _LL, _LL, _I, _LL, _P),
     # x, out, scratch (mf_canonicalize_scratch(Bt, N) ints, or null where
     # that is 0), its ints, Bt, N, stream
     "mf_canonicalize": (_P, _P, _P, _LL, _LL, _LL, _P),
@@ -177,7 +177,7 @@ def lib() -> ctypes.CDLL:
     so.mf_error_string.argtypes = [ctypes.c_int]
     so.mf_error_string.restype = ctypes.c_char_p
     for fn in (so.mf_canonicalize_tile, so.mf_canonicalize_row_max, so.mf_normmod_short_max,
-               so.mf_normmod_row_max, so.mf_conv_base_short_max):
+               so.mf_normmod_row_max, so.mf_normmod_long_max, so.mf_conv_base_short_max):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     so.mf_canonicalize_scratch.argtypes = [_LL, _LL]

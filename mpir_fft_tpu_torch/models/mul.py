@@ -41,14 +41,24 @@ leg and with the norm tail folded in, and the combine.  The thresholds are
 the reference's; `mpn_mul_flagship` / `mpn_sqr_flagship` stay the
 unstaged drivers.
 
+Out of core and in pieces (the reference's :257-273, :588-719): past 2^29
+coefficient elements (`_HUGE_THRESHOLD_ELEMS`, the reference's) a flagship
+plan that `huge_serves` runs in models/huge.py (`mul_huge` / `sqr_huge`:
+packed 16-bit stores, chunked column and row passes); an extreme-uneven
+one runs as balanced pieces (`_mul_piecewise`, b shipped once); the rest
+raises ValueError at plan time.  `mul_many` runs a batch of pairs as one
+driver call on (Bt, L) digit tensors at one shared plan.
+
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never
 move work to the CPU unless asked to."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
 from mpir_fft_tpu_torch.ops.limb import (DIGIT_BITS, Ring, digits_from_int, int_from_digits,
                                          normmod_div)
 from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_mfa_rows, ifft_radix2_mfa,
@@ -235,12 +245,12 @@ def flagship_is_staged(plan: MulPlan) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Plan-time refusal (the reference's models/mul.py:257-260, :557-584,
-# :650-662 and models/huge.py:717-726): above 2^29 coefficient elements the
-# reference serves a flagship plan out of core (mul_huge) or, for extreme
-# imbalance, as balanced pieces (_mul_piecewise), and refuses the rest
-# before any work.  The port has neither route yet: it runs those plans
-# staged, and refuses the same plans, with the same error, at the same point.
+# Out-of-core and piecewise routing (the reference's models/mul.py:257-273,
+# :557-612, :650-719 and models/huge.py:717-749): above 2^29 coefficient
+# elements a flagship plan runs out of core (models/huge.py mul_huge /
+# sqr_huge) or, for extreme imbalance, as balanced pieces
+# (_mul_piecewise); the rest is refused before any work.  The threshold is
+# the reference's, so every plan takes the same route in both packages.
 # ---------------------------------------------------------------------------
 
 # above this many coefficient int32 elements the staged pipeline's
@@ -248,11 +258,8 @@ def flagship_is_staged(plan: MulPlan) -> bool:
 _HUGE_THRESHOLD_ELEMS = 1 << 29
 
 
-def huge_serves(plan: MulPlan) -> bool:
-    """The shape constraints of the reference's out-of-core pipeline."""
-    h = plan.conv_len // 2
-    return (plan.sqrt2 and plan.bits1 % DIGIT_BITS == 0 and plan.j1 <= h and plan.j2 <= h
-            and plan.trunc_mfa % plan.n1 == 0)
+def flagship_is_huge(plan: MulPlan) -> bool:
+    return plan.conv_len * (plan.W // DIGIT_BITS) > _HUGE_THRESHOLD_ELEMS and huge_serves(plan)
 
 
 def _require_huge_servable(plan: MulPlan) -> None:
@@ -383,11 +390,86 @@ def _select_plan(bits_a: int, bits_b: int, driver: str = "flagship") -> MulPlan:
     return choose_params(bits_a, bits_b, sqrt2=DRIVERS[driver][1])
 
 
+def _driver(kind: str, plan: MulPlan):
+    """run(da, db) -> product digits: the driver of kind at plan, where a
+    flagship plan takes mul()'s route -- out of core (flagship_is_huge),
+    staged (flagship_is_staged) or whole -- and a plan the reference refuses
+    raises ValueError here, before any operand is converted (the
+    reference's _jitted_driver, models/mul.py:588-599)."""
+    fn, needs_sqrt2 = DRIVERS[kind]
+    assert plan.sqrt2 == needs_sqrt2, (kind, plan)
+    if kind == "flagship":
+        _require_huge_servable(plan)
+        if flagship_is_huge(plan):
+            return lambda da, db: mul_huge(da, db, plan)
+        if flagship_is_staged(plan):
+            return _staged_flagship(plan)
+    return lambda da, db: fn(da, db, plan)
+
+
+def _sqr_driver(plan: MulPlan):
+    """run(da) -> the square's digits on sqr()'s route (the reference's
+    _jitted_sqr, models/mul.py:603-612)."""
+    _require_huge_servable(plan)
+    if flagship_is_huge(plan):
+        return lambda da: sqr_huge(da, plan)
+    if flagship_is_staged(plan):
+        return _staged_flagship(plan)
+    return lambda da: mpn_sqr_flagship(da, plan)
+
+
+def _mul_piecewise(a: int, b: int, driver: str, device) -> int:
+    """Extreme-uneven products past the out-of-core threshold as balanced
+    pieces (the reference's models/mul.py:665-702): the larger operand
+    splits into pieces the size of the smaller, each piece's product runs
+    through the driver's route, and the products accumulate in an int64
+    base-2^16 digit window at their digit offsets (O(n) in all), followed
+    by one vectorised carry.  Unlike the reference, `b` is converted and
+    shipped to the device once, not once a piece, and each product's
+    digits land in the accumulator shifted, without a round trip through a
+    Python int."""
+    ba, bb = a.bit_length(), b.bit_length()
+    if ba < bb:
+        a, b, ba, bb = b, a, bb, ba
+    step = bb
+    mask = (1 << step) - 1
+    Lout = cdiv(ba + bb, DIGIT_BITS) + 2
+    acc = np.zeros(Lout + 4, np.int64)
+    db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
+    for lo in range(0, ba, step):
+        piece = (a >> lo) & mask
+        if not piece:
+            continue
+        bp = piece.bit_length()
+        if bp + bb <= _SMALL_THRESHOLD_BITS:
+            pd = digits_from_int(piece * b, cdiv(bp + bb, DIGIT_BITS))
+        else:
+            plan = _select_plan(bp, bb, driver)
+            if driver == "flagship" and _piecewise_serves(plan):
+                pv = mul(piece, b, driver, device)
+                pd = digits_from_int(pv, cdiv(max(pv.bit_length(), 1), DIGIT_BITS))
+            else:
+                dp = digits_to_tensor(digits_from_int(piece, cdiv(bp, DIGIT_BITS)), device)
+                pd = tensor_to_digits(_driver(driver, plan)(dp, db))
+        q = lo // DIGIT_BITS
+        acc[q:q + pd.shape[0]] += pd.astype(np.int64) << (lo % DIGIT_BITS)
+    # every digit is a sum of shifted canonical digits (< 2^33): each
+    # vectorised carry pass shrinks the largest, and the loop ends
+    while True:
+        c = acc >> DIGIT_BITS
+        if not c.any():
+            break
+        acc = (acc - (c << DIGIT_BITS)) + np.concatenate([[0], c[:-1]])
+    assert acc[Lout:].max(initial=0) == 0
+    return int.from_bytes(acc[:Lout].astype("<u2").tobytes(), "little")
+
+
 def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     """Multiply two nonnegative Python ints through a driver of DRIVERS on
-    `device`.  Small products are computed on the host.  A flagship plan the
-    reference refuses (`_require_huge_servable`) raises ValueError before
-    any work."""
+    `device`.  Small products are computed on the host.  A flagship plan
+    past 2^29 elements runs out of core or, for extreme imbalance, as
+    balanced pieces; one the reference refuses (`_require_huge_servable`)
+    raises ValueError before any work."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r}; one of {sorted(DRIVERS)}")
     if a < 0 or b < 0:
@@ -398,18 +480,18 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     if ba + bb <= _SMALL_THRESHOLD_BITS:
         return a * b
     plan = _select_plan(ba, bb, driver)
-    if driver == "flagship" and not _piecewise_serves(plan):
-        _require_huge_servable(plan)
+    if driver == "flagship" and _piecewise_serves(plan):
+        return _mul_piecewise(a, b, driver, device)
+    run = _driver(driver, plan)
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
-    if driver == "flagship" and flagship_is_staged(plan):
-        return int_from_digits(tensor_to_digits(_staged_flagship(plan)(da, db)))
-    return int_from_digits(tensor_to_digits(DRIVERS[driver][0](da, db, plan)))
+    return int_from_digits(tensor_to_digits(run(da, db)))
 
 
 def sqr(a: int, device="cuda") -> int:
-    """Square a nonnegative Python int with one forward transform; a plan
-    the reference refuses raises ValueError before any work."""
+    """Square a nonnegative Python int with one forward transform (out of
+    core past 2^29 elements); a plan the reference refuses raises
+    ValueError before any work."""
     if a < 0:
         raise ValueError("nonnegative operand only (mpn semantics)")
     if a == 0:
@@ -417,9 +499,38 @@ def sqr(a: int, device="cuda") -> int:
     ba = a.bit_length()
     if 2 * ba <= _SMALL_THRESHOLD_BITS:
         return a * a
-    plan = _select_plan(ba, ba)
-    _require_huge_servable(plan)
+    run = _sqr_driver(_select_plan(ba, ba))
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
-    if flagship_is_staged(plan):
-        return int_from_digits(tensor_to_digits(_staged_flagship(plan)(da)))
-    return int_from_digits(tensor_to_digits(mpn_sqr_flagship(da, plan)))
+    return int_from_digits(tensor_to_digits(run(da)))
+
+
+def mul_many(pairs, driver: str = "flagship", device="cuda") -> list[int]:
+    """Multiply many (a, b) pairs of nonnegative ints in ONE batched driver
+    call (the reference's models/mul.py:615-647): every op of the pipeline
+    takes leading dims, so k products share one chain of launches.
+
+    All pairs share one plan sized for the largest operands; smaller
+    operands are zero-padded (exact: padding only widens the ring).  Plans
+    that run staged or out of core loop over `mul` instead: there one
+    product already fills the card.  A batch of one, or products below the
+    host threshold, compute on the host, as in the reference."""
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver {driver!r}; one of {sorted(DRIVERS)}")
+    pairs = list(pairs)
+    for a, b in pairs:
+        if a < 0 or b < 0:
+            raise ValueError("nonnegative operands only (mpn semantics)")
+    if not pairs:
+        return []
+    ba = max(a.bit_length() for a, _ in pairs)
+    bb = max(b.bit_length() for _, b in pairs)
+    if ba == 0 or bb == 0 or ba + bb <= _SMALL_THRESHOLD_BITS or len(pairs) == 1:
+        return [a * b for a, b in pairs]
+    plan = _select_plan(ba, bb, driver)
+    if driver == "flagship" and (flagship_is_huge(plan) or flagship_is_staged(plan)):
+        return [mul(a, b, driver, device) for a, b in pairs]
+    La, Lb = cdiv(ba, DIGIT_BITS), cdiv(bb, DIGIT_BITS)
+    da = digits_to_tensor(np.stack([digits_from_int(a, La) for a, _ in pairs]), device)
+    db = digits_to_tensor(np.stack([digits_from_int(b, Lb) for _, b in pairs]), device)
+    out = tensor_to_digits(_driver(driver, plan)(da, db))
+    return [int_from_digits(row) for row in out]

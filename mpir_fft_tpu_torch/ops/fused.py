@@ -55,9 +55,11 @@ from .limb import (
 LADDER_MAX_STAGES = 4
 LADDER_BUF_BYTES = 64 * 1024
 
-# the normmod routes' limits (csrc/normmod.cu kShortMaxL, kRowMaxL)
+# the normmod routes' limits (csrc/normmod.cu kShortMaxL, kRowMaxL, kMaxL:
+# the long route's digit indices are C ints)
 NORMMOD_SHORT_MAX = 512
 NORMMOD_ROW_MAX = 8192
+NORMMOD_LONG_MAX = 1 << 30
 # the canonicalize routes: rows up to CANON_ROW_MAX digits one CTA each,
 # longer ones tiles of CANON_TILE (csrc/canonicalize.cu kRowMax, kTile)
 CANON_ROW_MAX = 8192
@@ -325,6 +327,8 @@ def fused_normmod_div(x: torch.Tensor, s: int, W: int) -> torch.Tensor:
     s = int(s) % (2 * W)
     if x.device.type == "cpu":
         return normmod_rows_plain(x, s, W)
+    if L > NORMMOD_LONG_MAX:
+        raise ValueError(f"normmod: rows of {L} digits exceed the kernel's {NORMMOD_LONG_MAX}")
     B = x.numel() // L
     out = torch.empty_like(x)
     long = normmod_route(L) == "long"

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .fused import NORMMOD_LONG_MAX
 from .limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod, normmod_div, shift_mod
 from .negacyclic import fft_negacyclic, ifft_negacyclic
 from .ntt import ntt_supported
@@ -231,9 +232,16 @@ def mulmod_int(a: int, b: int, N: int, depth: int | None = None, device="cuda") 
 
     Any integers (negative included) are reduced mod p first; the result is
     the canonical residue in [0, 2^N].  N at or below 2^14 bits, or not a
-    multiple of 16, computes on the host."""
+    multiple of 16, computes on the host.  On the card the final normmod is
+    one row of N/16 digits, so N/16 may not pass NORMMOD_LONG_MAX (2^30
+    digits: N = 2^34 bits, 4 GiB a row); such an N raises ValueError before
+    any operand is converted."""
     if N < 1:
         raise ValueError("N must be positive")
+    if N // DIGIT_BITS > NORMMOD_LONG_MAX and torch.device(device).type != "cpu":
+        raise ValueError(
+            f"mulmod_int: N = {N} needs a normmod row of {N // DIGIT_BITS} digits; the card's "
+            f"long-row kernel takes at most {NORMMOD_LONG_MAX} (its digit indices are C ints)")
     p = (1 << N) + 1
     a %= p
     b %= p

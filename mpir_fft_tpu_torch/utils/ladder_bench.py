@@ -1,6 +1,8 @@
 """The butterfly ladder and the Garner post leg at the shapes the main path
 gives them, on the card: the per-shape measurement chip_smoke.py also runs
-(measure_launches, measure_post), and a tool beside utils/profile.py.
+(measure_launches, measure_post), and a tool beside utils/profile.py; and
+the recorders of the launches and passes it checks (ladder_calls,
+huge_passes).
 
     python -m mpir_fft_tpu_torch.utils.ladder_bench [SIZE ...] [--ntt0 SIZE ...] [--reps R]
 
@@ -33,6 +35,7 @@ import subprocess
 import torch
 
 from mpir_fft_tpu_torch import kernels
+from mpir_fft_tpu_torch.models import huge
 from mpir_fft_tpu_torch.models.mul import _pw_chunk_rows, _staged_flagship
 from mpir_fft_tpu_torch.ops import fused, ntt, transforms
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int
@@ -69,6 +72,37 @@ def ladder_calls():
         yield seen
     finally:
         transforms.fused_butterfly_ladder = real
+
+
+def huge_passes(run, chunk_bytes: int | None = None):
+    """(run(), passes): run() with every pass of models/huge.py recorded --
+    the split stores, the column and row passes, the pointwise -- as
+    (name, [the unpacked digits of each part, on the host]) in order; with
+    chunk_bytes, CHUNK_BYTES and PW_CHUNK_BYTES set to it meanwhile (several
+    chunks a pass at a small plan)."""
+    seen: list = []
+    names = ("_split_store", "_col_pass", "_row_pass", "_pointwise_rows")
+    real = {n: getattr(huge, n) for n in names}
+    chunks = huge.CHUNK_BYTES, huge.PW_CHUNK_BYTES
+
+    def recording(name):
+        def fn(*args, **kwargs):
+            out = real[name](*args, **kwargs)
+            for store in out if isinstance(out, tuple) else (out,):
+                seen.append((name, [huge._unpack(u, m).cpu() for u, m in store.parts]))
+            return out
+        return fn
+
+    try:
+        for n in names:
+            setattr(huge, n, recording(n))
+        if chunk_bytes is not None:
+            huge.CHUNK_BYTES = huge.PW_CHUNK_BYTES = chunk_bytes
+        return run(), seen
+    finally:
+        for n in names:
+            setattr(huge, n, real[n])
+        huge.CHUNK_BYTES, huge.PW_CHUNK_BYTES = chunks
 
 
 def _once_ms(fn):

@@ -9,8 +9,10 @@ fixed seed; default 10^7, 10^8 and 10^9:
   * the plan (its trunc_mfa, and the inner mulmod plan where the pointwise
     recurses);
   * the flagship's device time, digits on the card (CUDA events, median),
-    on the route mul() takes: the staged flagship where flagship_is_staged
-    (10^8 bits and up), else mpn_mul_flagship;
+    on the route mul() takes (models.mul._driver): out of core where
+    flagship_is_huge (past 2^29 elements, e.g. 4x10^9 bits), the staged
+    flagship where flagship_is_staged (10^8 bits and up), else
+    mpn_mul_flagship;
   * a torch.profiler window over R such calls after a warm-up:
     device time per call by kernel (the port's kernels by name, the NTT's
     int8 GEMMs as "int8_gemm", PyTorch's other ops -- split, stack,
@@ -44,8 +46,8 @@ import time
 import torch
 
 from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.models.mul import (_select_plan, _staged_flagship, flagship_is_staged,
-                                           mpn_mul_flagship)
+from mpir_fft_tpu_torch.models.mul import (_driver, _select_plan, flagship_is_huge,
+                                           flagship_is_staged)
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_plan
 from mpir_fft_tpu_torch.utils.params import cdiv
@@ -156,17 +158,27 @@ def _host_steps(run, ha, hb, label: str, steps: dict):
     return da, db, peak
 
 
+def random_operand(rnd: random.Random, bits: int) -> int:
+    """A random bits-bit int from rnd, top bit set (getrandbits takes a C
+    int: from 2^31 bits, 2^30 bits at a time)."""
+    if bits < 1 << 31:
+        return rnd.getrandbits(bits) | (1 << (bits - 1))
+    n, top = cdiv(bits, 8), (bits - 1) % 8
+    buf = bytearray(b"".join(rnd.getrandbits(1 << 30).to_bytes(1 << 27, "little")
+                             for _ in range(cdiv(bits, 1 << 30)))[:n])
+    buf[-1] = (buf[-1] & ((1 << top) - 1)) | (1 << top)
+    return int.from_bytes(buf, "little")
+
+
 def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     rnd = random.Random(SEED + bits_a + bits_b)
-    a = rnd.getrandbits(bits_a) | (1 << (bits_a - 1))
-    b = rnd.getrandbits(bits_b) | (1 << (bits_b - 1))
+    a, b = random_operand(rnd, bits_a), random_operand(rnd, bits_b)
 
     steps = {}
     t = time.perf_counter()
     plan = _select_plan(bits_a, bits_b)
     steps["planner"] = time.perf_counter() - t
-    staged = flagship_is_staged(plan)
-    run = _staged_flagship(plan) if staged else (lambda x, y: mpn_mul_flagship(x, y, plan))
+    run = _driver("flagship", plan)
     t = time.perf_counter()
     ha = digits_from_int(a, cdiv(bits_a, DIGIT_BITS))
     hb = digits_from_int(b, cdiv(bits_b, DIGIT_BITS))
@@ -179,7 +191,8 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
         "plan": {"depth": plan.depth, "w": plan.w, "L": W // DIGIT_BITS,
                  "conv": plan.conv_len, "trunc_mfa": plan.trunc_mfa},
         "inner": None if inner is None else {"m": inner.m, "Lp": inner.Lp, "wp": inner.wp},
-        "staged": staged,
+        "route": ("out of core" if flagship_is_huge(plan) else
+                  "staged" if flagship_is_staged(plan) else "whole"),
         "device_ms": _events_ms(lambda: run(da, db), reps),
         **_window(lambda: run(da, db), reps),
         "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},

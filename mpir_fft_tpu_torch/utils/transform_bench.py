@@ -28,11 +28,12 @@ transform and the folded outer ring, per chunk of the default plans at
 64), d 8; (5376, 6144)), the 1.5x10^9 even-w norm tail (65536, 6144), and
 the MPIR_FFT_NTT=0 plans' chunks at 10^8 ((8192 x 256, 32), (8192, 3072))
 and 10^9 ((8192 x 128, 72), (8192, 4096)).  Long rows (rows, L, d, fill):
-the mulmod_int rings' final normmod at N = 2^22, 2^24 and 2^29 ((1, 2^18),
-(1, 2^20), (1, 2^25)), each "random" and "ripple" (all 0xFFFF, the top
-digit -1: every tile of the chained scan looks back, and the carry out
-ripples through the whole row into the -1 form); timed under the name
-"normmod (long)".
+the mulmod_int rings' final normmod at N = 2^22, 2^24, 2^29 and 2^30
+((1, 2^18), (1, 2^20), (1, 2^25), (1, 2^26); at 2^26 the random row by a
+normmod_div shift 2W - 16, above 2^31), each "random" and "ripple" (all
+0xFFFF, the top digit -1: every tile of the chained scan looks back, and
+the carry out ripples through the whole row into the -1 form); timed
+under the name "normmod (long)".
 
 Inverse sqrt2 top merges, (C, L, w, lg_conv): the 1.2x10^9 plan's (65536,
 5120), w 5, and the 10^9 plan's (131072, 2048), w 1, each with its norm
@@ -107,7 +108,8 @@ NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (53
                   (65536, 6144, 16), (8192 * 256, 32, 8), (8192, 3072, 0),
                   (8192 * 128, 72, 7), (8192, 4096, 0))
 NORMMOD_LONG_SHAPES = tuple((1, 1 << lg, 0, fill) for lg in (18, 20, 25)
-                            for fill in ("random", "ripple"))
+                            for fill in ("random", "ripple")) + \
+    ((1, 1 << 26, 16, "random"), (1, 1 << 26, 0, "ripple"))    # N = 2^30: 2W passes 2^31
 SQRT2_INV_SHAPES = ((65536, 5120, 5, 16), (131072, 2048, 1, 17), (16384, 256, 1, 14),
                     (16384, 256, 1, 0))
 SQRT2_FWD_SHAPES = ((2, 16384, 256, 1),)

@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from mpir_fft_tpu_torch import kernels, mulmod_int
+from mpir_fft_tpu_torch.models import huge
 from mpir_fft_tpu_torch.models.mul import (DRIVERS, _staged_flagship, flagship_is_staged,
-                                           mpn_mul_flagship, mpn_sqr_flagship, mul, sqr)
+                                           mpn_mul_flagship, mpn_sqr_flagship, mul, mul_many,
+                                           sqr)
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
     CANON_ROW_MAX,
@@ -34,6 +36,7 @@ from mpir_fft_tpu_torch.ops.fused import (
     ladder_stages,
     mfa_col_fits,
     mfa_cols_plain,
+    NORMMOD_LONG_MAX,
     NORMMOD_ROW_MAX,
     NORMMOD_SHORT_MAX,
     normmod_route,
@@ -75,6 +78,7 @@ from mpir_fft_tpu_torch.ops.ntt import (
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
 from mpir_fft_tpu_torch.ops.transforms import ifft_innermost_body
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
+from mpir_fft_tpu_torch.utils.ladder_bench import huge_passes
 from mpir_fft_tpu_torch.utils.params import MulPlan, choose_params, plan_for_depth, validate
 
 pytestmark = pytest.mark.cuda
@@ -378,6 +382,25 @@ def test_normmod_routes_match_kernel_limits(dev):
     """The host predicate's limits are the kernel library's."""
     assert kernels.lib().mf_normmod_short_max() == NORMMOD_SHORT_MAX
     assert kernels.lib().mf_normmod_row_max() == NORMMOD_ROW_MAX
+    assert kernels.lib().mf_normmod_long_max() == NORMMOD_LONG_MAX
+
+
+@pytest.mark.parametrize("kind", ["random", "ones"])
+def test_normmod_long_row_2_26(dev, kind):
+    """The mulmod_int 2^30 ring's final normmod: one row of 2^26 digits,
+    where 2W = 2^31 passes a C int.  s = 0 (normmod) and the normmod_div
+    shift 2W - 16 (above 2^31); random digits and an all-0xFFFF ripple;
+    digits identical to the plain version run on the card."""
+    L = 1 << 26
+    W = 16 * L
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (1, L), -(1 << 29), 1 << 29, dev) if kind == "random" else \
+        torch.from_numpy(_ripple_rows(rng, 1, L, "ones")).to(dev)
+    for s in (0, 2 * W - 16):
+        got = _launched("normmod_long", lambda: fused_normmod_div(x, s, W))
+        assert torch.equal(got, normmod_rows_plain(x, s, W)), (kind, s)
+        del got
+        torch.cuda.empty_cache()
 
 
 def test_canonicalize_route_limits_match_kernel(dev):
@@ -936,3 +959,63 @@ def test_staged_equals_unstaged_at_1e8(dev):
     assert torch.equal(_staged_flagship(plan)(da), mpn_sqr_flagship(da, plan))
     p = (1 << 61) - 1
     assert mul(a, b, device=dev) % p == (a % p) * (b % p) % p
+
+
+@pytest.mark.parametrize("bits,depth", [(100_000, 7), (150_000, 7)])
+def test_mul_huge_passes_match_plain(dev, bits, depth):
+    """The out-of-core engine with 64 KB chunks (several a pass) on the card
+    against the same engine on the host, which runs every kernel's plain
+    version: each pass's packed output identical (canonical digits), the
+    product equal to the staged flagship's and to Python's (odd w with
+    trunc_mfa > h, and even w)."""
+    plan = plan_for_depth(bits, bits, depth, sqrt2=True)
+    assert huge.huge_serves(plan)
+    rnd = random.Random(bits)
+    a, b = (rnd.getrandbits(bits) | (1 << (bits - 1)) for _ in range(2))
+    da, db = (torch.from_numpy(digits_from_int(v, -(-bits // 16))) for v in (a, b))
+    results = {}
+    for where in (dev, torch.device("cpu")):
+        x, y = da.to(where), db.to(where)
+        if where.type == "cuda":
+            kernels.reset_launches()
+        results[where.type] = huge_passes(
+            lambda: (huge.mul_huge(x, y, plan), huge.sqr_huge(x, plan)), 64 << 10)
+        if where.type == "cuda":
+            assert kernels.LAUNCHES["ladder_pe"] > 0 and kernels.LAUNCHES["normmod"] > 0
+            assert kernels.LAUNCHES["canonicalize"] == 2
+    (got, got_sq), passes = results["cuda"]
+    (want, want_sq), plain = results["cpu"]
+    assert len(passes) == len(plain) > 8
+    for (name, rows), (pname, prows) in zip(passes, plain):
+        assert name == pname and len(rows) == len(prows), name
+        assert all(torch.equal(r, q) for r, q in zip(rows, prows)), name
+    assert torch.equal(got.cpu(), want) and torch.equal(got_sq.cpu(), want_sq)
+    assert torch.equal(got, _staged_flagship(plan)(da.to(dev), db.to(dev)))
+    assert int_from_digits(got.cpu().numpy()) == a * b
+    assert int_from_digits(got_sq.cpu().numpy()) == a * a
+
+
+def test_mul_piecewise_on_gpu(dev, monkeypatch):
+    """An extreme-uneven product as balanced pieces on the card (the
+    threshold lowered below its plan): exact."""
+    from mpir_fft_tpu_torch.models import mul as tmul
+
+    rnd = random.Random(20000)
+    a, b = rnd.getrandbits(20000) | (1 << 19999), rnd.getrandbits(9000) | (1 << 8999)
+    plan = choose_params(20000, 9000, sqrt2=True)
+    monkeypatch.setattr(tmul, "_HUGE_THRESHOLD_ELEMS", plan.conv_len * (plan.W // 16) - 1)
+    assert tmul._piecewise_serves(plan)
+    assert mul(a, b, device=dev) == a * b
+
+
+def test_mul_many_matches_loop_on_gpu(dev):
+    """mul_many: one batched driver call on the card, equal to a loop of
+    mul and to Python, mixed sizes zero-padded into one plan."""
+    rnd = random.Random(77)
+    pairs = [(rnd.getrandbits(bits_a) | 1, rnd.getrandbits(bits_b) | 1)
+             for bits_a, bits_b in ((170000, 150000), (90000, 150000), (170000, 40000),
+                                    (123450, 67890))]
+    kernels.reset_launches()
+    got = mul_many(pairs, device=dev)
+    assert kernels.LAUNCHES["canonicalize"] == 1
+    assert got == [mul(a, b, device=dev) for a, b in pairs] == [a * b for a, b in pairs]

@@ -124,3 +124,23 @@ def test_mulmod_int_host_paths():
     assert mulmod_int(0, 5, 1 << 15, device="cpu") == 0
     with pytest.raises(ValueError):
         mulmod_int(1, 1, 0, device="cpu")
+
+
+def test_mulmod_int_refuses_rows_past_the_kernel(monkeypatch):
+    """On the card the final normmod is one row of N/16 digits: an N whose
+    row passes the long-row kernel's limit (2^30 digits) raises at call
+    time, naming the limit, before any operand is reduced or converted; the
+    limit is at least 2^28 digits (ring products up to N = 2^32)."""
+    from mpir_fft_tpu_torch.ops.fused import NORMMOD_LONG_MAX
+
+    assert NORMMOD_LONG_MAX >= 1 << 28
+
+    def converted(*args, **kwargs):
+        raise AssertionError("an operand was converted before the refusal")
+
+    monkeypatch.setattr(tmm, "digits_from_int", converted)
+    N = 16 * (NORMMOD_LONG_MAX + 1)
+    with pytest.raises(ValueError, match=str(NORMMOD_LONG_MAX)):
+        mulmod_int(3, 5, N, device="cuda")
+    with pytest.raises(ValueError, match="long-row kernel"):
+        mulmod_int(3, 5, N)
