@@ -173,7 +173,18 @@
      mul_many at 16 pairs of 10^6 and 8 pairs of 10^7 bits (one batched
        driver call each), equal to a loop of mul, residues, and full
        compare of the 10^6 batch and one 10^7 pair; ms per product beside
-       the loop (host clock) and beside single driver calls (device).
+       the loop (host clock) and beside single driver calls (device);
+     the tools: each subcommand of mpir_fft_tpu_torch.cli in process,
+       counted -- selftest at 2x10^5 bits (the seven drivers against GMP's
+       mpn_mul, or Python's multiply where GMP is missing); mul through
+       files at 10^7 and 10^8 bits (the product file equal to GMP's, else
+       residues); mulmod at 2^22 (equal to Python's product folded); tune
+       at 10^7 and 10^8 into a temporary cache (each candidate checked
+       against the analytic product, its median and spread printed, and the
+       kept plan); profile --stages at 10^8 and 10^9 (the composed stages'
+       product equal to the route's, their times' sum within 0.8-1.5x of
+       the route's device time in the same run); profile --transforms at
+       depth 12, w 1; baseline at 10^7 (or the line that GMP is missing).
    For each: the plan, the launches, host-clock and CUDA-event times, and
    torch.cuda.max_memory_allocated().
 5. Prints the kernel table as one JSON line, the card's line again, and the
@@ -185,13 +196,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
+import pathlib
 import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 20261016
@@ -1532,6 +1546,87 @@ def main() -> int:
               f"to mul's, residues; full compare of {len(full)}); "
               + json.dumps({k: v for k, v in e2e.items() if label in k}))
         del da, db
+
+    # the tools around mul(): the CLI's subcommands in process on the
+    # card, each counted; files in a temporary directory, the tuner's cache
+    # there too (MPIR_FFT_TUNE_CACHE for the tune subcommand only)
+    from mpir_fft_tpu_torch import cli, native
+
+    t_tools = time.perf_counter()
+    tools_dir = tempfile.TemporaryDirectory()
+    tdir = pathlib.Path(tools_dir.name)
+
+    def cli_run(label, argv, expect=()):
+        """cli.main(argv) counted; its output printed; rc must be 0."""
+        out = io.StringIO()
+
+        def go():
+            with contextlib.redirect_stdout(out):
+                return cli.main(argv)
+
+        rc = counted(f"cli {label}", expect, go)
+        print("\n".join(f"  {line}" for line in out.getvalue().splitlines()))
+        assert rc == 0, f"cli {label}: exit code {rc}"
+        return out.getvalue().splitlines()
+
+    gmp_ok = native.gmp_mul(b"\x03", b"\x05") == b"\x0f\x00"
+    print(f"GMP (libgmp.so.10 through cc): {'available' if gmp_ok else 'not available'}")
+    cli_run("selftest 2e5", ["selftest", "--bits", "200000"], ("canonicalize",))
+    for bits, label, expect in ((ODD_BITS, "1e7", odd_ntt),
+                                (REC_BITS, "1e8", zerotop + ("normmod",) + ntt_post)):
+        x, y = operand(bits), operand(bits)
+        xb, yb = x.to_bytes(bits // 8, "little"), y.to_bytes(bits // 8, "little")
+        (tdir / "a.bin").write_bytes(xb)
+        (tdir / "b.bin").write_bytes(yb)
+        cli_run(f"mul {label}", ["mul", str(tdir / "a.bin"), str(tdir / "b.bin"),
+                                 str(tdir / "out.bin")], expect)
+        got = (tdir / "out.bin").read_bytes()
+        assert len(got) == 2 * cdiv(2 * bits, DIGIT_BITS) + 4, (label, len(got))
+        want = native.gmp_mul(xb, yb)
+        if want is not None:
+            assert got == want + bytes(len(got) - len(want)), f"cli mul {label}"
+            how = "equal to GMP's mpn_mul"
+        else:
+            assert residues_agree(int.from_bytes(got, "little"), x, y, primes), label
+            how = "residues mod 4 61-bit primes"
+        print(f"cli mul {label}: the product file ({len(got)} bytes) {how}")
+    N = MULMOD_N[0]
+    x, y = rnd.randrange((1 << N) + 1), rnd.randrange((1 << N) + 1)
+    (tdir / "a.bin").write_bytes(x.to_bytes(N // 8 + 1, "little"))
+    (tdir / "b.bin").write_bytes(y.to_bytes(N // 8 + 1, "little"))
+    cli_run("mulmod 2^22", ["mulmod", str(tdir / "a.bin"), str(tdir / "b.bin"),
+                            str(tdir / "out.bin"), "--nbits", str(N)], rec_flat_ntt)
+    got = int.from_bytes((tdir / "out.bin").read_bytes(), "little")
+    assert got == mod_fermat(x * y, N), "cli mulmod 2^22"
+    print("cli mulmod 2^22: equal to Python's product folded mod 2^N+1")
+    os.environ["MPIR_FFT_TUNE_CACHE"] = str(tdir / "tune.json")
+    try:
+        for bits, label in ((ODD_BITS, "1e7"), (REC_BITS, "1e8")):
+            entry = json.loads(cli_run(f"tune {label}", ["tune", "--bits", str(bits)],
+                                       ("ladder", "canonicalize", "int8_gemm"))[-1])
+            assert not entry["cached"] and entry["device"] == torch.cuda.get_device_name(0)
+            for d, w, *r in entry["candidates"]:
+                print(f"  tune {label}: depth {d} w {w}: " + (
+                    f"median {r[0]:.4f} ms, spread {r[1]:.4f} ms" if len(r) == 2 else r[0]))
+            print(f"tune {label}: kept depth {entry['depth']} w {entry['w']} "
+                  f"({entry['ms']:.4f} ms); analytic {entry['analytic']}")
+    finally:
+        del os.environ["MPIR_FFT_TUNE_CACHE"]
+    for bits, label in ((REC_BITS, "1e8"), (HUGE_BITS, "1e9")):
+        prof = json.loads(cli_run(f"profile --stages {label}", ["profile", "--bits", str(bits)],
+                                  zerotop + ntt_post)[-1])
+        ratio = prof["total_s"] / prof["route_s"]
+        print(f"profile {label}: stages sum {prof['total_s'] * 1e3:.3f} ms, route "
+              f"{prof['route_s'] * 1e3:.3f} ms, ratio {ratio:.3f}")
+        assert 0.8 <= ratio <= 1.5, (label, ratio)
+    cli_run("profile --transforms 12/1", ["profile", "--transforms", "--depth", "12", "--w",
+                                          "1"], ("ladder", "sqrt2_top_fwd", "sqrt2_top_inv"))
+    if gmp_ok:
+        cli_run("baseline 1e7", ["baseline", "--bits", str(ODD_BITS)])
+    else:
+        print("baseline 1e7: GMP is missing on this machine (cli baseline exits 1)")
+    tools_dir.cleanup()
+    print(f"tools phase (cli): {time.perf_counter() - t_tools:.1f} s")
 
     print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
           "events, digits on the card): " + json.dumps(e2e))

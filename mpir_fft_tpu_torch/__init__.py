@@ -20,8 +20,10 @@ truncated MFA, staged from conv_len * L > 2^24 elements as the reference
 stages them, past 2^29 elements out of core (`models/huge.py`) or, for
 extreme imbalance, as balanced pieces; `mul(a, b, driver=...)` for the
 seven drivers; `mul_many`, a batch of products in one driver call; and
-`mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1.  Not ported yet:
-sharding.
+`mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1; and the tools
+around them: the command line (`python -m mpir_fft_tpu_torch.cli`), the
+device-keyed plan tuner (`utils/tune.py`) and the stage profile
+(`utils/profile.py`).  Not ported yet: sharding.
 
 Public API (the reference's eight names, mpir_fft_tpu/__init__.py:24-33):
 

@@ -49,18 +49,29 @@ one runs as balanced pieces (`_mul_piecewise`, b shipped once); the rest
 raises ValueError at plan time.  `mul_many` runs a batch of pairs as one
 driver call on (Bt, L) digit tensors at one shared plan.
 
+Every driver is its `Stages` (split, forward, pointwise, inverse,
+normalize, combine; `driver_stages`), which the driver composes and the
+stage profile (utils/profile.py) times one by one.
+
+Plans: `mul` / `sqr` take a measured plan from the tune cache for their
+device where one is recorded (utils/tune.py cached_plan; MPIR_FFT_TUNE=0
+turns the lookup off), else the analytic `choose_params`; `mul_many`
+always the analytic one.
+
 Device data model: integers are canonical base-2^16 digit vectors (int32
 tensors) on an explicit device; `mul` / `sqr` default to "cuda" and never
 move work to the CPU unless asked to."""
 
 from __future__ import annotations
 
+import os
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
 from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
-from mpir_fft_tpu_torch.ops.limb import (DIGIT_BITS, Ring, digits_from_int, int_from_digits,
-                                         normmod_div)
+from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod_div
 from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_mfa_rows, ifft_radix2_mfa,
                                         mfa_fft_trunc, mfa_fft_trunc_sqrt2, mfa_ifft_trunc,
                                         mfa_ifft_trunc_sqrt2)
@@ -74,6 +85,7 @@ from mpir_fft_tpu_torch.ops.transforms import (fft_radix2, ifft_innermost, ifft_
 from mpir_fft_tpu_torch.ops.truncate import fft_trunc, ifft_trunc
 from mpir_fft_tpu_torch.utils.interop import digits_to_tensor, tensor_to_digits
 from mpir_fft_tpu_torch.utils.params import MulPlan, cdiv, choose_params
+from mpir_fft_tpu_torch.utils.tune import cached_plan
 
 # below this many product bits the host big-int product wins (the reference
 # likewise delegates below-crossover sizes to mpn_mul, mul_fft.c:3135-3139)
@@ -95,13 +107,30 @@ def _pointwise(fa: torch.Tensor, fb: torch.Tensor, W: int, recursive: bool) -> t
     return mulmod_base(fa, fb, canonical=False)
 
 
-def _finish(c: torch.Tensor, plan: MulPlan, valid: int, norm_done: bool = False) -> torch.Tensor:
-    """Scale by 2^-lg_conv and canonicalize (unless the inverse already
-    folded that tail in), then combine the first `valid` coefficients into
-    the product's digits (ref FFT_combine_bits, mul_fft.c:3658-3665)."""
-    if not norm_done:
-        c = normmod_div(c, plan.lg_conv, plan.W)
-    return fft_combine_bits(c[..., :valid, :], plan.bits1, out_len_digits(plan))
+class Stages(NamedTuple):
+    """A driver's pipeline at one plan, as the stages it runs (the stage
+    profile, utils/profile.py, times each one alone)."""
+    split: Callable               # digits [..., La] -> coefficient rows
+    fwd: Callable                 # rows -> the spectrum rows the pointwise takes
+    pw: Callable                  # (fa, fb) -> products (fb is fa: a square)
+    inv: Callable                 # products -> coefficients
+    norm: Callable | None         # divide by 2^lg_conv and normmod; None: inv folds it in
+    combine: Callable             # coefficients -> canonical product digits
+
+
+def _split_fn(plan: MulPlan, rows: int):
+    return lambda d: fft_split_bits(d, plan.bits1, rows, plan.W // DIGIT_BITS)
+
+
+def _norm_fn(plan: MulPlan):
+    return lambda c: normmod_div(c, plan.lg_conv, plan.W)
+
+
+def _combine_fn(plan: MulPlan, valid: int):
+    """Combine the first `valid` coefficients into the product's digits
+    (ref FFT_combine_bits, mul_fft.c:3658-3665)."""
+    out_len = out_len_digits(plan)
+    return lambda c: fft_combine_bits(c[..., :valid, :], plan.bits1, out_len)
 
 
 def _pad_rows(prod: torch.Tensor, C: int, axis: int = -2) -> torch.Tensor:
@@ -114,117 +143,131 @@ def _pad_rows(prod: torch.Tensor, C: int, axis: int = -2) -> torch.Tensor:
     return torch.cat([prod, prod.new_zeros(shape)], dim=axis)
 
 
-def _split2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan):
-    L = Ring(plan.n, plan.w).L
-    C = plan.conv_len
-    return (
-        fft_split_bits(a, plan.bits1, C, L),
-        fft_split_bits(b, plan.bits1, C, L),
-    )
+def _as_cells(c: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+    return c.reshape(c.shape[:-2] + (plan.n2, plan.n1, c.shape[-1]))
+
+
+def _from_cells(c: torch.Tensor) -> torch.Tensor:
+    return c.reshape(c.shape[:-3] + (-1, c.shape[-1]))
+
+
+def _plain_stages(kind: str, plan: MulPlan) -> Stages:
+    """The stages of the six drivers other than the flagship: the leaf
+    pointwise (recursive=False) between their transform pairs, truncated
+    at plan.trunc (trunc, trunc_sqrt2) or at trunc_mfa // n1 MFA rows
+    (mfa_trunc)."""
+    C, W, w, n1, n2 = plan.conv_len, plan.W, plan.w, plan.n1, plan.n2
+    split, norm = _split_fn(plan, C), _norm_fn(plan)
+
+    def pw(fa, fb):
+        return _pointwise(fa, fb, W, False)
+
+    if kind in ("radix2", "sqrt2"):
+        fwd, inv = {"radix2": (fft_radix2, ifft_radix2), "sqrt2": (fft_sqrt2, ifft_sqrt2)}[kind]
+        return Stages(split, lambda x: fwd(x, w, W), pw, lambda v: inv(v, w, W), norm,
+                      _combine_fn(plan, C))
+    if kind in ("trunc", "trunc_sqrt2"):
+        t = plan.trunc
+        fwd, inv = {"trunc": (fft_trunc, ifft_trunc),
+                    "trunc_sqrt2": (fft_trunc_sqrt2, ifft_trunc_sqrt2)}[kind]
+        return Stages(split, lambda x: fwd(x, w, W, t)[..., :t, :],
+                      lambda fa, fb: _pad_rows(pw(fa, fb), C), lambda v: inv(v, w, W, t), norm,
+                      _combine_fn(plan, t))
+    if kind == "mfa":
+        return Stages(split, lambda x: fft_radix2_mfa(_as_cells(x, plan), w, W, n1, n2), pw,
+                      lambda v: _from_cells(ifft_radix2_mfa(v, w, W, n1, n2)), norm,
+                      _combine_fn(plan, C))
+    assert kind == "mfa_trunc", kind
+    t2 = plan.trunc_mfa // n1
+    return Stages(split,
+                  lambda x: mfa_fft_trunc(_as_cells(x, plan), w, W, n1, n2, t2)[..., :t2, :, :],
+                  lambda fa, fb: _pad_rows(pw(fa, fb), n2, -3),
+                  lambda v: _from_cells(mfa_ifft_trunc(v, w, W, n1, n2, t2)), norm,
+                  _combine_fn(plan, plan.trunc_mfa))
+
+
+def _run_stages(s: Stages, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    c = s.inv(s.pw(s.fwd(s.split(a)), s.fwd(s.split(b))))
+    return s.combine(c if s.norm is None else s.norm(c))
 
 
 def mpn_mul_radix2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Plain full-length cyclic FFT multiply."""
     assert not plan.sqrt2
-    W = plan.W
-    ia, ib = _split2(a, b, plan)
-    prod = _pointwise(fft_radix2(ia, plan.w, W), fft_radix2(ib, plan.w, W), W, False)
-    return _finish(ifft_radix2(prod, plan.w, W), plan, plan.conv_len)
+    return _run_stages(_plain_stages("radix2", plan), a, b)
 
 
 def mpn_mul_sqrt2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Length-4n multiply through the sqrt2 transforms, no truncation."""
     assert plan.sqrt2
-    W = plan.W
-    ia, ib = _split2(a, b, plan)
-    prod = _pointwise(fft_sqrt2(ia, plan.w, W), fft_sqrt2(ib, plan.w, W), W, False)
-    return _finish(ifft_sqrt2(prod, plan.w, W), plan, plan.conv_len)
+    return _run_stages(_plain_stages("sqrt2", plan), a, b)
 
 
 def mpn_mul_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Truncated 1-D multiply at plan.trunc."""
     assert not plan.sqrt2
-    W, t = plan.W, plan.trunc
-    ia, ib = _split2(a, b, plan)
-    fa = fft_trunc(ia, plan.w, W, t)
-    fb = fft_trunc(ib, plan.w, W, t)
-    prod = _pad_rows(_pointwise(fa[..., :t, :], fb[..., :t, :], W, False), plan.conv_len)
-    return _finish(ifft_trunc(prod, plan.w, W, t), plan, t)
+    return _run_stages(_plain_stages("trunc", plan), a, b)
 
 
 def mpn_mul_trunc_sqrt2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Truncated length-4n multiply at plan.trunc."""
     assert plan.sqrt2
-    W, t = plan.W, plan.trunc
-    ia, ib = _split2(a, b, plan)
-    fa = fft_trunc_sqrt2(ia, plan.w, W, t)
-    fb = fft_trunc_sqrt2(ib, plan.w, W, t)
-    prod = _pad_rows(_pointwise(fa[..., :t, :], fb[..., :t, :], W, False), plan.conv_len)
-    return _finish(ifft_trunc_sqrt2(prod, plan.w, W, t), plan, t)
-
-
-def _as_cells(c: torch.Tensor, plan: MulPlan) -> torch.Tensor:
-    return c.reshape(c.shape[:-2] + (plan.n2, plan.n1, c.shape[-1]))
+    return _run_stages(_plain_stages("trunc_sqrt2", plan), a, b)
 
 
 def mpn_mul_mfa(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Cyclic multiply through the 2-D MFA transforms (n1 columns of n2)."""
     assert not plan.sqrt2
-    C, W, n1, n2 = plan.conv_len, plan.W, plan.n1, plan.n2
-    ia, ib = _split2(a, b, plan)
-    fa = fft_radix2_mfa(_as_cells(ia, plan), plan.w, W, n1, n2)
-    fb = fft_radix2_mfa(_as_cells(ib, plan), plan.w, W, n1, n2)
-    c = ifft_radix2_mfa(_pointwise(fa, fb, W, False), plan.w, W, n1, n2)
-    return _finish(c.reshape(c.shape[:-3] + (C, c.shape[-1])), plan, C)
+    return _run_stages(_plain_stages("mfa", plan), a, b)
 
 
 def mpn_mul_mfa_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Truncated MFA multiply: trunc_mfa // n1 kept rows."""
     assert not plan.sqrt2
-    C, W, n1, n2 = plan.conv_len, plan.W, plan.n1, plan.n2
-    t = plan.trunc_mfa
-    t2 = t // n1
-    ia, ib = _split2(a, b, plan)
-    fa = mfa_fft_trunc(_as_cells(ia, plan), plan.w, W, n1, n2, t2)
-    fb = mfa_fft_trunc(_as_cells(ib, plan), plan.w, W, n1, n2, t2)
-    prod = _pad_rows(_pointwise(fa[..., :t2, :, :], fb[..., :t2, :, :], W, False), n2, -3)
-    c = mfa_ifft_trunc(prod, plan.w, W, n1, n2, t2)
-    return _finish(c.reshape(c.shape[:-3] + (C, c.shape[-1])), plan, t)
+    return _run_stages(_plain_stages("mfa_trunc", plan), a, b)
+
+
+def _flat_flagship_stages(plan: MulPlan) -> Stages:
+    """The unstaged flagship's stages: truncated sqrt2 MFA transforms at
+    t = plan.trunc_mfa (the flat sqrt2 pair at t == conv_len), the
+    recursive pointwise on the first t rows, the inverse with the divide +
+    normmod tail folded in.  Coefficients past j1 + j2 - 1 are zero, so the
+    combine takes only plan.trunc."""
+    W, n1, t = plan.W, plan.n1, plan.trunc_mfa
+    return Stages(
+        _split_fn(plan, plan.conv_len),
+        lambda x: mfa_fft_trunc_sqrt2(x, plan.w, W, n1, t)[..., :t, :],
+        lambda fa, fb: _pointwise(fa, fb, W, True),
+        lambda prod: mfa_ifft_trunc_sqrt2(_pad_rows(prod, plan.conv_len), plan.w, W, n1, t,
+                                          norm_div=plan.lg_conv),
+        None, _combine_fn(plan, plan.trunc))
 
 
 def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
-    """The production multiply on digit tensors a [..., La], b [..., Lb]:
-    truncated sqrt2 MFA transforms at t = plan.trunc_mfa (the flat sqrt2
-    pair at t == conv_len), the pointwise on the first t rows.  Returns the
-    canonical product digits [..., out_len_digits(plan)].  Coefficients past
-    j1 + j2 - 1 are zero, so the combine takes only plan.trunc."""
+    """The production multiply on digit tensors a [..., La], b [..., Lb]
+    (the stages of _flat_flagship_stages).  Returns the canonical product
+    digits [..., out_len_digits(plan)]."""
     assert plan.sqrt2
-    W, n1, t = plan.W, plan.n1, plan.trunc_mfa
-    ia, ib = _split2(a, b, plan)
+    s = _flat_flagship_stages(plan)
+    ia, ib = s.split(a), s.split(b)
     if ia.shape == ib.shape:
         # one transform over both stacked operands: double the batch per launch
-        fab = mfa_fft_trunc_sqrt2(torch.stack([ia, ib]), plan.w, W, n1, t)
+        fab = s.fwd(torch.stack([ia, ib]))
         fa, fb = fab[0], fab[1]
     else:
-        fa = mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)
-        fb = mfa_fft_trunc_sqrt2(ib, plan.w, W, n1, t)
-    prod = _pointwise(fa[..., :t, :], fb[..., :t, :], W, True)
+        fa, fb = s.fwd(ia), s.fwd(ib)
+    prod = s.pw(fa, fb)
     del fa, fb
-    c = mfa_ifft_trunc_sqrt2(_pad_rows(prod, plan.conv_len), plan.w, W, n1, t,
-                             norm_div=plan.lg_conv)
-    return _finish(c, plan, plan.trunc, norm_done=True)
+    return s.combine(s.inv(prod))
 
 
 def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan) -> torch.Tensor:
     """Squaring through the flagship pipeline: one forward transform,
     pointwise fa*fa."""
     assert plan.sqrt2
-    W, n1, t = plan.W, plan.n1, plan.trunc_mfa
-    ia = fft_split_bits(a, plan.bits1, plan.conv_len, Ring(plan.n, plan.w).L)
-    fh = mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)[..., :t, :]
-    c = mfa_ifft_trunc_sqrt2(_pad_rows(_pointwise(fh, fh, W, True), plan.conv_len),
-                             plan.w, W, n1, t, norm_div=plan.lg_conv)
-    return _finish(c, plan, plan.trunc, norm_done=True)
+    s = _flat_flagship_stages(plan)
+    fh = s.fwd(s.split(a))
+    return s.combine(s.inv(s.pw(fh, fh)))
 
 
 # ---------------------------------------------------------------------------
@@ -314,11 +357,14 @@ def _inner_leg(plan: MulPlan):
     return lambda v: ifft_mfa_rows(v, row_w, W, n1)
 
 
-def _staged_flagship(plan: MulPlan):
-    """The staged flagship of a plan as run(da, db=None) on digit tensors
-    [La], [Lb] (db None: the square of da) -> the canonical product digits
-    [out_len_digits(plan)] -- the reference's _staged_flagship (models/
-    mul.py:401-515), unsharded."""
+def _staged_flagship_stages(plan: MulPlan) -> Stages:
+    """The staged flagship's stages (the reference's _staged_flagship,
+    models/mul.py:401-515, unsharded), on digit tensors [La] / [Lb]: the
+    forward of one operand (zero-top on balanced full-length plans), the
+    pointwise in chunks of _pw_chunk_rows rows each followed by its
+    chunk-local first inverse leg, the products overwriting the first
+    spectrum's rows in place (the reference donates it), the inverse
+    without that leg and with the norm tail folded in, the combine."""
     assert plan.sqrt2
     L = plan.W // DIGIT_BITS
     C, W, n1, t = plan.conv_len, plan.W, plan.n1, plan.trunc_mfa
@@ -334,13 +380,11 @@ def _staged_flagship(plan: MulPlan):
     post_steps = inner_steps(plan.w, h, kg)
     rows = _pw_chunk_rows(plan)
 
-    def fwd(d):
+    def fwd(ia):
         if zerotop:
-            ia = fft_split_bits(d, plan.bits1, h, L)
             # the t-leg's half-bit twiddle t_j = a_j q^j rides its first ladder group
             return torch.cat([fft_radix2(ia, plan.w, W),
                               fft_radix2(ia, plan.w, W, pre_half=(0, plan.w))], dim=-2)
-        ia = fft_split_bits(d, plan.bits1, C, L)
         return mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t)
 
     def pw_inner(fa, fb):
@@ -353,22 +397,37 @@ def _staged_flagship(plan: MulPlan):
             return prod if cell["consumed"] else inner(prod)
         return inner(_pointwise(fa, fb, W, True))
 
-    def run(da, db=None):
-        # one operand's forward at a time; the chunk products overwrite the
-        # first spectrum's rows in place (the reference donates it); the
-        # forwards hold conv_len rows, the chunks cover the first t
-        fa = fwd(da)
-        fb = fa if db is None else fwd(db)
+    def pw(fa, fb):
+        # the forwards hold conv_len rows, the chunks cover the first t
         for i in range(0, t, rows):
             j = min(i + rows, t)
             ca = fa[i:j]
-            fa[i:j] = pw_inner(ca, ca if db is None else fb[i:j])
-        del fb
+            fa[i:j] = pw_inner(ca, ca if fb is fa else fb[i:j])
         if t < C:
             fa[t:] = 0
-        c = mfa_ifft_trunc_sqrt2(fa, plan.w, W, n1, t, norm_div=plan.lg_conv, rows_done=True)
+        return fa
+
+    return Stages(_split_fn(plan, h if zerotop else C), fwd, pw,
+                  lambda fa: mfa_ifft_trunc_sqrt2(fa, plan.w, W, n1, t, norm_div=plan.lg_conv,
+                                                  rows_done=True),
+                  None, _combine_fn(plan, t))
+
+
+def _staged_flagship(plan: MulPlan):
+    """The staged flagship of a plan as run(da, db=None) on digit tensors
+    [La], [Lb] (db None: the square of da) -> the canonical product digits
+    [out_len_digits(plan)]: the stages of _staged_flagship_stages, one
+    operand's forward at a time."""
+    s = _staged_flagship_stages(plan)
+
+    def run(da, db=None):
+        fa = s.fwd(s.split(da))
+        fb = fa if db is None else s.fwd(s.split(db))
+        s.pw(fa, fb)
+        del fb
+        c = s.inv(fa)
         del fa
-        return fft_combine_bits(c[:t], plan.bits1, out_len_digits(plan))
+        return s.combine(c)
 
     return run
 
@@ -384,9 +443,38 @@ DRIVERS = {
 }
 
 
-def _select_plan(bits_a: int, bits_b: int, driver: str = "flagship") -> MulPlan:
-    """The analytic plan of a driver.  (The reference's tune cache holds TPU
-    measurements only, so the port does not read it.)"""
+def driver_stages(kind: str, plan: MulPlan) -> Stages:
+    """The stages of driver `kind` at `plan` on the route mul() takes: for
+    the flagship those of the staged pipeline where flagship_is_staged,
+    else of mpn_mul_flagship.  Out-of-core plans have no such stages
+    (models/huge.py streams every pass) and raise ValueError, as does a
+    plan the reference refuses."""
+    assert plan.sqrt2 == DRIVERS[kind][1], (kind, plan)
+    if kind != "flagship":
+        return _plain_stages(kind, plan)
+    _require_huge_servable(plan)
+    if flagship_is_huge(plan):
+        raise ValueError("an out-of-core plan runs no whole-spectrum stages "
+                         f"({plan.conv_len * (plan.W // DIGIT_BITS)} elements > "
+                         f"{_HUGE_THRESHOLD_ELEMS})")
+    if flagship_is_staged(plan):
+        return _staged_flagship_stages(plan)
+    return _flat_flagship_stages(plan)
+
+
+def _tune_enabled() -> bool:
+    return os.environ.get("MPIR_FFT_TUNE", "1").lower() not in ("0", "off", "false")
+
+
+def _select_plan(bits_a: int, bits_b: int, driver: str = "flagship", device="cuda") -> MulPlan:
+    """mul()'s plan (the reference's models/mul.py:521-543): a measured
+    entry of the tune cache for this device and size bucket
+    (utils/tune.py cached_plan, written by `cli tune`) where there is one
+    and MPIR_FFT_TUNE is not 0 / off / false, else the analytic plan."""
+    if _tune_enabled():
+        plan = cached_plan(bits_a, bits_b, driver, device)
+        if plan is not None:
+            return plan
     return choose_params(bits_a, bits_b, sqrt2=DRIVERS[driver][1])
 
 
@@ -444,7 +532,7 @@ def _mul_piecewise(a: int, b: int, driver: str, device) -> int:
         if bp + bb <= _SMALL_THRESHOLD_BITS:
             pd = digits_from_int(piece * b, cdiv(bp + bb, DIGIT_BITS))
         else:
-            plan = _select_plan(bp, bb, driver)
+            plan = _select_plan(bp, bb, driver, device)
             if driver == "flagship" and _piecewise_serves(plan):
                 pv = mul(piece, b, driver, device)
                 pd = digits_from_int(pv, cdiv(max(pv.bit_length(), 1), DIGIT_BITS))
@@ -479,7 +567,7 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     ba, bb = a.bit_length(), b.bit_length()
     if ba + bb <= _SMALL_THRESHOLD_BITS:
         return a * b
-    plan = _select_plan(ba, bb, driver)
+    plan = _select_plan(ba, bb, driver, device)
     if driver == "flagship" and _piecewise_serves(plan):
         return _mul_piecewise(a, b, driver, device)
     run = _driver(driver, plan)
@@ -499,7 +587,7 @@ def sqr(a: int, device="cuda") -> int:
     ba = a.bit_length()
     if 2 * ba <= _SMALL_THRESHOLD_BITS:
         return a * a
-    run = _sqr_driver(_select_plan(ba, ba))
+    run = _sqr_driver(_select_plan(ba, ba, "flagship", device))
     da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
     return int_from_digits(tensor_to_digits(run(da)))
 
@@ -526,7 +614,8 @@ def mul_many(pairs, driver: str = "flagship", device="cuda") -> list[int]:
     bb = max(b.bit_length() for _, b in pairs)
     if ba == 0 or bb == 0 or ba + bb <= _SMALL_THRESHOLD_BITS or len(pairs) == 1:
         return [a * b for a, b in pairs]
-    plan = _select_plan(ba, bb, driver)
+    # the analytic plan: the tune cache holds no batch-class entries (utils/tune.py)
+    plan = choose_params(ba, bb, sqrt2=DRIVERS[driver][1])
     if driver == "flagship" and (flagship_is_huge(plan) or flagship_is_staged(plan)):
         return [mul(a, b, driver, device) for a, b in pairs]
     La, Lb = cdiv(ba, DIGIT_BITS), cdiv(bb, DIGIT_BITS)

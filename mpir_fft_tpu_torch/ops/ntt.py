@@ -880,6 +880,22 @@ def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
+def gemm_ops(B: int, M: int) -> int:
+    """int8 operations (two a multiply-add) of the GEMMs mulmod_ntt issues
+    for B products of M-digit rings: per prime two forward transforms and
+    one inverse, each one [B, 2M] @ [2M, 2M] GEMM on the dense tier, an
+    [B m2, 3 m1] @ [3 m1, 3 m1] and an [B m1, 3 m2] @ [3 m2, 3 m2] GEMM on
+    the 4-step tier; batches of up to 16 rows padded to 32, as _dot_raw
+    pads them."""
+    def mm(rows: int, k: int) -> int:
+        return 2 * (32 if rows <= 16 else rows) * k * k
+
+    if M <= TIER1_MAX_M:
+        return 3 * 3 * mm(B, 2 * M)
+    m1, m2 = _ntt4_shape(M)
+    return 3 * 3 * (mm(B * m2, 3 * m1) + mm(B * m1, 3 * m2))
+
+
 def mulmod_ntt(a: torch.Tensor, b: torch.Tensor, canonical: bool = False) -> torch.Tensor:
     """(a * b) mod 2^(16M)+1 on digit vectors [..., M] (broadcast), M a
     power of two in [4, 8192]: the dense tier up to M = 2048, the 4-step

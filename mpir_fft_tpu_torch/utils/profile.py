@@ -38,19 +38,28 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import random
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.models.mul import (_driver, _select_plan, flagship_is_huge,
+from mpir_fft_tpu_torch.models.mul import (_driver, _select_plan, driver_stages, flagship_is_huge,
                                            flagship_is_staged)
-from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, Ring, digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.mfa import fft_radix2_mfa, ifft_radix2_mfa
 from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_plan
+from mpir_fft_tpu_torch.ops.negacyclic import fft_negacyclic, ifft_negacyclic
+from mpir_fft_tpu_torch.ops.ntt import gemm_ops, ntt_supported
+from mpir_fft_tpu_torch.ops.pointwise import _use_ntt, base_serves
+from mpir_fft_tpu_torch.ops.sqrt2 import fft_sqrt2, ifft_sqrt2
+from mpir_fft_tpu_torch.ops.transforms import fft_radix2, ifft_radix2
 from mpir_fft_tpu_torch.utils.params import cdiv
+from mpir_fft_tpu_torch.utils.tune import timed_ms
 
 SEED = 20261016
 
@@ -105,16 +114,8 @@ def _kernel_of(name: str) -> str:
 
 
 def _events_ms(fn, reps: int) -> float:
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device ms of fn() over reps calls (CUDA events)."""
+    return statistics.median(timed_ms(fn, torch.device("cuda"))[1] for _ in range(reps))
 
 
 def device_kernels_per_call(fn, reps: int = 1) -> float:
@@ -176,7 +177,7 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
 
     steps = {}
     t = time.perf_counter()
-    plan = _select_plan(bits_a, bits_b)
+    plan = _select_plan(bits_a, bits_b, "flagship", "cuda")
     steps["planner"] = time.perf_counter() - t
     run = _driver("flagship", plan)
     t = time.perf_counter()
@@ -262,26 +263,198 @@ def _window(fn, reps: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The stage profile (the reference's profile.py:77-304)
+# ---------------------------------------------------------------------------
+
+def _stage_fns(plan, driver: str):
+    """(fwd, pw, inv, norm or None, combine, meta) of `driver` at `plan`:
+    the stages the driver itself runs (models.mul.driver_stages), the
+    split folded into the forward.  The staged flagship's pw overwrites its
+    first argument's rows in place.  meta: whether the route is staged,
+    the rows the pointwise multiplies and whether it recurses."""
+    s = driver_stages(driver, plan)
+    rows = {"flagship": plan.trunc_mfa, "mfa_trunc": plan.trunc_mfa, "trunc": plan.trunc,
+            "trunc_sqrt2": plan.trunc}.get(driver, plan.conv_len)
+    meta = {"staged": driver == "flagship" and flagship_is_staged(plan),
+            "pointwise_rows": rows, "recursive": driver == "flagship"}
+    return (lambda d: s.fwd(s.split(d))), s.pw, s.inv, s.norm, s.combine, meta
+
+
+def pointwise_gemm_ops(rows: int, W: int, recursive: bool) -> int:
+    """int8 GEMM operations of the pointwise of `rows` products mod 2^W+1
+    as models.mul._pointwise routes it: the NTT leaf's (ops/ntt.gemm_ops)
+    where it serves the ring, the recursion's inner rings
+    (ops/mulmod.inner_plan) where the pointwise recurses, none on the
+    schoolbook."""
+    L = W // DIGIT_BITS
+    inner = None if not recursive and base_serves(L) else inner_plan(W)
+    if inner is not None:
+        return pointwise_gemm_ops(rows * inner.m, inner.Wp, True)
+    return gemm_ops(rows, L) if ntt_supported(L) and _use_ntt() else 0
+
+
+def _stage_s(fn, args, reps: int, dev: torch.device) -> tuple[float, object]:
+    """(median seconds of fn over reps calls after one warm-up, the last
+    call's output).  Every call takes fresh copies of args, made outside
+    its timed window (the staged pointwise writes its input in place)."""
+    times, out = [], None
+    for i in range(reps + 1):
+        fresh = [a.clone() for a in args]
+        out = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out, ms = timed_ms(lambda: fn(*fresh), dev)
+        del fresh
+        if i:
+            times.append(ms)
+    return statistics.median(times) / 1e3, out
+
+
+def _device_line(dev: torch.device) -> dict:
+    """The device's name (and on the card its nvidia-smi name and power
+    limit) and the clock the times come from."""
+    if dev.type == "cuda":
+        return {"device": torch.cuda.get_device_name(dev), "gpu": gpu_line(),
+                "clock": "cuda events"}
+    return {"device": dev.type, "clock": "host"}
+
+
+def _random_digits(rng: np.random.Generator, shape) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 1 << DIGIT_BITS, shape, dtype=np.int32))
+
+
+def profile_stages(bits: int, reps: int = 8, driver: str = "flagship", device="cuda") -> dict:
+    """Each stage of a bits x bits multiply on mul()'s plan and route
+    (split + forward of each operand, pointwise, inverse, normalize,
+    combine; the reference's keys), timed alone on digits resident on
+    `device`, each stage's inputs freed before the next; beside them the
+    whole route's time in the same run (route_s), the composed stages'
+    product held equal to the route's, the pointwise's int8 GEMM rate
+    beside INT8_OPS_PER_S and the forward's ladder bytes a second beside
+    HBM_BYTES_PER_S.  The card's times are CUDA events; on the CPU (asked
+    for with device="cpu") the host clock, and "clock" says which."""
+    from mpir_fft_tpu_torch.utils.ladder_bench import ladder_calls
+
+    dev = torch.device(device)
+    plan = _select_plan(bits, bits, driver, dev)
+    fwd, pw, inv, norm, combine, meta = _stage_fns(plan, driver)
+    rng = np.random.default_rng(0)
+    L = cdiv(bits, DIGIT_BITS)
+    da, db = _random_digits(rng, L).to(dev), _random_digits(rng, L).to(dev)
+    out = {"bits": bits, "driver": driver,
+           "plan": {"depth": plan.depth, "w": plan.w, "W": plan.W, "L": plan.W // DIGIT_BITS,
+                    "trunc": meta["pointwise_rows"]},
+           "staged": meta["staged"], **_device_line(dev)}
+    route = _driver(driver, plan)
+    out["route_s"], want = _stage_s(route, (da, db), reps, dev)
+    with ladder_calls() as seen:
+        fwd(da)
+    ladder_bytes = sum(n * math.prod(shape) * 8 for (_, shape, *_), (n, *_) in seen.items())
+    out["fwd_a_s"], fa = _stage_s(fwd, (da,), reps, dev)
+    del da
+    out["fwd_b_s"], fb = _stage_s(fwd, (db,), reps, dev)
+    del db
+    s, prod = _stage_s(pw, (fa, fb), reps, dev)
+    out["pointwise_rows_s" if meta["staged"] else "pointwise_s"] = s
+    del fa, fb
+    out["inverse_s"], c = _stage_s(inv, (prod,), reps, dev)
+    del prod
+    if norm is not None:            # else the inverse folds the normalize in
+        out["normalize_s"], c = _stage_s(norm, (c,), reps, dev)
+    out["combine_s"], got = _stage_s(combine, (c,), reps, dev)
+    if not torch.equal(got, want):
+        raise RuntimeError(f"profile_stages: the composed stages' product differs from the "
+                           f"{driver} route's at {bits} bits")
+    out["total_s"] = sum(v for k, v in out.items() if k.endswith("_s") and k != "route_s")
+    out["stages_over_route"] = out["total_s"] / out["route_s"]
+    ops = pointwise_gemm_ops(meta["pointwise_rows"], plan.W, meta["recursive"])
+    pw_s = out.get("pointwise_rows_s", out.get("pointwise_s"))
+    out.update({"pointwise_gemm_ops": ops, "pointwise_int8_ops_per_second": ops / pw_s,
+                "int8_peak_ops_per_second": INT8_OPS_PER_S,
+                "pointwise_note": "whole-stage rate: the GEMMs' int8 operations (two a "
+                                  "multiply-add) over the stage's time, links included",
+                "fwd_ladder_bytes": ladder_bytes, "fwd_ladder_bytes_per_second": ladder_bytes
+                / out["fwd_a_s"], "hbm_peak_bytes_per_second": HBM_BYTES_PER_S,
+                "fwd_note": "the ladder launches' digits read and written once (8 bytes a "
+                            "digit) over one operand's whole forward stage"})
+    return out
+
+
+def profile_transforms(depth: int, w: int, reps: int = 8, batch: int = 1,
+                       device="cuda") -> dict:
+    """Times of the single transforms at the ring (n = 2^depth, w): the
+    flat pair (length 2n), the sqrt2 pair (4n), the MFA pair and the
+    negacyclic pair (the reference's time_mfa / time_ifft /
+    time_negacyclic harnesses, mul_fft.c:5105-5286); `batch` leading rows
+    (the pointwise stage's regime) where batch > 1."""
+    dev = torch.device(device)
+    ring = Ring(1 << depth, w)
+    W, L = ring.bits, ring.L
+    C = 2 * ring.n
+    n1 = 1 << ((depth + 1) // 2)
+    n2 = C // n1
+    rng = np.random.default_rng(0)
+    lead = (batch,) if batch > 1 else ()
+    x2 = _random_digits(rng, lead + (C, L)).to(dev)
+    x4 = _random_digits(rng, lead + (2 * C, L)).to(dev)
+    xm = _random_digits(rng, lead + (n2, n1, L)).to(dev)
+    cases = {
+        "fft_radix2": (lambda v: fft_radix2(v, w, W), x2),
+        "ifft_radix2": (lambda v: ifft_radix2(v, w, W), x2),
+        "fft_sqrt2": (lambda v: fft_sqrt2(v, w, W), x4),
+        "ifft_sqrt2": (lambda v: ifft_sqrt2(v, w, W), x4),
+        "fft_mfa": (lambda v: fft_radix2_mfa(v, w, W, n1, n2), xm),
+        "ifft_mfa": (lambda v: ifft_radix2_mfa(v, w, W, n1, n2), xm),
+        "fft_negacyclic": (lambda v: fft_negacyclic(v, w, W), x2),
+        "ifft_negacyclic": (lambda v: ifft_negacyclic(v, w, W), x2),
+    }
+    out = {"depth": depth, "w": w, "W": W, "L": L, "batch": batch, **_device_line(dev)}
+    for name, (fn, x) in cases.items():
+        out[name + "_s"], _ = _stage_s(fn, (x,), reps, dev)
+    return out
+
+
+def gpu_line() -> str:
+    """The card's `nvidia-smi` name and power-limit line."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sizes", nargs="*", help="BITS or BITS_AxBITS_B (default: 10^7, 10^8, "
-                    "10^9 where no --mulmod is given)")
+                    "10^9 where no --mulmod is given; --stages: BITS only)")
     ap.add_argument("--mulmod", nargs="+", type=int, default=[], metavar="LG",
                     help="mulmod_int at N = 2^LG")
+    ap.add_argument("--stages", action="store_true",
+                    help="the stage profile of each size instead (profile_stages)")
+    ap.add_argument("--driver", default="flagship", help="the driver of --stages")
+    ap.add_argument("--transforms", action="store_true",
+                    help="the single transforms at --depth, --w, --batch (profile_transforms)")
+    ap.add_argument("--depth", type=int, default=12)
+    ap.add_argument("--w", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
-    sizes = args.sizes or ([] if args.mulmod else ["10000000", "100000000", "1000000000"])
+    sizes = args.sizes or ([] if args.mulmod or args.transforms else
+                           ["10000000", "100000000", "1000000000"])
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     kernels.lib()                   # build first: no size pays for nvcc
     torch.empty(1, device="cuda")   # nor for creating the CUDA context
+    if args.transforms:
+        print(json.dumps(profile_transforms(args.depth, args.w, args.reps, args.batch)),
+              flush=True)
     for size in sizes:
         bits = [int(v) for v in size.split("x")]
-        print(json.dumps(profile_size(bits[0], bits[-1], args.reps)), flush=True)
+        if args.stages:
+            print(json.dumps(profile_stages(bits[0], args.reps, args.driver)), flush=True)
+        else:
+            print(json.dumps(profile_size(bits[0], bits[-1], args.reps)), flush=True)
     for lg in args.mulmod:
         print(json.dumps(profile_mulmod(lg, args.reps)), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(gpu_line())
 
 
 if __name__ == "__main__":

@@ -1019,3 +1019,65 @@ def test_mul_many_matches_loop_on_gpu(dev):
     got = mul_many(pairs, device=dev)
     assert kernels.LAUNCHES["canonicalize"] == 1
     assert got == [mul(a, b, device=dev) for a, b in pairs] == [a * b for a, b in pairs]
+
+
+def test_tune_writes_card_entry_and_mul_through_it(dev, tmp_path, monkeypatch):
+    """tune at 10^6 bits on the card: every candidate checked against the
+    analytic product and timed, the entry kept under the card's name, and
+    mul() through the cached plan exact."""
+    import json
+
+    from mpir_fft_tpu_torch.models import mul as tmul
+    from mpir_fft_tpu_torch.utils import tune
+
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("MPIR_FFT_TUNE_CACHE", str(cache))
+    monkeypatch.delenv("MPIR_FFT_TUNE", raising=False)
+    bits = 10**6
+    entry = tune.tune(bits, bits, "flagship", reps=3, device=dev)
+    name = torch.cuda.get_device_name(dev)
+    assert entry["device"] == name
+    assert json.loads(cache.read_text())[name][tune._key("flagship", bits, bits)] == entry
+    assert all(len(c) == 4 and c[2] > 0 for c in entry["candidates"]), entry
+    assert tmul._select_plan(bits, bits, "flagship", dev).depth == entry["depth"]
+    rnd = random.Random(bits)
+    a, b = rnd.getrandbits(bits) | 1 << (bits - 1), rnd.getrandbits(bits) | 1 << (bits - 1)
+    assert mul(a, b, device=dev) == a * b
+
+
+def test_cli_mul_file_round_trip_1e7(dev, tmp_path, monkeypatch, capsys):
+    """cli mul through files at 10^7 bits on the card: the product file
+    equals GMP's (or Python's) product, 2 bytes a digit of the plan."""
+    from mpir_fft_tpu_torch import cli, native
+    from mpir_fft_tpu_torch.models.mul import out_len_digits
+
+    monkeypatch.setenv("MPIR_FFT_TUNE", "0")
+    rnd = random.Random(10**7)
+    a, b = rnd.getrandbits(10**7), rnd.getrandbits(10**7 - 12345)
+    ab, bb = a.to_bytes(1250000, "little"), b.to_bytes(1248457, "little")
+    (tmp_path / "a.bin").write_bytes(ab)
+    (tmp_path / "b.bin").write_bytes(bb)
+    out = tmp_path / "out.bin"
+    assert cli.main(["mul", str(tmp_path / "a.bin"), str(tmp_path / "b.bin"), str(out)]) == 0
+    got = out.read_bytes()
+    plan = choose_params(8 * len(ab), 8 * len(bb), sqrt2=True)
+    assert len(got) == 2 * out_len_digits(plan)
+    want = native.gmp_mul(ab, bb)
+    if want is None:
+        want = (a * b).to_bytes(len(ab) + len(bb), "little")
+    assert got == want + bytes(len(got) - len(want))
+
+
+def test_profile_stages_1e7(dev, monkeypatch):
+    """The stage profile at 10^7 bits on the card: every stage takes time,
+    the composed stages give the route's product (checked inside), and
+    the stages sum to within 0.5-2x of the whole route."""
+    from mpir_fft_tpu_torch.utils.profile import profile_stages
+
+    monkeypatch.setenv("MPIR_FFT_TUNE", "0")
+    r = profile_stages(10**7, reps=3, driver="flagship", device=dev)
+    stages = [k for k in r if k.endswith("_s") and k not in ("total_s", "route_s")]
+    assert set(stages) == {"fwd_a_s", "fwd_b_s", "pointwise_s", "inverse_s", "combine_s"}
+    assert all(r[k] > 0 for k in stages) and r["clock"] == "cuda events"
+    assert 0.5 < r["stages_over_route"] < 2.0, r
+    assert r["pointwise_gemm_ops"] > 0 and r["fwd_ladder_bytes"] > 0
