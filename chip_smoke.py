@@ -184,7 +184,25 @@
        kept plan); profile --stages at 10^8 and 10^9 (the composed stages'
        product equal to the route's, their times' sum within 0.8-1.5x of
        the route's device time in the same run); profile --transforms at
-       depth 12, w 1; baseline at 10^7 (or the line that GMP is missing).
+       depth 12, w 1; baseline at 10^7 (or the line that GMP is missing);
+     the sharded path (parallel/, ops/mfa.py's sharded passes): four ranks
+       spawned on cuda:0, joined by gloo (parallel/dryrun.run_ranks), each
+       running utils/shard_bench.rank_phase on the same seeded operands --
+       mul and sqr at 10^7 (unstaged: the column kernel on each rank's
+       block, the whole-row transform on its rows, the top layer kernels),
+       10^8 and 10^9 bits (the sharded staged flagship: full MFA columns on
+       the ladder with their cross tables, the Garner hook declined at K =
+       n1), mul at 6.3x10^7 x 5x10^6 (truncated, 7 kept rows padded to the
+       ranks; twiddle_half rebuilds the inverse's tail), the 10^7 x 8 batch
+       (two pairs a rank) and mul_huge at 10^9 bits, depth 16 (L 4096, the
+       4-step tier), every store sharded -- each checked by residues on
+       every rank, by GMP's product up to 10^8 bits where GMP is present,
+       then timed: device ms, the exchanges' count, bytes and host ms, the
+       peak memory, per rank; every kernel of SHARD_KERNELS launched on
+       some rank; rank 0's ladder shapes held against ladder_plain and
+       timed; the column kernel on a rank's block at its global columns;
+       then the 10^9-bit product through NCCL at a world size of 1, equal to
+       the gloo ranks'; and what NCCL answers two ranks on one card.
    For each: the plan, the launches, host-clock and CUDA-event times, and
    torch.cuda.max_memory_allocated().
 5. Prints the kernel table as one JSON line, the card's line again, and the
@@ -231,6 +249,31 @@ UNB_MID = (63_095_734, 5_011_872)
 UNB_EVEN = (398_107_170, 199_053_585)
 UNB_HUGE = (1_000_000_000, 100_000_000)
 DRIVER_BITS = (2_000_000, 1_400_000)
+# the sharded phase (parallel/): ranks sharing cuda:0 over gloo, the specs
+# of utils/shard_bench (label, route, bits_a, bits_b, depth, pairs), exact
+# compare up to SHARD_FULL_BITS; NCCL at a world size of 1
+SHARD_RANKS = 4
+SHARD_SPECS = (("1e7", "mul", 10_000_000, 10_000_000, None, 0),
+               ("1e8", "mul", 100_000_000, 100_000_000, None, 0),
+               ("1e9", "mul", 1_000_000_000, 1_000_000_000, None, 0),
+               ("6.3e7x5e6", "mul", 63_095_734, 5_011_872, None, 0),
+               ("1e7x8", "many", 10_000_000, 10_000_000, None, 8),
+               ("1e9 out of core d16", "huge", 1_000_000_000, 1_000_000_000, 16, 0))
+SHARD_PLANS = {"1e7": (12, 1, 256, 16384, 16384, 64), "1e8": (13, 2, 1024, 32768, 32768, 128),
+               "1e9": (15, 1, 2048, 131072, 131072, 256),
+               "6.3e7x5e6": (13, 1, 512, 32768, 17280, 128),
+               "1e7x8": (12, 1, 256, 16384, 16384, 64),
+               "1e9 out of core d16": (16, 1, 4096, 262144, 61440, 256)}
+SHARD_FULL_BITS = 100_000_000
+# the kernels the sharded path must launch on some rank: every TPU kernel
+# on the path but the ladder's pre_half (no zero-top when sharded), the
+# Garner post leg (K = n1 rows fit the ladder only at small plans), the
+# schoolbook, #9 and ntt4_fused
+SHARD_KERNELS = ("ladder", "ladder_pe", "mfa_cols", "normmod", "canonicalize", "twiddle_half",
+                 "sqrt2_top_fwd", "sqrt2_top_inv", "transform_small", "input_planes",
+                 "mid_planes", "garner_carry", "ntt4_input_planes", "ntt4_fwd_twiddle",
+                 "ntt4_pointwise", "ntt4_inv_twiddle", "ntt4_residues", "garner_residues",
+                 "int8_gemm")
 MAX_PEAK_GIB_2E9 = 32.0
 MAX_PEAK_GIB_UNB_HUGE = 24.0
 SLICES = 4          # the plain 4-step links are held slice by slice
@@ -1627,6 +1670,144 @@ def main() -> int:
         print("baseline 1e7: GMP is missing on this machine (cli baseline exits 1)")
     tools_dir.cleanup()
     print(f"tools phase (cli): {time.perf_counter() - t_tools:.1f} s")
+
+    # -- the sharded phase: parallel/ on ranks sharing the card ----------------
+    # The kernels are built above, so no rank builds them again; the ranks
+    # start by spawn (CUDA is initialised here), join one gloo group through
+    # a FileStore, and each runs utils/shard_bench.rank_phase on the same
+    # seeded operands: each product checked, then timed (CUDA events), its
+    # exchanges counted and the rank's peak memory read.  Here: every rank's
+    # residues equal, and equal to the operands' product mod the primes; the
+    # digits up to 10^8 bits equal GMP's product where GMP is present; every
+    # kernel of SHARD_KERNELS launched on some rank; rank 0's ladder shapes
+    # held against ladder_plain and timed.  Then NCCL at a world size of 1
+    # (device tensors), and what NCCL answers two ranks on one card.
+    from mpir_fft_tpu_torch.parallel.dryrun import exchange_check, run_ranks
+    from mpir_fft_tpu_torch.utils.shard_bench import operand_digits, rank_phase, residues
+
+    t_shard = time.perf_counter()
+    kernels.reset_launches()
+    ranks = run_ranks(SHARD_RANKS, rank_phase,
+                      (SHARD_SPECS, SEED, primes[:2], SHARD_FULL_BITS),
+                      device="cuda", backend="gloo", timeout=900)
+    shard_s = time.perf_counter() - t_shard
+    exch_ms = 0.0
+    for i, (label, route, ba, bb, depth, pairs) in enumerate(SHARD_SPECS):
+        base = SEED + 1000 * i
+        if route == "many":
+            ops = [(operand_digits(ba, base + 2 * j), operand_digits(bb, base + 2 * j + 1))
+                   for j in range(pairs)]
+        else:
+            ops = [(operand_digits(ba, base), operand_digits(bb, base + 1))]
+        for name in ("mul", "sqr"):
+            if name not in ranks[0][label]:
+                continue
+            pairs_d = ops if name == "mul" else [(ops[0][0], ops[0][0])]
+            want = [[ra * rb % q for ra, rb, q in zip(residues(da, primes[:2]),
+                                                      residues(db, primes[:2]), primes[:2])]
+                    for da, db in pairs_d]
+            for r in ranks:
+                assert tuple(r[label]["plan"]) == SHARD_PLANS[label], (label, r[label]["plan"])
+                assert r[label][name]["residues"] == want, (label, name, r["rank"])
+            how = f"residues mod {len(primes[:2])} 61-bit primes on {len(ranks)} ranks"
+            got = ranks[0][label][name].get("digits")
+            if got is not None and gmp_ok and route == "mul":
+                xb = pairs_d[0][0].astype("<u2").tobytes()
+                yb = pairs_d[0][1].astype("<u2").tobytes()
+                gb = native.gmp_mul(xb, yb)
+                pb = got.astype("<u2").tobytes()
+                assert pb[:len(gb)] == gb and not any(pb[len(gb):]), (label, name)
+                how += "; digits equal to GMP's mpn_mul"
+            per = [r[label][name] for r in ranks]
+            exch_ms += sum(p["exchanges"]["ms"] for p in per) / len(per)
+            rec = {"device_ms": [round(p["device_ms"], 3) for p in per],
+                   "exchange_ms": [round(p["exchanges"]["ms"], 3) for p in per],
+                   "exchanges": {k: per[0]["exchanges"][k]
+                                 for k in ("all_to_all", "all_gather", "bytes")},
+                   "peak_gib": [round(p["peak_gib"], 3) for p in per]}
+            e2e[f"sharded_{name}_{label}"] = rec
+            print(f"sharded {name} {label} (plan {ranks[0][label]['plan']}, {SHARD_RANKS} gloo "
+                  f"ranks on cuda:0, transport {ranks[0]['transport']}): exact ({how}); "
+                  + json.dumps(rec))
+    shard_launches = {k: sum(r["launches"][k] for r in ranks) for k in kernels.LAUNCHES}
+    for name, n in shard_launches.items():
+        launches_total[name] += n
+    print(f"sharded launches (summed over the ranks): "
+          f"{json.dumps({k: n for k, n in shard_launches.items() if n})}")
+    for name in SHARD_KERNELS:
+        assert shard_launches[name] > 0, f"sharded phase: kernel {name} launched on no rank"
+    print(f"sharded phase (gloo, {SHARD_RANKS} ranks): {shard_s:.1f} s, of which the timed "
+          f"runs' exchanges {exch_ms / 1e3:.1f} s a rank")
+    # rank 0's ladder launch shapes on the sharded path (the full MFA columns
+    # on the recursion with their cross tables at L 1024 / 2048, the rows):
+    # raw digits against ladder_plain on the card, timed
+    seen_sh = {k: [c, st, Wk, None if pe is None else torch.from_numpy(pe).to(dev), pre]
+               for k, (c, st, Wk, pe, pre) in ranks[0]["ladder"].items()}
+    for r in measure_launches(seen_sh, rand, 3):
+        add_row(r["name"], "mpir_fft_tpu_torch/csrc/ladder.cu", LADDER_REPLACES[r["name"]],
+                0, r["ms"], r["plain_ms"], r["nbytes"], r["ops"])
+        print(f"{r['name']} sharded {r['kind']} {tuple(r['shape'])}: x{r['launches']} on rank 0; "
+              f"raw digits identical; {r['ms']:.3f} ms, {r['bound_by']} bound "
+              f"{r['bound_ms']:.3f} ms ({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
+    del seen_sh, ranks
+    torch.cuda.empty_cache()
+    # the column kernel on a rank's block: the 10^7 plan's columns [16, 32)
+    # of n1 64 (rank 1 of 4), both halves, at global column offset 16
+    sp7 = choose_params(ODD_BITS, ODD_BITS, sqrt2=True)
+    cW7, cL7 = sp7.W, sp7.W // DIGIT_BITS
+    nl7 = sp7.n1 // SHARD_RANKS
+    xin = rand((2 * nl7, sp7.n2, cL7), -(1 << 17), 1 << 17)
+    for kind in ("fwd", "inv"):
+        blk = (nl7, nl7)
+        got = fused_mfa_cols(kind, xin, sp7.w, cW7, sp7.n1, sp7.n2, False, blk)
+        t0 = time.perf_counter()
+        want = mfa_cols_plain(kind, xin.cpu(), sp7.w, cW7, sp7.n1, sp7.n2, False, blk)
+        pms = (time.perf_counter() - t0) * 1e3
+        identical(("mfa_cols block", kind), got.cpu(), want)
+        ms = time_ms(lambda: fused_mfa_cols(kind, xin, sp7.w, cW7, sp7.n1, sp7.n2, False, blk),
+                     10, 2)
+        ops = mfa_cols_ops(mfa_cols_schedule(kind, sp7.n2, sp7.w * sp7.n1, sp7.n2, False),
+                           2 * nl7, cL7)
+        add_row("mfa_cols", "mpir_fft_tpu_torch/csrc/mfa_cols.cu",
+                "mpir_fft_tpu/ops/fused.py:200", 0, ms, pms, 8 * xin.numel(), ops)
+        print(f"mfa_cols sharded block {kind} {tuple(xin.shape)} columns [{nl7}, {2 * nl7}) of "
+              f"{sp7.n1}: raw digits identical; {ms:.4f} ms (plain, on the host CPU, "
+              f"{pms:.1f} ms)")
+        xin = got
+    del xin, got, want
+    # NCCL at a world size of 1: the 10^9-bit staged product on device
+    # tensors through NCCL's own exchanges, equal to the gloo ranks'
+    t0 = time.perf_counter()
+    (one,) = run_ranks(1, rank_phase, (SHARD_SPECS[2:3], SEED + 2000, primes[:2],
+                                       SHARD_FULL_BITS), device="cuda", backend="nccl", timeout=600)
+    assert one["backend"] == "nccl" and one["transport"] == "device", one["backend"]
+    for name in ("mul", "sqr"):
+        want = e2e[f"sharded_{name}_1e9"]
+        assert one["1e9"][name]["residues"] == [[ra * rb % q for ra, rb, q in zip(
+            residues(operand_digits(HUGE_BITS, SEED + 2000), primes[:2]),
+            residues(operand_digits(HUGE_BITS, SEED + 2000 + (1 if name == "mul" else 0)),
+                     primes[:2]), primes[:2])]], ("nccl", name)
+        rec = one["1e9"][name]
+        e2e[f"sharded_nccl_{name}_1e9"] = {
+            "device_ms": rec["device_ms"], "exchange_ms": rec["exchanges"]["ms"],
+            "exchanges": {k: rec["exchanges"][k] for k in ("all_to_all", "all_gather", "bytes")},
+            "peak_gib": rec["peak_gib"]}
+        print(f"sharded {name} 1e9, NCCL, one rank (transport {one['transport']}): exact "
+              f"(residues, as the gloo ranks'); "
+              + json.dumps(e2e[f"sharded_nccl_{name}_1e9"]) + f"; gloo x4: {json.dumps(want)}")
+    for name, n in one["launches"].items():
+        launches_total[name] += n
+    print(f"NCCL world size 1: {time.perf_counter() - t0:.1f} s")
+    # what NCCL answers two ranks on one card
+    try:
+        run_ranks(2, exchange_check, (), device="cuda", backend="nccl", timeout=180)
+        print("NCCL, two ranks on cuda:0: accepted")
+    except RuntimeError as err:
+        if "Duplicate GPU" not in str(err):
+            raise
+        line = next(ln for ln in str(err).splitlines() if "Duplicate GPU" in ln)
+        print(f"NCCL, two ranks on cuda:0: refused: {line.strip()}")
+    print(f"sharded phase, all: {time.perf_counter() - t_shard:.1f} s")
 
     print("e2e (mul/sqr/mulmod: host clock incl. digit conversion; *_device: CUDA "
           "events, digits on the card): " + json.dumps(e2e))

@@ -23,7 +23,10 @@ seven drivers; `mul_many`, a batch of products in one driver call; and
 `mulmod_int`, the Fermat-ring product (a * b) mod 2^N+1; and the tools
 around them: the command line (`python -m mpir_fft_tpu_torch.cli`), the
 device-keyed plan tuner (`utils/tune.py`) and the stage profile
-(`utils/profile.py`).  Not ported yet: sharding.
+(`utils/profile.py`); and sharding over the ranks of a torch.distributed
+group (`parallel/`: the column / row-sharded MFA with one all-to-all, the
+sharded staged flagship, the data-parallel batch and the sharded
+out-of-core engine).
 
 Public API (the reference's eight names, mpir_fft_tpu/__init__.py:24-33):
 

@@ -13,9 +13,11 @@
 // repeats, so the digits agree.
 //
 // x, out: (B, n2, L) int32, leading axes flattened into B; flat row b is
-// column j1 = b & n1_mask (masked per row, so a batch spanning several
-// copies of the column axis -- the stacked operands, the doubled n2 of even
-// w -- wraps right: the reference's round-1 bug, tests/test_mfa.py:173).
+// column j1 = j1_off + (b & n1_mask) (masked per row, so a batch spanning
+// several copies of the column axis -- the stacked operands, the doubled n2
+// of even w -- wraps right: the reference's round-1 bug,
+// tests/test_mfa.py:173; j1_off is the first column of a block of the
+// columns, a rank's share under sharding, mfa.py:64-74's `off`).
 // Row j2 of column j1 carries the cross exponent pe(j2) = w revbin(j2) j1
 // mod 2W, the z^(k2 j1) twiddle: multiplied in at the forward's last stage,
 // divided out before the inverse's first.
@@ -431,7 +433,7 @@ template <int V, int P, int T = kThreads>
 __global__ void __launch_bounds__(T, 1)
 mfa_cols_kernel(const int* __restrict__ x, int* __restrict__ out,
                 const long long* __restrict__ sched, int nops, int n2, int L, long long n1_mask,
-                long long wx, int kmax, int R) {
+                long long j1_off, long long wx, int kmax, int R) {
   extern __shared__ int4 smem4[];
   const int rpc = n2 / R;
   int lg_rpc = 0;
@@ -459,7 +461,7 @@ mfa_cols_kernel(const int* __restrict__ x, int* __restrict__ out,
       buf[idx] = src[idx];
     }
   }
-  const long long j1 = b & n1_mask;
+  const long long j1 = j1_off + (b & n1_mask);
   wx %= W2;
   for (int q = threadIdx.x; q < n2; q += T) {
     const long long r = lgn2 ? __brev(static_cast<unsigned>(q)) >> (32 - lgn2) : 0;
@@ -478,7 +480,7 @@ mfa_cols_kernel(const int* __restrict__ x, int* __restrict__ out,
 
 template <int V, int P>
 int launch(const void* x, void* out, const void* sched, int nops, long long B, int n2, int L,
-           long long n1_mask, long long wx, int kmax, int R, void* stream) {
+           long long n1_mask, long long j1_off, long long wx, int kmax, int R, void* stream) {
   const auto kernel = mfa_cols_kernel<V, P>;
   const size_t smem = sizeof(int) * cols_smem_ints(n2, n2 / R, L);
   cudaError_t err = mf::prepare_group_kernel(reinterpret_cast<const void*>(kernel), smem);
@@ -496,8 +498,8 @@ int launch(const void* x, void* out, const void* sched, int nops, long long B, i
   cfg.attrs = attr;
   cfg.numAttrs = R > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int*>(x), static_cast<int*>(out),
-                           static_cast<const long long*>(sched), nops, n2, L, n1_mask, wx, kmax,
-                           R);
+                           static_cast<const long long*>(sched), nops, n2, L, n1_mask, j1_off, wx,
+                           kmax, R);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -505,7 +507,9 @@ int launch(const void* x, void* out, const void* sched, int nops, long long B, i
 }  // namespace
 
 // x, out: (B, n2, L) int32; sched: device int64 [nops, 8] (ops/fused.py
-// mfa_cols_schedule); n1_mask = n1 - 1; wx: the cross-twiddle exponent w;
+// mfa_cols_schedule); n1_mask = the block's column count - 1 (n1 - 1 for
+// all n1 columns); j1_off: the block's first column (0 for all of them);
+// wx: the cross-twiddle exponent w;
 // kmax: stages per carry group; R: the column's CTAs, a cluster where R > 1
 // (1, 2, 4 or 8, n2 / R >= 2 rows each), the wrapper's choice
 // (ops/fused.py mfa_col_cluster, which keeps each CTA's block within the
@@ -513,17 +517,17 @@ int launch(const void* x, void* out, const void* sched, int nops, long long B, i
 // error).  Runs of 4 digits where L % 4 == 0
 // and x, out are 16-byte aligned, else of one.
 MF_EXPORT int mf_mfa_cols(const void* x, void* out, const void* sched, int nops, long long B,
-                          int n2, int L, long long n1_mask, long long wx, int kmax, int R,
-                          void* stream) {
+                          int n2, int L, long long n1_mask, long long j1_off, long long wx,
+                          int kmax, int R, void* stream) {
   if (n2 < 1 || (n2 & (n2 - 1)) || L < 1 || kmax < 1 || kmax > mf::kMaxLadderStages ||
       nops < 0 || R < 1 || R > kMaxCluster || (R & (R - 1)) || n2 % R ||
-      (R > 1 && n2 / R < 2))
+      (R > 1 && n2 / R < 2) || j1_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   if (B * R > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const bool vec = L % 4 == 0 &&
                    (reinterpret_cast<unsigned long long>(x) |
                     reinterpret_cast<unsigned long long>(out)) % 16 == 0;
-  if (vec) return launch<4, 4>(x, out, sched, nops, B, n2, L, n1_mask, wx, kmax, R, stream);
-  return launch<1, 8>(x, out, sched, nops, B, n2, L, n1_mask, wx, kmax, R, stream);
+  if (vec) return launch<4, 4>(x, out, sched, nops, B, n2, L, n1_mask, j1_off, wx, kmax, R, stream);
+  return launch<1, 8>(x, out, sched, nops, B, n2, L, n1_mask, j1_off, wx, kmax, R, stream);
 }

@@ -125,8 +125,8 @@ _SIGNATURES = {
     # pre step (half-bit exponents in [0, 4W)), stream
     "mf_ladder": (_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P, _I, _LL, _LL, _P),
     # x, out, schedule (device int64 [nops, 8]), nops, B, n2, L, n1 mask,
-    # cross-twiddle w, kmax, R (the column's CTAs), stream
-    "mf_mfa_cols": (_P, _P, _P, _I, _LL, _I, _I, _LL, _LL, _I, _I, _P),
+    # first column, cross-twiddle w, kmax, R (the column's CTAs), stream
+    "mf_mfa_cols": (_P, _P, _P, _I, _LL, _I, _I, _LL, _LL, _LL, _I, _I, _P),
     # a, b, out, B, L, stream
     "mf_conv_base": (_P, _P, _P, _LL, _I, _P),
     # x, out, scratch (mf_normmod_scratch(B, L) ints, or null where that is

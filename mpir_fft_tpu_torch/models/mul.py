@@ -72,9 +72,9 @@ import torch
 
 from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod_div
-from mpir_fft_tpu_torch.ops.mfa import (fft_radix2_mfa, ifft_mfa_rows, ifft_radix2_mfa,
-                                        mfa_fft_trunc, mfa_fft_trunc_sqrt2, mfa_ifft_trunc,
-                                        mfa_ifft_trunc_sqrt2)
+from mpir_fft_tpu_torch.ops.mfa import (_gather_cells, fft_radix2_mfa, ifft_mfa_rows,
+                                        ifft_radix2_mfa, mfa_fft_trunc, mfa_fft_trunc_sqrt2,
+                                        mfa_ifft_trunc, mfa_ifft_trunc_sqrt2)
 from mpir_fft_tpu_torch.ops.mulmod import mulmod
 from mpir_fft_tpu_torch.ops.ntt import garner_post
 from mpir_fft_tpu_torch.ops.pointwise import base_serves, mulmod_base
@@ -83,6 +83,7 @@ from mpir_fft_tpu_torch.ops.sqrt2 import fft_sqrt2, fft_trunc_sqrt2, ifft_sqrt2,
 from mpir_fft_tpu_torch.ops.transforms import (fft_radix2, ifft_innermost, ifft_radix2,
                                                inner_group, inner_steps)
 from mpir_fft_tpu_torch.ops.truncate import fft_trunc, ifft_trunc
+from mpir_fft_tpu_torch.parallel.mfa_sharded import sharded
 from mpir_fft_tpu_torch.utils.interop import digits_to_tensor, tensor_to_digits
 from mpir_fft_tpu_torch.utils.params import MulPlan, cdiv, choose_params
 from mpir_fft_tpu_torch.utils.tune import cached_plan
@@ -151,11 +152,13 @@ def _from_cells(c: torch.Tensor) -> torch.Tensor:
     return c.reshape(c.shape[:-3] + (-1, c.shape[-1]))
 
 
-def _plain_stages(kind: str, plan: MulPlan) -> Stages:
+def _plain_stages(kind: str, plan: MulPlan, ctx=None) -> Stages:
     """The stages of the six drivers other than the flagship: the leaf
     pointwise (recursive=False) between their transform pairs, truncated
     at plan.trunc (trunc, trunc_sqrt2) or at trunc_mfa // n1 MFA rows
-    (mfa_trunc)."""
+    (mfa_trunc).  ctx (mfa, mfa_trunc): the MFA sharded over its ranks
+    (ops/mfa.py), the pointwise on each rank's rows, the norm tail on its
+    columns before the one gather."""
     C, W, w, n1, n2 = plan.conv_len, plan.W, plan.w, plan.n1, plan.n2
     split, norm = _split_fn(plan, C), _norm_fn(plan)
 
@@ -174,16 +177,30 @@ def _plain_stages(kind: str, plan: MulPlan) -> Stages:
                       lambda fa, fb: _pad_rows(pw(fa, fb), C), lambda v: inv(v, w, W, t), norm,
                       _combine_fn(plan, t))
     if kind == "mfa":
-        return Stages(split, lambda x: fft_radix2_mfa(_as_cells(x, plan), w, W, n1, n2), pw,
-                      lambda v: _from_cells(ifft_radix2_mfa(v, w, W, n1, n2)), norm,
-                      _combine_fn(plan, C))
-    assert kind == "mfa_trunc", kind
-    t2 = plan.trunc_mfa // n1
-    return Stages(split,
-                  lambda x: mfa_fft_trunc(_as_cells(x, plan), w, W, n1, n2, t2)[..., :t2, :, :],
-                  lambda fa, fb: _pad_rows(pw(fa, fb), n2, -3),
-                  lambda v: _from_cells(mfa_ifft_trunc(v, w, W, n1, n2, t2)), norm,
-                  _combine_fn(plan, plan.trunc_mfa))
+        t2, valid = n2, C
+    else:
+        assert kind == "mfa_trunc", kind
+        t2, valid = plan.trunc_mfa // n1, plan.trunc_mfa
+
+    def fwd(x):
+        x = _as_cells(x, plan)
+        if kind == "mfa":
+            return fft_radix2_mfa(x, w, W, n1, n2, ctx=ctx)
+        y = mfa_fft_trunc(x, w, W, n1, n2, t2, ctx=ctx)
+        return y if ctx is not None else y[..., :t2, :, :]
+
+    def inv(v):
+        if kind == "mfa":
+            return ifft_radix2_mfa(v, w, W, n1, n2, ctx=ctx)
+        return mfa_ifft_trunc(v, w, W, n1, n2, t2, ctx=ctx)
+
+    if ctx is not None:
+        # the rank's rows in, its column block out: the norm tail on the
+        # block, then the one gather
+        return Stages(split, fwd, pw, lambda v: _gather_cells(norm(inv(v)), ctx), None,
+                      _combine_fn(plan, valid))
+    return Stages(split, fwd, lambda fa, fb: _pad_rows(pw(fa, fb), n2, -3),
+                  lambda v: _from_cells(inv(v)), norm, _combine_fn(plan, valid))
 
 
 def _run_stages(s: Stages, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -215,25 +232,39 @@ def mpn_mul_trunc_sqrt2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torc
     return _run_stages(_plain_stages("trunc_sqrt2", plan), a, b)
 
 
-def mpn_mul_mfa(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
-    """Cyclic multiply through the 2-D MFA transforms (n1 columns of n2)."""
+def mpn_mul_mfa(a: torch.Tensor, b: torch.Tensor, plan: MulPlan, ctx=None) -> torch.Tensor:
+    """Cyclic multiply through the 2-D MFA transforms (n1 columns of n2);
+    ctx: sharded over its ranks (the same a, b on each; the product whole
+    on each)."""
     assert not plan.sqrt2
-    return _run_stages(_plain_stages("mfa", plan), a, b)
+    return _run_stages(_plain_stages("mfa", plan, sharded(ctx, plan.n1)), a, b)
 
 
-def mpn_mul_mfa_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
-    """Truncated MFA multiply: trunc_mfa // n1 kept rows."""
+def mpn_mul_mfa_trunc(a: torch.Tensor, b: torch.Tensor, plan: MulPlan,
+                      ctx=None) -> torch.Tensor:
+    """Truncated MFA multiply: trunc_mfa // n1 kept rows; ctx as
+    mpn_mul_mfa's."""
     assert not plan.sqrt2
-    return _run_stages(_plain_stages("mfa_trunc", plan), a, b)
+    return _run_stages(_plain_stages("mfa_trunc", plan, sharded(ctx, plan.n1)), a, b)
 
 
-def _flat_flagship_stages(plan: MulPlan) -> Stages:
+def _flat_flagship_stages(plan: MulPlan, ctx=None) -> Stages:
     """The unstaged flagship's stages: truncated sqrt2 MFA transforms at
     t = plan.trunc_mfa (the flat sqrt2 pair at t == conv_len), the
     recursive pointwise on the first t rows, the inverse with the divide +
     normmod tail folded in.  Coefficients past j1 + j2 - 1 are zero, so the
-    combine takes only plan.trunc."""
+    combine takes only plan.trunc.  ctx: the MFA sharded over its ranks at
+    every t (ops/mfa.py), the pointwise on each rank's rows, the inverse
+    gathered whole onto every rank."""
     W, n1, t = plan.W, plan.n1, plan.trunc_mfa
+    if ctx is not None:
+        return Stages(
+            _split_fn(plan, plan.conv_len),
+            lambda x: mfa_fft_trunc_sqrt2(x, plan.w, W, n1, t, ctx=ctx),
+            lambda fa, fb: _pointwise(fa, fb, W, True),
+            lambda prod: mfa_ifft_trunc_sqrt2(prod, plan.w, W, n1, t, norm_div=plan.lg_conv,
+                                              ctx=ctx, C=plan.conv_len),
+            None, _combine_fn(plan, plan.trunc))
     return Stages(
         _split_fn(plan, plan.conv_len),
         lambda x: mfa_fft_trunc_sqrt2(x, plan.w, W, n1, t)[..., :t, :],
@@ -243,12 +274,15 @@ def _flat_flagship_stages(plan: MulPlan) -> Stages:
         None, _combine_fn(plan, plan.trunc))
 
 
-def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan,
+                     ctx=None) -> torch.Tensor:
     """The production multiply on digit tensors a [..., La], b [..., Lb]
     (the stages of _flat_flagship_stages).  Returns the canonical product
-    digits [..., out_len_digits(plan)]."""
+    digits [..., out_len_digits(plan)].  ctx: sharded over its ranks (the
+    same a, b on each; the product whole on each); both operands' forwards
+    stacked cross to rows in one all-to-all."""
     assert plan.sqrt2
-    s = _flat_flagship_stages(plan)
+    s = _flat_flagship_stages(plan, sharded(ctx, plan.n1))
     ia, ib = s.split(a), s.split(b)
     if ia.shape == ib.shape:
         # one transform over both stacked operands: double the batch per launch
@@ -261,11 +295,11 @@ def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.T
     return s.combine(s.inv(prod))
 
 
-def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan) -> torch.Tensor:
+def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan, ctx=None) -> torch.Tensor:
     """Squaring through the flagship pipeline: one forward transform,
-    pointwise fa*fa."""
+    pointwise fa*fa; ctx as mpn_mul_flagship's."""
     assert plan.sqrt2
-    s = _flat_flagship_stages(plan)
+    s = _flat_flagship_stages(plan, sharded(ctx, plan.n1))
     fh = s.fwd(s.split(a))
     return s.combine(s.inv(s.pw(fh, fh)))
 
@@ -413,12 +447,54 @@ def _staged_flagship_stages(plan: MulPlan) -> Stages:
                   None, _combine_fn(plan, t))
 
 
-def _staged_flagship(plan: MulPlan):
+def _staged_flagship_sharded(plan: MulPlan, ctx) -> Stages:
+    """The staged flagship's stages sharded over ctx's ranks (the
+    reference's models/mul.py:299-398), on the same digit tensors [La] /
+    [Lb] on every rank: the split whole on every rank; the MFA forward
+    under ctx at every trunc_mfa (no zero-top: the column axis is the shard
+    axis), whose all-to-all leaves each rank its rows; the pointwise on the
+    rank's rows in _pw_chunk_rows chunks, each followed by its row-IFFT leg
+    -- inside the Garner kernel as the group K = n1 where the hook takes it
+    (ops/ntt.py garner_post: at full width K n1 rows exceed the ladder's
+    buffer and it declines), else ifft_mfa_rows; the inverse with
+    rows_done and the norm tail folded in, gathered whole onto every rank;
+    the combine.  The reference keeps the pointwise replicated unless t %
+    ndev == 0 and (t / ndev) % n1 == 0, so that its flat row shards are
+    whole row groups; here a rank's rows are whole rows of n1 by
+    construction (each MFA's kept rows padded to a multiple of ndev at the
+    exchange), so the pointwise is always the rank's own."""
+    L = plan.W // DIGIT_BITS
+    C, W, n1, t = plan.conv_len, plan.W, plan.n1, plan.trunc_mfa
+    row_w = plan.w * ((C // 2) // n1)
+    steps = inner_steps(row_w, n1, n1.bit_length() - 1)
+    rows = _pw_chunk_rows(plan)
+
+    def pw_inner(fa, fb):
+        with garner_post(L, n1, steps) as cell:
+            prod = _pointwise(fa, fb, W, True)
+        return prod if cell["consumed"] else ifft_mfa_rows(prod, row_w, W, n1)
+
+    def pw(fa, fb):
+        for i in range(0, fa.shape[-2], rows):
+            ca = fa[i:i + rows]
+            fa[i:i + rows] = pw_inner(ca, ca if fb is fa else fb[i:i + rows])
+        return fa
+
+    return Stages(_split_fn(plan, C),
+                  lambda ia: mfa_fft_trunc_sqrt2(ia, plan.w, W, n1, t, ctx=ctx), pw,
+                  lambda fa: mfa_ifft_trunc_sqrt2(fa, plan.w, W, n1, t, norm_div=plan.lg_conv,
+                                                  rows_done=True, ctx=ctx, C=C),
+                  None, _combine_fn(plan, t))
+
+
+def _staged_flagship(plan: MulPlan, ctx=None):
     """The staged flagship of a plan as run(da, db=None) on digit tensors
     [La], [Lb] (db None: the square of da) -> the canonical product digits
     [out_len_digits(plan)]: the stages of _staged_flagship_stages, one
-    operand's forward at a time."""
-    s = _staged_flagship_stages(plan)
+    operand's forward at a time; ctx: those of _staged_flagship_sharded
+    over its ranks (the same da, db on each; the product whole on each)."""
+    ctx = sharded(ctx, plan.n1)
+    s = _staged_flagship_stages(plan) if ctx is None else _staged_flagship_sharded(plan, ctx)
 
     def run(da, db=None):
         fa = s.fwd(s.split(da))

@@ -561,16 +561,20 @@ def mfa_col_cluster(n2: int, L: int) -> int | None:
 
 
 def mfa_cols_plain(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: int,
-                   no_zero_tail: bool = False) -> torch.Tensor:
+                   no_zero_tail: bool = False, block: tuple[int, int] | None = None
+                   ) -> torch.Tensor:
     """Plain version of the column kernel: the truncated transform of
     ops/truncate.py (full at trunc2 == n2) of every (n2, L) column of x
     (B, n2, L) at root w * n1, with the cross twiddles of flat row b's column
-    j1 = b & (n1 - 1) (mfa._block_cross_exps) as its post / pre table."""
+    j1 = b & (n1 - 1) (mfa._block_cross_exps) as its post / pre table; with
+    block = (off, cols), x holds columns [off, off + cols) of the n1, and
+    j1 = off + (b & (cols - 1))."""
     from .mfa import _block_cross_exps
     from .truncate import truncated
 
     B, n2, _ = x.shape
-    pe = _block_cross_exps(B, 0, n1 - 1, n2, w, W, x.device)
+    off, cols = block or (0, n1)
+    pe = _block_cross_exps(B, 0, cols - 1, n2, w, W, x.device, off)
     return truncated(kind, no_zero_tail)(x, w * n1, W, trunc2, pe)
 
 
@@ -670,31 +674,38 @@ def _schedule_on(key: tuple, device: torch.device) -> torch.Tensor:
 
 
 def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: int,
-                   no_zero_tail: bool = False) -> torch.Tensor:
+                   no_zero_tail: bool = False, block: tuple[int, int] | None = None
+                   ) -> torch.Tensor:
     """The column pass of a 2-D MFA transform in one launch: every (n2, L)
     column of x (B, n2, L) -- flat row b is column j1 = b & (n1 - 1) of its
     (n1, n2) block, leading axes flattened into B -- transformed at root
     w * n1 by the truncated transform of `kind` and flavour at trunc2 rows
     (full at trunc2 == n2), with the cross twiddles 2^(w revbin(j2) j1)
     multiplied in at the forward's last stage (divided out at the inverse's
-    first).  Each column resident in the shared memory of one CTA or of a
-    cluster of R CTAs (mfa_col_cluster); the columns the reference fuses
-    (mfa_col_fits), else ValueError, as on the card past a cluster of 8.
+    first).  block = (off, cols): x holds columns [off, off + cols) of the
+    n1 (a rank's share, ops/mfa.py's sharded passes), flat row b is column
+    off + (b & (cols - 1)).  Each column resident in the shared memory of
+    one CTA or of a cluster of R CTAs (mfa_col_cluster); the columns the
+    reference fuses (mfa_col_fits), else ValueError, as on the card past a
+    cluster of 8.
     Output: bounded redundant digits."""
     if kind not in ("fwd", "inv"):
         raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
     _require(x, "mfa_cols", ndim=3)
     B, n2, L = x.shape
-    if (B == 0 or n1 < 1 or n1 & (n1 - 1) or B % n1 or n2 < 1 or n2 & (n2 - 1)
+    off, cols = block or (0, n1)
+    if (B == 0 or n1 < 1 or n1 & (n1 - 1) or cols < 1 or cols & (cols - 1) or B % cols
+            or off < 0 or off % cols or off + cols > n1 or n2 < 1 or n2 & (n2 - 1)
             or not 1 <= trunc2 <= n2 or W != DIGIT_BITS * L):
-        raise ValueError(f"mfa_cols: shape {tuple(x.shape)}, n1={n1}, trunc2={trunc2}, W={W}: "
-                         "B a nonzero multiple of n1, n1 and n2 powers of two, "
-                         "1 <= trunc2 <= n2, W = 16 L required")
+        raise ValueError(f"mfa_cols: shape {tuple(x.shape)}, n1={n1}, block={block}, "
+                         f"trunc2={trunc2}, W={W}: B a nonzero multiple of the block's "
+                         "columns, n1, the block and n2 powers of two, the block aligned "
+                         "inside n1, 1 <= trunc2 <= n2, W = 16 L required")
     if not mfa_col_fits(n2, L, trunc2 == n2):
         raise ValueError(f"mfa_cols: the reference does not fuse an ({n2}, {L}) column "
                          f"at trunc2 {trunc2}")
     if x.device.type == "cpu":
-        return mfa_cols_plain(kind, x, w, W, n1, trunc2, no_zero_tail)
+        return mfa_cols_plain(kind, x, w, W, n1, trunc2, no_zero_tail, block)
     R = mfa_col_cluster(n2, L)
     if R is None:
         raise ValueError(f"mfa_cols: an ({n2}, {L}) column exceeds a cluster of "
@@ -704,7 +715,7 @@ def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: 
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_mfa_cols(
             x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.shape[0], B, n2, L,
-            n1 - 1, int(w), ladder_stages(L), R, kernels.stream_of(x))
+            cols - 1, off, int(w), ladder_stages(L), R, kernels.stream_of(x))
     kernels.check(rc, "mfa_cols")
     kernels.LAUNCHES["mfa_cols"] += 1
     return out

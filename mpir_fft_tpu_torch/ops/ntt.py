@@ -800,7 +800,9 @@ def garner_post(M: int, K: int, steps):
     'consumed' becomes True if a Garner launch (either tier) took it; the
     schoolbook leaf and the recursive mulmod never do, and then the caller
     runs the leg itself.  Whether it is taken is a shape rule decided
-    before the launch: the ring is M digits and K divides the rows."""
+    before the launch: the ring is M digits, K divides the rows, and K rows
+    of M digits fit the ladder's buffer (ladder_fits: the sharded staged
+    flagship asks for K = n1, which at full width does not)."""
     cell = {"consumed": False}
     tok = _GARNER_POST.set((M, K, tuple(int(s) for s in steps), cell))
     try:
@@ -811,9 +813,10 @@ def garner_post(M: int, K: int, steps):
 
 def _take_post(B: int, M: int) -> tuple | None:
     """The hook's (K, steps) if it applies to a pointwise of B rows of M
-    digits (marking it consumed), else None."""
+    digits (marking it consumed), else None: it declines a group of K rows
+    the ladder's buffer cannot hold, so the caller runs the leg."""
     hook = _GARNER_POST.get()
-    if hook is None or hook[0] != M or B % hook[1]:
+    if hook is None or hook[0] != M or B % hook[1] or not ladder_fits(hook[1], M):
         return None
     hook[3]["consumed"] = True
     return hook[1], hook[2]

@@ -79,7 +79,9 @@ def _sqrt2_top_fwd(x: torch.Tensor, w: int, W: int):
     """Forward top layer on x [..., C, L] as its halves (s, t): s_j =
     carry(a_j + b_j), t_j = (a_j - b_j) q^j (ref sqrt2.py:119-131; with b
     zero past k, s_j = carry(a_j) there, equal mod p to the reference's
-    a_j)."""
+    a_j).  Sharded (ops/mfa.py), it runs on the whole halves on every
+    rank: the inputs are there, and a rank's columns are not affine in
+    the flat position j that q^j takes."""
     h = x.shape[-2] // 2
     top = fused_sqrt2_top_fwd(x.contiguous(), w, W)
     return top[..., :h, :], top[..., h:, :]
@@ -88,7 +90,8 @@ def _sqrt2_top_fwd(x: torch.Tensor, w: int, W: int):
 def _sqrt2_top_inv(sl: torch.Tensor, orr: torch.Tensor, w: int, W: int, norm_div: int = 0):
     """Inverse top merge on the first k positions (ref sqrt2.py:134-150):
     u = oR q^-j, xa = post(sL + u), xb = post(sL - u) for j < k = sl's rows,
-    post = carry_pass or the norm_div tail; one kernel pass."""
+    post = carry_pass or the norm_div tail; one kernel pass.  Sharded
+    (ops/mfa.py), on the whole halves on every rank, after the gather."""
     k = sl.shape[-2]
     out = fused_sqrt2_top_inv(torch.cat([sl, orr], dim=-2), w, W, norm_div=norm_div)
     return out[..., :k, :], out[..., k:, :]
@@ -100,7 +103,9 @@ def _fft_trunc_sqrt2(x: torch.Tensor, w: int, W: int, trunc: int, full, trunc_fn
     given inner transforms of a [..., m, L] array at root 2^v: full(y, v)
     the whole transform, trunc_fn(y, v, t, one) its truncation at t
     (fft_trunc, or fft_trunc1 with one).  The flat pair below and the MFA
-    pair (ops/mfa.py) differ only in these."""
+    pair (ops/mfa.py) differ only in these.  Sharded, ops/mfa.py runs the
+    same cases itself (_segments), so that both halves' rows cross in one
+    all-to-all."""
     C = x.shape[-2]
     assert 1 <= trunc <= C
     if trunc == C:

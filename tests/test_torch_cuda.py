@@ -1081,3 +1081,76 @@ def test_profile_stages_1e7(dev, monkeypatch):
     assert all(r[k] > 0 for k in stages) and r["clock"] == "cuda events"
     assert 0.5 < r["stages_over_route"] < 2.0, r
     assert r["pointwise_gemm_ops"] > 0 and r["fwd_ladder_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# sharding (parallel/): the full-length MFA shapes the sharded path gives
+# the kernels, and ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("n1,m2,L,v,off,cols", [(128, 256, 1024, 1, 32, 4),
+                                                (256, 256, 2048, 1, 64, 2)])
+def test_sharded_full_columns_match_plain(dev, kind, n1, m2, L, v, off, cols):
+    """A rank's block of the full MFA columns at 10^8 (even w: (256, 1024)
+    at root 2^1 x n1 128) and 10^9 ((256, 2048), n1 256): past the column
+    kernel, the truncate.py recursion with the ladder's cross table at the
+    block's global columns; raw digits identical to the host's plain run."""
+    from mpir_fft_tpu_torch.ops.mfa import _run_cols
+
+    rng = np.random.default_rng(18)
+    assert not mfa_col_fits(m2, L, True)
+    x = _rand(rng, (2, cols, m2, L), -(1 << 17), 1 << 17, dev)
+    kernels.reset_launches()
+    got = _run_cols(x, kind, v, 16 * L, m2, n1=n1, off=off)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ladder_pe"] > 0 and kernels.LAUNCHES["mfa_cols"] == 0
+    assert torch.equal(got.cpu(), _run_cols(x.cpu(), kind, v, 16 * L, m2, n1=n1, off=off))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("P,n1,L,row_w", [(4, 128, 1024, 256), (2, 256, 2048, 256)])
+def test_sharded_rows_match_plain(dev, kind, P, n1, L, row_w):
+    """A rank's MFA rows at 10^8 ((128, 1024), root 2^256) and 10^9 ((256,
+    2048), root 2^256), on the ladder: raw digits identical to the plain
+    run."""
+    from mpir_fft_tpu_torch.ops.transforms import fft_radix2, ifft_radix2
+
+    fn = fft_radix2 if kind == "fwd" else ifft_radix2
+    x = _rand(np.random.default_rng(19), (P, n1, L), -(1 << 17), 1 << 17, dev)
+    kernels.reset_launches()
+    got = fn(x, row_w, 16 * L)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ladder"] > 0 and kernels.LAUNCHES["transform_small"] == 0
+    assert torch.equal(got.cpu(), fn(x.cpu(), row_w, 16 * L))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+def test_mfa_cols_block_matches_plain(dev, kind):
+    """The column kernel on a rank's block: the 10^7 plan's columns [16, 32)
+    of n1 64, both halves, the cross twiddles at their global columns."""
+    x = _rand(np.random.default_rng(20), (32, 128, 256), -(1 << 17), 1 << 17, dev)
+    got = _launched("mfa_cols", lambda: fused_mfa_cols(kind, x, 1, 4096, 64, 128, False,
+                                                       (16, 16)))
+    assert torch.equal(got.cpu(), mfa_cols_plain(kind, x.cpu(), 1, 4096, 64, 128, False,
+                                                 (16, 16)))
+
+
+def test_sharded_two_gloo_ranks_on_one_card(dev, capsys):
+    """Two gloo ranks on cuda:0: the reference's six dry-run steps exact,
+    and a staged sharded product whose ranks launch the kernels."""
+    from mpir_fft_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+    from mpir_fft_tpu_torch.utils.shard_bench import operand_digits, rank_phase, residues
+
+    dryrun_multichip(2, device="cuda", backend="gloo", timeout=600)
+    assert "dryrun_multichip OK on 2 devices" in capsys.readouterr().out
+    primes = [(1 << 61) - 1]
+    specs = (("1e7", "mul", 10**7, 10**7, None, 0),)
+    ranks = run_ranks(2, rank_phase, (specs, 7, primes, 10**7), device="cuda", backend="gloo")
+    a, b = operand_digits(10**7, 7), operand_digits(10**7, 8)
+    want = [[residues(a, primes)[0] * residues(b, primes)[0] % primes[0]]]
+    for r in ranks:
+        assert r["transport"] == "device" and r["1e7"]["mul"]["residues"] == want
+        assert r["1e7"]["mul"]["exchanges"]["all_to_all"] == 2
+    for name in ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "garner_carry"):
+        assert all(r["launches"][name] > 0 for r in ranks), name

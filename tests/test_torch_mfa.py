@@ -208,9 +208,9 @@ def test_cols_route_plans(monkeypatch, bits_a, bits_b, driver):
     W, L, n1 = plan.W, plan.W // 16, plan.n1
     calls = []
 
-    def record(kind, x, w, W_, n1_, trunc2, one=False):
+    def record(kind, x, w, W_, n1_, trunc2, one=False, block=None):
         n2 = x.shape[-2]
-        assert tfused.mfa_col_fits(n2, L, trunc2 == n2)
+        assert block is None and tfused.mfa_col_fits(n2, L, trunc2 == n2)
         calls.append((kind, n2, trunc2 == n2, tfused.mfa_col_cluster(n2, L)))
         return x
 
