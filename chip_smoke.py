@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the twenty-five kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty-six kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -94,7 +94,14 @@
        slice by slice (four slices of 32768 rows: they do not fit beside
        the kernels' tensors whole), and garner_residues_post on its first
        staged chunk (16384 rows, K 4); ntt4_fused at the mulmod_int 2^29
-       ring's batch (32768, 4096).  Then an A/B record on the same
+       ring's batch (32768, 4096) and at (16384, 8192), product and square,
+       its residues identical to the plain pipeline's and to the linked
+       route's, timed beside its int8 and int32 bounds and the linked
+       route (ntt4_input_planes, 18 GEMMs, the links), with ptxas's lines
+       and cuobjdump's count of its tensor-core MMA instructions; fused
+       (#9's counterpart: one whole block in one launch) forward and
+       inverse at (64, 512), (256, 512) and (128, 1024), raw digits
+       identical.  Then an A/B record on the same
        (131072, 4096) operands: mulmod_ntt's 4-step tier against the
        recursive mulmod_fft at mulmod_plan(65536), equal after normmod, both
        timed.
@@ -104,7 +111,12 @@
    least time the card could take for the same work: the larger of its
    bytes (inputs read once, outputs written once) over 3.35 TB/s and its
    operations over the INT32 rate (the int8 tensor-core rate for the GEMM,
-   the FP64 FMA rate for conv_base's L^2 FMAs a row).
+   the FP64 FMA rate for conv_base's L^2 FMAs a row; for ntt4_fused the
+   larger of its int8 products at the tensor-core rate and the modular
+   arithmetic it needs, with no load, store or address, at the INT32
+   rate).  library_ms is one PyTorch call computing the same function, or
+   null; ntt4_fused, which no one call computes, carries the linked route's
+   time apart, as ab_ms.
 4. Drives the main path, the launch counters reset before each size and
    read after it; every kernel the path should reach must have launched,
    and at the power-of-two plans conv_base must not have:
@@ -154,9 +166,14 @@
        twiddle_half pass after the inverse; the final normmod on the long
        route at every N), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
-       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused);
+       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused),
+       both device times printed side by side;
        2^30 (inner m 65536, Lp 4096; the final normmod one row of 2^26
        digits);
+     fused -- no path of either package reaches the reference's fused(fn,
+       x), so its counterpart is driven through its own entry point: the
+       forward then the inverse of a (256, 512) block, equal to 256 times
+       the block after normmod;
      the out-of-core engine (models/huge.py) with 64 KB chunks at two small
        plans (100,000 and 150,000 bits, depth 7: odd w with trunc_mfa > h,
        even w): every pass's packed output on the card identical to the
@@ -428,6 +445,79 @@ def kernel_name(sym: str) -> str:
     return sym
 
 
+# #9's counterpart at blocks the column kernel holds in one CTA and in a
+# cluster of 4: (C, L), W = 16 L, the full transform's root 2^(2W / C)
+FUSED_BLOCKS = ((64, 512), (256, 512), (128, 1024))
+# ntt4_fused's least int32 work: the modular arithmetic the function
+# needs a value, with no load, store or address.  Each 32-bit add, shift,
+# multiply or min is one operation; a 32 x 32 -> 64-bit multiply-add or a
+# 64-bit add is two (its halves).  A fold of three plane sums (S0 + 256
+# S1 + 65536 S2 and its Montgomery reduction) 8, a modular product 5, a
+# plane split 4, a digit's balanced carry 4, the residue's range fix 2.
+NTT4_NEED_OPS = {"fold": 8, "mul": 5, "split": 4, "carry": 4, "fix": 2}
+# The same work as the kernel spends it, counted from csrc/ntt4.cu with its
+# loads, stores and addresses (a diagnostic beside the bound, not the
+# bound): a fold 9, a Montgomery product 5, a plane split with its three
+# byte stores 8, an input digit's planes with its two loads 26, the
+# residue's fix and store 4.
+NTT4_IMPL_OPS = {"fold": 9, "mul": 5, "split": 8, "digit": 26, "fix": 4}
+
+
+def ntt4_fused_int32_ops(B: int, M: int, impl: bool = False) -> int:
+    """The int32 operations of ntt4_fused on B products of M digits: the
+    least the function needs (impl: as the kernel spends them).  Per value
+    of a row and prime: F1 (fold, times T, split) and F2's fold for each
+    operand, the pointwise product and its split, G2 like F1, G1's fold and
+    range fix.  A balanced digit's planes serve every prime, so the
+    needed count takes each input digit's carry and split once, the
+    kernel's once a prime."""
+    o = NTT4_IMPL_OPS if impl else NTT4_NEED_OPS
+    f1 = o["fold"] + o["mul"] + o["split"]
+    per = 2 * (f1 + o["fold"]) + (o["mul"] + o["split"]) + f1 + (o["fold"] + o["fix"])
+    if impl:
+        return 3 * B * M * (per + 2 * o["digit"] + o["mul"])   # G1's constants: one more product
+    return B * M * (3 * per + 2 * (o["carry"] + o["split"]))
+
+
+def sass_dump(so: pathlib.Path):
+    """cuobjdump's SASS of the library, started in a thread so that it runs
+    beside the kernel phase (the interpreter joins the thread at exit):
+    a future of its text, or None where the toolkit has no cuobjdump."""
+    import concurrent.futures
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
+    if not tool or not os.path.exists(tool):
+        return None
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    job = pool.submit(lambda: subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                                             text=True, timeout=300).stdout)
+    pool.shutdown(wait=False)
+    return job
+
+
+def sass_mma_count(sass, name: str) -> str:
+    """The tensor-core MMA instructions (wgmma: IGMMA / HGMMA; mma.sync:
+    IMMA / HMMA) in the SASS (sass_dump's future) of each kernel whose
+    symbol holds `name`."""
+    if sass is None:
+        return "cuobjdump not found"
+    counts, fn = {}, None
+    for line in sass.result().splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :", 1)[1].strip())
+            if name not in fn:
+                fn = None
+            else:
+                counts.setdefault(fn, 0)
+        elif fn and re.search(r"\b[IH]GMMA\b|\b[IH]MMA\b", line):
+            counts[fn] += 1
+    return json.dumps(counts) + " MMA instructions (IGMMA = wgmma.mma_async s8)"
+
+
 def main() -> int:
     import torch
 
@@ -446,14 +536,15 @@ def main() -> int:
         DRIVERS, _piecewise_serves, _pw_chunk_rows, _staged_flagship, flagship_is_huge,
         flagship_is_staged, mpn_mul_flagship, mpn_sqr_flagship, mul, out_len_digits, sqr)
     from mpir_fft_tpu_torch.ops.fused import (
-        CANON_ROW_MAX, CANON_TILE, fused_butterfly_ladder, fused_mfa_cols, fused_normmod_div,
+        CANON_ROW_MAX, CANON_TILE, fused, fused_butterfly_ladder, fused_mfa_cols,
+        fused_normmod_div, fused_plain,
         ladder_groups, ladder_plain, ladder_stages, mfa_col_cluster, mfa_col_fits,
         mfa_cols_plain, mfa_cols_schedule, normmod_route, normmod_rows_plain, NORMMOD_ROW_MAX,
         NORMMOD_SHORT_MAX)
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
-        _blocks, _dot_raw, _ntt4_blocks, _ntt4_shape, garner_carry, garner_carry_plain,
+        _blocks, _dot_raw, _ntt4_blocks, _ntt4_leg, _ntt4_shape, garner_carry, garner_carry_plain,
         garner_residues, garner_residues_plain, input_planes, input_planes_plain, mid_planes,
         mid_planes_plain, mulmod_ntt, ntt4_fused, ntt4_fused_plain, ntt4_fwd_twiddle,
         ntt4_fwd_twiddle_plain, ntt4_input_planes, ntt4_input_planes_plain, ntt4_inv_twiddle,
@@ -479,15 +570,20 @@ def main() -> int:
     t0 = time.perf_counter()
     so = kernels.build()
     kernels.lib()
+    sass = sass_dump(so)
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}")
-    kernel, spill = "?", ""
-    for line in so.with_suffix(".log").read_text().splitlines():
+    log = so.with_suffix(".log").read_text()
+    print("  nvcc seconds a source: " + ", ".join(
+        f"{m.group(1)} {m.group(2)}" for m in re.finditer(r"^nvcc (\S+): ([\d.]+) s$", log, re.M)))
+    kernel, spill, ptxas_lines = "?", "", []
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             kernel = kernel_name(line.split("'")[1])
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line:
-            print(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+            ptxas_lines.append(f"  ptxas: {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+            print(ptxas_lines[-1])
 
     # -- 3. each kernel against its plain version at the main path's shapes ----
     plan = choose_params(PLAN_BITS, PLAN_BITS, sqrt2=True)
@@ -1123,25 +1219,80 @@ def main() -> int:
     del x, y
     torch.cuda.empty_cache()
 
-    # the fused kernel at its main-path batch: the mulmod_int 2^29 ring's
+    # the fused kernel at its main-path batch (the mulmod_int 2^29 ring's)
+    # and at an M 8192 batch: identical to the plain pipeline, product and
+    # square; timed beside its two bounds (the int8 tensor cores' and the
+    # int32 modular arithmetic it needs) and beside the linked route that
+    # computes the same residues (ntt4_input_planes, 18 GEMMs, the links)
+    t_phase = time.perf_counter()
     fplan = mulmod_plan(MULMOD_N[2])
-    fB = fplan.m
-    assert (fB, fplan.Lp) == (32768, 4096), fplan
-    x = rand((fB, tM), -(1 << 17), 1 << 17)
-    y = rand((fB, tM), -(1 << 17), 1 << 17)
-    fr = ntt4_fused(x, y)
-    want, pms = timed(lambda: ntt4_fused_plain(x, y))
-    identical("ntt4_fused", fr, want)
-    identical("ntt4_fused square", ntt4_fused(x, x), ntt4_fused_plain(x, x))
-    del want, fr
-    ms = time_ms(lambda: ntt4_fused(x, y), 3, 1)
-    fmacs = 3 * 6 * 9 * fB * tM * m1        # 18 block products of 9 M m multiply-adds per row
-    add_row("ntt4_fused", src4, "mpir_fft_tpu/ops/ntt.py:1115", 0, ms, pms, 20 * fB * tM,
-            2 * fmacs, ops_per_s=INT8_OPS_PER_S)
-    print(f"ntt4_fused ({fB}, {tM}) -> 3 x ({fB}, {tM}): residues identical to the plain "
-          f"pipeline (product and square); {ms:.3f} ms (plain {pms:.3f} ms)")
-    del x, y
-    torch.cuda.empty_cache()
+    assert (fplan.m, fplan.Lp) == (32768, 4096), fplan
+    for fB, fM in ((fplan.m, tM), (16384, 8192)):
+        fm1, fm2 = _ntt4_shape(fM)
+        x = rand((fB, fM), -(1 << 17), 1 << 17)
+        y = rand((fB, fM), -(1 << 17), 1 << 17)
+        fr = ntt4_fused(x, y)
+        want, pms = timed(lambda: ntt4_fused_plain(x, y))
+        identical(("ntt4_fused", fM), fr, want)
+        identical(("ntt4_fused square", fM), ntt4_fused(x, x), ntt4_fused_plain(x, x))
+        del want
+
+        def linked():
+            pa, pb = ntt4_input_planes(x), ntt4_input_planes(y)
+            return torch.stack([_ntt4_leg(pa[i], pb[i], blk, fM)
+                                for i, blk in enumerate(_ntt4_blocks(fM, dev))])
+
+        identical(("linked route", fM), linked(), fr)
+        del fr
+        ms = time_ms(lambda: ntt4_fused(x, y), 3, 1)
+        ms_sq = time_ms(lambda: ntt4_fused(x, x), 3, 1)
+        lms = time_ms(linked, 3, 1)
+        fmacs = 81 * fB * fM * (fm1 + fm2)   # 3 primes x 3 transforms x (9 M m1 + 9 M m2)
+        eops = ntt4_fused_int32_ops(fB, fM)
+        b8 = 2 * fmacs / INT8_OPS_PER_S * 1e3
+        b32 = eops / INT32_OPS_PER_S * 1e3
+        bimpl = ntt4_fused_int32_ops(fB, fM, impl=True) / INT32_OPS_PER_S * 1e3
+        if fM == tM:
+            # the bound is the larger of the two: both kinds of work must be done
+            ops, rate = (eops, INT32_OPS_PER_S) if b32 >= b8 else (2 * fmacs, INT8_OPS_PER_S)
+            add_row("ntt4_fused", src4, "mpir_fft_tpu/ops/ntt.py:1115", 0, ms, pms, 20 * fB * fM,
+                    ops, ops_per_s=rate)
+            # no one PyTorch call computes the residues: the A/B is the
+            # linked route, kept apart from library_ms
+            rows["ntt4_fused"].update(ab="linked route", ab_ms=lms)
+        print(f"ntt4_fused ({fB}, {fM}) -> 3 x ({fB}, {fM}): residues identical to the plain "
+              f"pipeline and to the linked route (product and square); {ms:.3f} ms (square "
+              f"{ms_sq:.3f} ms); int8 bound {b8:.3f} ms ({b8 / ms:.1%}), int32 bound (the "
+              f"modular arithmetic needed) {b32:.3f} ms ({b32 / ms:.1%}); the kernel's own "
+              f"int32 count (with loads, stores, addresses; a diagnostic) {bimpl:.3f} ms "
+              f"({bimpl / ms:.1%}); linked route {lms:.3f} ms; plain {pms:.3f} ms")
+        del x, y
+        torch.cuda.empty_cache()
+    for line in ptxas_lines:
+        if "ntt4_fused_kernel" in line:
+            print(line)
+    t_sass = time.perf_counter()
+    print(f"ntt4_fused SASS: {sass_mma_count(sass, 'ntt4_fused_kernel')}")
+    print(f"ntt4_fused phase: {time.perf_counter() - t_phase:.1f} s, of which waiting for "
+          f"cuobjdump {time.perf_counter() - t_sass:.1f} s")
+
+    # #9's counterpart: one whole block's transform in one launch (the
+    # column kernel on one column), raw digits identical to its plain
+    # version; blocks the column kernel holds in one CTA and in a cluster
+    for kind in ("fwd", "inv"):
+        for bC, bL in FUSED_BLOCKS:
+            bW = DIGIT_BITS * bL
+            bw = 2 * bW // bC
+            xb = rand((bC, bL), -(1 << 17), 1 << 17)
+            got = fused(kind, xb, bw, bW)
+            want, pms = timed(lambda: fused_plain(kind, xb, bw, bW))
+            identical(("fused", kind, bC, bL), got, want)
+            ms = time_ms(lambda: fused(kind, xb, bw, bW), 10, 2)
+            ops = mfa_cols_ops(mfa_cols_schedule(kind, bC, bw, bC, False), 1, bL)
+            add_row("fused", "mpir_fft_tpu_torch/csrc/mfa_cols.cu", "mpir_fft_tpu/ops/fused.py:154",
+                    0, ms, pms, 8 * bC * bL, ops)
+            print(f"fused {kind} ({bC}, {bL}) (cluster of {mfa_col_cluster(bC, bL)}): raw digits "
+                  f"identical to the plain version; {ms:.4f} ms (plain {pms:.3f} ms)")
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the main path, counted per size --------------------------------------
@@ -1436,11 +1587,28 @@ def main() -> int:
             del os.environ["MPIR_FFT_NTT_FUSED"]
         else:
             os.environ["MPIR_FFT_NTT_FUSED"] = old
+    print(f"mulmod_int 2^29 device ms (record, not a claim): linked "
+          f"{e2e['mulmod_2^29_device_ms']:.3f}, MPIR_FFT_NTT_FUSED=1 "
+          f"{e2e['mulmod_2^29_fused_device_ms']:.3f}")
     # 2^30: the final normmod is one row of 2^26 digits, where 2W = 2^31
     # passes a C int; inner rings of Lp 4096 on the 4-step tier, as at 2^29
     mp, *_ = mulmod_case(MULMOD_N[3], "", ring_4step, no_ring)
     assert (mp.m, mp.Lp) == (65536, 4096), mp
     e2e["peak_memory_mulmod_2^30_gib"] = peaks["mulmod_int 2^30"]
+
+    # #9's counterpart: no path of either package reaches the reference's
+    # fused(fn, x) (its one caller, maybe_fused, has no caller), so the
+    # whole-block transform is driven here through its own entry point, a
+    # forward and an inverse of the largest block, counted
+    bC, bL = FUSED_BLOCKS[1]
+    bW = DIGIT_BITS * bL
+    xb = rand((bC, bL), -(1 << 16), 1 << 16)
+    back = counted(f"fused ({bC}, {bL}) forward + inverse", ("fused",),
+                   lambda: fused("inv", fused("fwd", xb, 2 * bW // bC, bW), 2 * bW // bC, bW),
+                   ("mfa_cols", "ladder", "ladder_pe", "transform_small"))
+    # the inverse of the forward is C times the block (mod 2^W + 1)
+    assert torch.equal(canon(back), canon(xb * bC)), "fused: inverse of forward"
+    print(f"fused ({bC}, {bL}): the inverse of the forward is {bC} x the block, after normmod")
 
     # the out-of-core engine's passes at small plans with 64 KB chunks
     # (several a pass; odd w with t > h, and even w): each pass's packed
@@ -1824,7 +1992,8 @@ def main() -> int:
         table.append(dict(name=r["name"], route=r["route"], source=r["source"],
                           replaces=r["replaces"], launches=launches_total[r["counter"]],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                          bound_ms=bms, bound_by=by, library_ms=r["library_ms"]))
+                          bound_ms=bms, bound_by=by, library_ms=r["library_ms"],
+                          **{k: r[k] for k in ("ab", "ab_ms") if k in r}))
     assert {r["counter"] for r in rows.values()} == set(kernels.LAUNCHES)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

@@ -18,6 +18,7 @@ the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm"."""
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -25,6 +26,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 import torch
 
@@ -37,7 +39,8 @@ NVCC_FLAGS = (
 LIB_STEM = "libmpir_fft_kernels"
 
 LAUNCHES = {
-    "ladder": 0, "ladder_pe": 0, "ladder_pre_half": 0, "mfa_cols": 0, "conv_base": 0,
+    "ladder": 0, "ladder_pe": 0, "ladder_pre_half": 0, "mfa_cols": 0, "fused": 0,
+    "conv_base": 0,
     "normmod": 0, "normmod_long": 0, "canonicalize": 0,
     "twiddle_half": 0, "sqrt2_top_fwd": 0, "sqrt2_top_inv": 0, "transform_small": 0,
     "transform_small_half": 0,
@@ -80,27 +83,30 @@ def build() -> pathlib.Path:
     """Compile csrc/*.cu for sm_90a unless a library for the current
     sources exists; return its path.  Each source compiles in its own nvcc
     process, all at once; the objects then link into the library.  The
-    compilers' resource reports (`-Xptxas -v`) are kept beside it as
-    `<lib>.log`."""
+    seconds each source took and the compilers' resource reports
+    (`-Xptxas -v`) are kept beside it as `<lib>.log`."""
     lib = BUILD_DIR / f"{LIB_STEM}_{_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{lib.stem}.{os.getpid()}"
-    objs, procs = [], []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = [], []
-    for src_obj, proc in zip(objs, procs):
-        out, _ = proc.communicate()
-        logs.append(out)
-        if proc.returncode != 0:
-            failed.append(f"{src_obj.name} ({proc.returncode}):\n{out}")
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+
+    def compile_one(src_obj):
+        src, obj = src_obj
+        t0 = time.perf_counter()
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return res, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        done = list(pool.map(compile_one, zip(srcs, objs)))
+    logs = [f"nvcc {src.name}: {secs:.1f} s\n" for src, (_, secs) in zip(srcs, done)]
+    logs += [res.stdout for res, _ in done]
+    failed = [f"{obj.name} ({res.returncode}):\n{res.stdout}"
+              for obj, (res, _) in zip(objs, done) if res.returncode != 0]
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = lib.with_name(f"{tag}.so.tmp")

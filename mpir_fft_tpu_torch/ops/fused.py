@@ -12,6 +12,7 @@ mpir_fft_tpu/ops/fused.py), each beside its plain torch version.
 | fused_sqrt2_top_fwd        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_fwd              |
 | fused_sqrt2_top_inv        | csrc/sqrt2_top.cu       | fused.fused_sqrt2_top_inv              |
 | fused_mfa_cols             | csrc/mfa_cols.cu        | fused.fused_batched_idx (MFA columns)  |
+| fused                      | csrc/mfa_cols.cu        | fused.fused (one whole block)          |
 
 The NTT's link kernels (csrc/ntt_links.cu) are wrapped in ops/ntt.py, beside
 the integer helpers their plain versions are built from.
@@ -706,9 +707,17 @@ def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: 
                          f"at trunc2 {trunc2}")
     if x.device.type == "cpu":
         return mfa_cols_plain(kind, x, w, W, n1, trunc2, no_zero_tail, block)
+    return _launch_cols("mfa_cols", kind, x, w, n1, trunc2, no_zero_tail, off, cols)
+
+
+def _launch_cols(counter: str, kind: str, x: torch.Tensor, w: int, n1: int, trunc2: int,
+                 no_zero_tail: bool, off: int, cols: int) -> torch.Tensor:
+    """One launch of csrc/mfa_cols.cu on the checked (B, n2, L) CUDA tensor
+    x, counted under LAUNCHES[counter]."""
+    B, n2, L = x.shape
     R = mfa_col_cluster(n2, L)
     if R is None:
-        raise ValueError(f"mfa_cols: an ({n2}, {L}) column exceeds a cluster of "
+        raise ValueError(f"{counter}: an ({n2}, {L}) column exceeds a cluster of "
                          f"{MFA_COL_CLUSTERS[-1]} CTAs")
     sched = _schedule_on((kind, n2, w * n1, trunc2, bool(no_zero_tail)), x.device)
     out = torch.empty_like(x)
@@ -716,6 +725,37 @@ def fused_mfa_cols(kind: str, x: torch.Tensor, w: int, W: int, n1: int, trunc2: 
         rc = kernels.lib().mf_mfa_cols(
             x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.shape[0], B, n2, L,
             cols - 1, off, int(w), ladder_stages(L), R, kernels.stream_of(x))
-    kernels.check(rc, "mfa_cols")
-    kernels.LAUNCHES["mfa_cols"] += 1
+    kernels.check(rc, counter)
+    kernels.LAUNCHES[counter] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# 7. one whole block's transform in one launch
+# ---------------------------------------------------------------------------
+
+def fused_plain(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """Plain version of fused: the column kernel's plain version on x as
+    one column (n1 = 1: no cross twiddle), its full transform."""
+    return mfa_cols_plain(kind, x[None], w, W, 1, x.shape[0])[0]
+
+
+def fused(kind: str, x: torch.Tensor, w: int, W: int) -> torch.Tensor:
+    """The whole transform of one (C, L) block in one launch -- the
+    reference's fused(fn, x) (mpir_fft_tpu/ops/fused.py:154) with fn its
+    fft_radix2 (kind "fwd") or ifft_radix2 ("inv") at root 2^w: csrc/
+    mfa_cols.cu on x as a single column (n1 = 1, trunc2 = C, cross
+    exponent 0), held in one CTA or a cluster (mfa_col_cluster).  The
+    blocks the column kernel takes (mfa_col_fits on a full column), else
+    ValueError.  Counted under LAUNCHES["fused"].  Output: bounded
+    redundant digits, equal to the reference's after normmod."""
+    if kind not in ("fwd", "inv"):
+        raise ValueError(f"kind must be 'fwd' or 'inv', got {kind!r}")
+    _require(x, "fused", ndim=2)
+    C, L = x.shape
+    if C < 1 or C & (C - 1) or W != DIGIT_BITS * L or not mfa_col_fits(C, L, True):
+        raise ValueError(f"fused: a ({C}, {L}) block at W={W}: C a power of two, W = 16 L "
+                         f"and a block the column kernel holds (mfa_col_fits) required")
+    if x.device.type == "cpu":
+        return fused_plain(kind, x, w, W)
+    return _launch_cols("fused", kind, x[None], w, 1, C, False, 0, 1)[0]

@@ -274,14 +274,61 @@ def _ntt4_blocks(M: int, device: torch.device) -> tuple[Ntt4Prime, ...]:
                  for m in _ntt4_mats(M))
 
 
+# The fused kernel's operand layout (csrc/ntt4.cu): wgmma's 192-column N
+# tile, and the fragment that holds an accumulator element
+FUSED_TILE_N = 192
+
+
+def _fused_tile(blk: np.ndarray) -> np.ndarray:
+    """A [K, 192] int8 tile as the kernel's wgmma B operand: byte (q, n) at
+    (q // 16) * 3072 + (n // 8) * 128 + (n % 8) * 16 + q % 16 -- 16-byte
+    K slabs of 24 core matrices (8 columns x 16 K bytes), csrc/ntt4.cu
+    core_off<192>."""
+    K = blk.shape[0]
+    tile = blk.T.reshape(FUSED_TILE_N // 8, 8, K // 16, 16).transpose(2, 0, 1, 3)
+    return np.ascontiguousarray(tile).view(np.uint8).reshape(-1)
+
+
+def _fused_cols(m: int, nt: int) -> np.ndarray:
+    """The columns of a [3m, 3m] plane block in its column tile nt: j m +
+    64 nt + k for plane j < 3, k < 64 -- whole plane triples, so the three
+    sums of one output fall in one thread's accumulators."""
+    return np.array([j * m + 64 * nt + k for j in range(3) for k in range(64)])
+
+
+def _fused_fragment(tab: np.ndarray, tiles_on_rows: bool) -> np.ndarray:
+    """An [R, C] int32 table in the order the kernel's epilogue reads it:
+    (tile, i, thread t, he) -> tab at tile row 16 (t >> 5) + ((t & 31) >> 2)
+    + 8 (he >> 1), tile column 8 i + 2 (t & 3) + (he & 1) -- the wgmma
+    accumulator element 4 i + he of thread t -- with 64-row tiles
+    (tiles_on_rows) or 64-column tiles; an int4 load a thread."""
+    t = np.arange(128)[None, :, None]
+    he = np.arange(4)[None, None, :]
+    i = np.arange(8)[:, None, None]
+    row = 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (he >> 1) + 0 * i
+    col = 8 * i + 2 * (t & 3) + (he & 1)
+    n = (tab.shape[0] if tiles_on_rows else tab.shape[1]) // 64
+    return np.stack([tab[64 * nt + row, col] if tiles_on_rows else tab[row, 64 * nt + col]
+                     for nt in range(n)]).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=8)
 def _ntt4_fused_tables(M: int, device: torch.device) -> torch.Tensor:
-    """_ntt4_tables(M) packed into one uint8 tensor for the fused kernel:
-    per prime, in order, F1, F2, G1, G2 column-major int8, then T and Ti
-    int32 (every piece a multiple of 16 bytes)."""
-    arrs, _ = _ntt4_tables(M)
-    parts = [np.ascontiguousarray(a.T if a.dtype == np.int8 else a).view(np.uint8).reshape(-1)
-             for a in arrs]
+    """_ntt4_mats(M) packed into one uint8 tensor for the fused kernel, per
+    prime in order: F1, F2's column tiles, G1, G2's column tiles (each tile
+    [K, 192] in the wgmma layout of _fused_tile; F1 and G1 are one tile,
+    F2 and G2 m2 / 64, _fused_cols), then T R^2 and Ti R^5 mod p (R = 2^32:
+    the kernel's Montgomery reductions take out R^-1 per fold and product)
+    as int32 in fragment order (_fused_fragment).  Every piece is a
+    multiple of 16 bytes."""
+    parts = []
+    for mat in _ntt4_mats(M):
+        p, m2 = mat["p"], mat["m2"]
+        for key, m in (("F1", mat["m1"]), ("F2", m2), ("G1", mat["m1"]), ("G2", m2)):
+            parts += [_fused_tile(mat[key][:, _fused_cols(m, nt)]) for nt in range(m // 64)]
+        for key, r, on_rows in (("T", pow(2, 64, p), True), ("Ti", pow(2, 160, p), False)):
+            frag = _fused_fragment(mat[key].astype(np.int64) * r % p, on_rows)
+            parts.append(frag.view(np.uint8).reshape(-1))
     return torch.from_numpy(np.concatenate(parts)).to(device)
 
 

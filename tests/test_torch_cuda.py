@@ -24,10 +24,12 @@ from mpir_fft_tpu_torch.ops.fused import (
     CANON_ROW_MAX,
     CANON_TILE,
     canonicalize_plain_torch,
+    fused,
     fused_butterfly_ladder,
     fused_canonicalize_plain,
     fused_mfa_cols,
     fused_normmod_div,
+    fused_plain,
     fused_sqrt2_top_fwd,
     fused_sqrt2_top_inv,
     fused_transform,
@@ -713,17 +715,43 @@ def test_ntt4_links_match_plain(dev, B, M):
         assert torch.equal(mulmod_ntt(x, y, canonical=True).cpu(), want)
 
 
-@pytest.mark.parametrize("B", [17, 1024])
+# 89 rows: odd (two warpgroups a CTA at M 4096) and past one row per
+# warpgroup of a 132-SM card's grid (44 CTAs a prime), so warpgroups loop
+@pytest.mark.parametrize("digits", ["random", "extreme"])
+@pytest.mark.parametrize("B", [1, 17, 89, 1024])
 @pytest.mark.parametrize("M", [4096, 8192])
-def test_ntt4_fused_matches_plain(dev, B, M):
-    """The fused kernel's three residue rows against its plain version, a
-    product and a square."""
-    rng = np.random.default_rng(10)
-    x = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
-    y = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+def test_ntt4_fused_matches_plain(dev, B, M, digits):
+    """The fused kernel's three residue rows against its plain version,
+    exactly, a product and a square: random digits |d| <= 2^25, or the
+    extremes (+-2^25 against 0xFFFF everywhere)."""
+    rng = np.random.default_rng(10 + B)
+    if digits == "random":
+        x = _rand(rng, (B, M), -(1 << 25), (1 << 25) + 1, dev)
+        y = _rand(rng, (B, M), -(1 << 25), (1 << 25) + 1, dev)
+    else:
+        sign = torch.from_numpy(rng.integers(0, 2, (B, M)).astype(np.int32) * 2 - 1).to(dev)
+        x = sign * (1 << 25)
+        y = torch.full((B, M), 0xFFFF, dtype=torch.int32, device=dev)
     got = _launched("ntt4_fused", lambda: ntt4_fused(x, y))
     assert torch.equal(got, ntt4_fused_plain(x, y))
-    assert torch.equal(ntt4_fused(x, x), ntt4_fused_plain(x, x))
+    assert torch.equal(_launched("ntt4_fused", lambda: ntt4_fused(x, x)), ntt4_fused_plain(x, x))
+    assert torch.equal(ntt4_fused(y, y), ntt4_fused_plain(y, y))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("C,L", [(8, 16), (64, 512), (256, 512), (128, 1024)])
+def test_fused_block_matches_plain(dev, kind, C, L):
+    """#9's counterpart: one whole block's transform in one launch (the
+    column kernel on one column, a cluster where the block needs one), raw
+    digits identical to its plain version, counted under "fused" and not
+    "mfa_cols"."""
+    W = 16 * L
+    w = 2 * W // C
+    x = _rand(np.random.default_rng(C + L), (C, L), -(1 << 17), 1 << 17, dev)
+    before = kernels.LAUNCHES["mfa_cols"]
+    got = _launched("fused", lambda: fused(kind, x, w, W))
+    assert kernels.LAUNCHES["mfa_cols"] == before
+    assert torch.equal(got.cpu(), fused_plain(kind, x.cpu(), w, W))
 
 
 def test_ntt4_wrappers_reject(dev):

@@ -94,15 +94,143 @@ def test_ntt4_host_tables_match_reference(M):
         assert blk.F2.shape == (3 * m2, 3 * m2) and blk.F2.stride() == (1, 3 * m2)   # column-major
         for key in ("F1", "F2", "G1", "G2", "T", "Ti"):
             assert torch.equal(getattr(blk, key), torch.from_numpy(w[key])), key
-    # the fused kernel's packed tables: F1..G2 column-major bytes, then T, Ti
+    # the fused kernel's packed tables, per prime: F1, F2's column tiles, G1,
+    # G2's column tiles in the wgmma layout, then T R^2 and Ti R^5 mod p in
+    # fragment order -- unpacked here from the layout's formulas and held
+    # against the reference's arrays
     packed = tntt._ntt4_fused_tables(M, torch.device("cpu")).numpy()
+    assert packed.dtype == np.uint8
     at = 0
-    for a in warrs:
-        raw = np.ascontiguousarray(a.T if a.dtype == np.int8 else a).view(np.uint8).reshape(-1)
-        assert np.array_equal(packed[at:at + raw.size], raw)
-        assert raw.size % 16 == 0
-        at += raw.size
+    for pi, p in enumerate(tntt.PRIMES_T2):
+        F1, F2, G1, G2, Tw, Tiw = warrs[6 * pi:6 * pi + 6]
+        for blk in (F1, F2, G1, G2):
+            assert at % 16 == 0
+            at = _check_fused_block(packed, at, blk)
+        for tab, r, on_rows in ((Tw, pow(2, 64, p), True), (Tiw, pow(2, 160, p), False)):
+            frag = packed[at:at + 4 * M].view(np.int32).reshape(-1, 8, 128, 4)
+            assert np.array_equal(_unfragment(frag, tab.shape, on_rows),
+                                  tab.astype(np.int64) * r % p)
+            at += 4 * M
     assert at == packed.size
+
+
+def _check_fused_block(packed, at, blk):
+    """The [3m, 3m] block's column tiles from packed[at:]: tile nt's byte
+    (q, n) at (q // 16) 3072 + (n // 8) 128 + (n % 8) 16 + q % 16 holds
+    blk[q, j m + 64 nt + k], n = 64 j + k.  Returns the offset after it."""
+    K = blk.shape[0]
+    m = K // 3
+    q = np.arange(K)[:, None]
+    n = np.arange(192)[None, :]
+    for nt in range(m // 64):
+        tile = packed[at + (q // 16) * 3072 + (n // 8) * 128 + (n % 8) * 16 + q % 16]
+        cols = (n // 64) * m + 64 * nt + n % 64
+        assert np.array_equal(tile.view(np.int8), blk[q, cols])
+        at += K * 192
+    return at
+
+
+def _unfragment(frag, shape, on_rows):
+    """Fragment order (tile, i, thread t, he) -> the [R, C] table: tile row
+    16 (t >> 5) + ((t & 31) >> 2) + 8 (he >> 1), tile column 8 i + 2 (t & 3)
+    + (he & 1); 64-row tiles (on_rows) or 64-column ones."""
+    out = np.full(shape, -1, np.int64)
+    for nt in range(frag.shape[0]):
+        for i in range(8):
+            for t in range(128):
+                for he in range(4):
+                    r = 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (he >> 1)
+                    c = 8 * i + 2 * (t & 3) + (he & 1)
+                    at = (64 * nt + r, c) if on_rows else (r, 64 * nt + c)
+                    out[at] = frag[nt, i, t, he]
+    return out
+
+
+def _kernel_planes(v):
+    """csrc/ntt4.cu put3: the int8 planes of |v| < 2^23, p0 + 256 p1 + 65536 p2."""
+    p0 = ((v + 128) & 255) - 128
+    t = (v + 128) >> 8
+    p2 = (t + 128) >> 8
+    assert np.abs(p2).max() <= 127
+    return [p0, ((t + 128) & 255) - 128, p2]
+
+
+def _emulate_fused(a, b, M):
+    """The fused kernel's arithmetic on the packed tables, a block product
+    at a time: input planes of the balanced digits (every prime), each fold
+    a Montgomery reduction (times R^-1, R = 2^32; any representative in
+    [0, 2p) -- here the larger where it exists), the twiddles in fragment
+    order carrying R^2 / R^5, the G1 fold brought back by R^2."""
+    m1, m2 = tntt._ntt4_shape(M)
+    nt2 = m2 // 64
+    packed = tntt._ntt4_fused_tables(M, torch.device("cpu")).numpy()
+    per = packed.size // 3
+    B = a.shape[0]
+
+    def balanced(x):
+        c = (x + (1 << 15)) >> 16
+        cp = np.roll(c, 1, axis=1)
+        cp[:, 0] = -cp[:, 0]
+        return x - (c << 16) + cp
+
+    def tile(at, K):
+        q, n = np.arange(K)[:, None], np.arange(192)[None, :]
+        return packed[at + (q // 16) * 3072 + (n // 8) * 128 + (n % 8) * 16 + q % 16].view(
+            np.int8).astype(np.int64)
+
+    res = []
+    for pi, p in enumerate(tntt.PRIMES_T2):
+        at, K2 = pi * per, 3 * m2
+        F1 = tile(at, 192)
+        F2 = [tile(at + 192 * 192 + nt * K2 * 192, K2) for nt in range(nt2)]
+        at += 192 * 192 + 9 * m2 * m2
+        G1 = tile(at, 192)
+        G2 = [tile(at + 192 * 192 + nt * K2 * 192, K2) for nt in range(nt2)]
+        at += 192 * 192 + 9 * m2 * m2
+        frags = packed[at:at + 8 * M].view(np.int32).reshape(2, -1, 8, 128, 4)
+        Tm = _unfragment(frags[0], (m2, m1), True)
+        Tim = _unfragment(frags[1], (m1, m2), False)
+        rinv = pow(1 << 32, -1, p)
+
+        def mont(v):                                    # v R^-1 mod p, the representative < 2p
+            r = v % p * rinv % p
+            return np.where(r < p, r + p, r)
+
+        def fold(S):
+            assert np.abs(S).max() < 2 ** 22.6
+            return mont(S[..., :64] + 256 * S[..., 64:128] + 65536 * S[..., 128:])
+
+        def forward(x):
+            xb = balanced(x).reshape(B, m1, m2).transpose(0, 2, 1)             # [b, i2, i1]
+            X1 = np.concatenate(_kernel_planes(xb), 2)
+            u = mont(fold(X1 @ F1) * Tm)                                 # [b, i2, k1]: v T
+            X2 = np.concatenate(_kernel_planes(u.transpose(0, 2, 1)), 2)  # [b, k1, (j, i2)]
+            return np.concatenate([fold(X2 @ F2[nt]) for nt in range(nt2)], 2)
+
+        fa = forward(a)
+        fb = fa if b is a else forward(b)
+        X3 = np.concatenate(_kernel_planes(mont(fa * fb)), 2)            # [b, k1, (j, k2)]
+        g = mont(np.concatenate([fold(X3 @ G2[nt]) for nt in range(nt2)], 2) * Tim)
+        X4 = np.concatenate(_kernel_planes(g.transpose(0, 2, 1)), 2)     # [b, i2, (j, k1)]
+        r = mont(fold(X4 @ G1) * pow(1 << 32, 2, p)) % p
+        res.append(r.transpose(0, 2, 1).reshape(B, M))
+    return np.stack(res)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("M", [4096, 8192])
+def test_ntt4_fused_kernel_arithmetic(M, square):
+    """The fused kernel's design, emulated on the CPU from its packed tables
+    (lazy planes, Montgomery folds, fragment-ordered twiddles), gives the
+    plain pipeline's residues exactly, extreme digits included."""
+    rng = np.random.default_rng(M + square)
+    a = _digits(rng, 3, M).astype(np.int64)
+    a[1] = 1 << 25
+    b = a if square else _digits(rng, 3, M).astype(np.int64)
+    got = _emulate_fused(a, b, M)
+    ta = torch.from_numpy(a.astype(np.int32))
+    tb = ta if square else torch.from_numpy(b.astype(np.int32))
+    assert np.array_equal(got, tntt.ntt4_fused_plain(ta, tb).numpy())
 
 
 def test_tier2_garner_recovers_signed_coefficients():
