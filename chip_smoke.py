@@ -82,7 +82,14 @@
        pointwise chunk of the 1.2x10^9 and 1.5x10^9-bit default plans,
        (6528, 256, 48) w 6 and (5376, 256, 64) w 8, and (8192, 256, 32),
        (65536, 128, 72), the inner transforms at 10^8 and 10^9 bits under
-       MPIR_FFT_NTT=0 (utils/transform_bench.measure_whole);
+       MPIR_FFT_NTT=0; and the wide rows (64-512 KB, one CTA or a cluster of
+       R CTAs a row): the flat pair of mul at 3x10^5, 2x10^5, 5x10^5 and
+       7x10^5 bits, (2, 512, 80), (2, 1024, 64), (2, 1024, 128), (4, 1024,
+       96), the 6.3x10^7 x 5x10^6 plan's MFA rows (256, 128, 512) and a
+       rank's sharded 10^8 rows (4, 128, 1024), each beside the ladder route
+       those rows took before, interleaved on the same input (raw digits
+       identical; ab_ms), the plain forward at every R that holds the row
+       (utils/transform_bench.measure_whole);
      twiddle_half, raw digits identical -- those chunks' weights at L 48
        and 64, the mulmod_int 2^29 ring's unweighting (32768, 4096), the
        NTT=0 10^8 inner weights, an odd step at L 256, an L % 4 != 0 row
@@ -120,6 +127,11 @@
 4. Drives the main path, the launch counters reset before each size and
    read after it; every kernel the path should reach must have launched,
    and at the power-of-two plans conv_base must not have:
+     mul/sqr at 3x10^5, 5x10^5 and 7x10^5 bits (full compare): the flat
+       pair's batched transforms on the whole-row transform's wide rows
+       (160-512 KB), no ladder launch at odd w (3x10^5, 7x10^5; the
+       schoolbook pointwise), at even w (5x10^5) the lone 2-D inverse and
+       sqr's forward on the ladder, as in the reference;
      mul/sqr at the default plans (dense NTT pointwise): 2x10^6 (full
        compare with Python's a*b), 10^7 (odd w), 2x10^7; from 10^8 up the
        staged route (flagship_is_staged: the zero-top forward launches
@@ -146,7 +158,8 @@
        (trunc_mfa < conv_len): 10^7 x 7x10^6 (full compare; the column
        kernel, the whole-row transform, the odd-w top layer), 6.3x10^7 x
        5x10^6 (odd w, L 512: its (128, 512) columns on the column kernel,
-       clusters of 2, no ladder_pe), 3.98x10^8 x
+       clusters of 2, no ladder_pe; its (128, 512) rows on the whole-row
+       transform: no ladder launch), 3.98x10^8 x
        1.99x10^8 (even w, L 2048) and 10^9 x 10^8 (odd w, L 2048; peak
        memory at most 24 GiB), residues; the two L 2048 ones staged (the
        row-IFFT leg per chunk, no Garner post leg); at each an A/B record
@@ -216,7 +229,8 @@
        every rank, by GMP's product up to 10^8 bits where GMP is present,
        then timed: device ms, the exchanges' count, bytes and host ms, the
        peak memory, per rank; every kernel of SHARD_KERNELS launched on
-       some rank; rank 0's ladder shapes held against ladder_plain and
+       some rank, the whole-row transform on every rank's row pass at 10^8
+       and 6.3x10^7 x 5x10^6; rank 0's ladder shapes held against ladder_plain and
        timed; the column kernel on a rank's block at its global columns;
        then the 10^9-bit product through NCCL at a world size of 1, equal to
        the gloo ranks'; and what NCCL answers two ranks on one card.
@@ -246,6 +260,7 @@ import time
 SEED = 20261016
 PLAN_BITS = 20_000_000
 SMALL_BITS = 2_000_000
+WIDE_BITS = (300_000, 500_000, 700_000)
 ODD_SMALL_BITS = 3_162_277
 ODD_BITS = 10_000_000
 REC_BITS = 100_000_000
@@ -325,18 +340,6 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def ab_ms(fa, fb, reps: int) -> tuple[float, float]:
-    """Median device ms of fa() and fb(), interleaved a, b, b, a in each of
-    reps rounds after one warm-up each (CUDA events)."""
-    fa()
-    fb()
-    ta, tb = [], []
-    for _ in range(reps):
-        for fn, acc in ((fa, ta), (fb, tb), (fb, tb), (fa, ta)):
-            acc.append(timed(fn)[1])
-    return statistics.median(ta), statistics.median(tb)
 
 
 def flat_plan(plan):
@@ -455,7 +458,7 @@ FUSED_BLOCKS = ((64, 512), (256, 512), (128, 1024))
 # S1 + 65536 S2 and its Montgomery reduction) 8, a modular product 5, a
 # plane split 4, a digit's balanced carry 4, the residue's range fix 2.
 NTT4_NEED_OPS = {"fold": 8, "mul": 5, "split": 4, "carry": 4, "fix": 2}
-# The same work as the kernel spends it, counted from csrc/ntt4.cu with its
+# The same work as the kernel spends it, counted from csrc/ntt4_fused.cuh with its
 # loads, stores and addresses (a diagnostic beside the bound, not the
 # bound): a fold 9, a Montgomery product 5, a plane split with its three
 # byte stores 8, an input digit's planes with its two loads 26, the
@@ -555,7 +558,7 @@ def main() -> int:
                                                        measure_launches, measure_post)
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params, plan_for_depth
     from mpir_fft_tpu_torch.utils.transform_bench import (
-        CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES,
+        CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, ab_ms,
         ladder_route, measure_canon,
         measure_conv_base, measure_normmod, measure_sqrt2_fwd, measure_sqrt2_inv,
         measure_twiddle, measure_whole, mfa_cols_ops)
@@ -1066,16 +1069,29 @@ def main() -> int:
         bplan = choose_params(bits, bits, sqrt2=True)
         bmp = inner_plan(bplan.W)
         assert (_pw_chunk_rows(bplan), bmp.m, bmp.Lp, bmp.wp) == (B, m, Lp, wp), (bits, bmp)
+    # the wide rows (64-512 KB, one CTA or a cluster of R a row) also beside
+    # the ladder route they took before, interleaved on the same input (the
+    # row's ab_ms: the ladder's ms summed over the wide shapes, wide_ms the
+    # kernel's over the same shapes); their plain forward at each R (R_ms)
     for shape in WHOLE_SHAPES:
         for r in measure_whole(*shape, rand, 5):
             add_row(r["name"], "mpir_fft_tpu_torch/csrc/transform_small.cu",
                     "mpir_fft_tpu/ops/fused.py:171" if r["name"] == "transform_small"
                     else "mpir_fft_tpu/ops/fused.py:171 + :533", 0, r["ms"], r["plain_ms"],
                     r["nbytes"], r["ops"])
+            wide = ""
+            if "ab_ms" in r:
+                row = rows[r["name"]]
+                row["ab"] = "the ladder route on the wide rows (ops/transforms.py ladder_transform)"
+                row["ab_ms"] = row.get("ab_ms", 0.0) + r["ab_ms"]
+                row["wide_ms"] = row.get("wide_ms", 0.0) + r["ms"]
+                wide = (f" R {r['R']}; the ladder route {r['ab_ms']:.4f} ms "
+                        f"({r['ab_ms'] / r['ms']:.2f}x), interleaved"
+                        + (f"; forward at R {json.dumps(r['R_ms'])}" if "R_ms" in r else "") + ";")
             print(f"{r['name']} {r['kind']} {tuple(r['shape'])} w={r['w']} (groups of "
-                  f"{ladder_stages(r['shape'][2])}): raw digits identical; {r['ms']:.3f} ms, "
-                  f"{r['bound_by']} bound {r['bound_ms']:.3f} ms ({r['share']:.1%}); "
-                  f"plain {r['plain_ms']:.3f} ms")
+                  f"{ladder_stages(r['shape'][2])}):{wide} raw digits identical; "
+                  f"{r['ms']:.4f} ms, {r['bound_by']} bound {r['bound_ms']:.4f} ms "
+                  f"({r['share']:.1%}); plain {r['plain_ms']:.3f} ms")
         torch.cuda.empty_cache()
     for shape in TWIDDLE_SHAPES:
         r = measure_twiddle(*shape, rand, 10)
@@ -1255,7 +1271,8 @@ def main() -> int:
         if fM == tM:
             # the bound is the larger of the two: both kinds of work must be done
             ops, rate = (eops, INT32_OPS_PER_S) if b32 >= b8 else (2 * fmacs, INT8_OPS_PER_S)
-            add_row("ntt4_fused", src4, "mpir_fft_tpu/ops/ntt.py:1115", 0, ms, pms, 20 * fB * fM,
+            add_row("ntt4_fused", "mpir_fft_tpu_torch/csrc/ntt4_fused.cu",
+                    "mpir_fft_tpu/ops/ntt.py:1115", 0, ms, pms, 20 * fB * fM,
                     ops, ops_per_s=rate)
             # no one PyTorch call computes the residues: the A/B is the
             # linked route, kept apart from library_ms
@@ -1334,7 +1351,8 @@ def main() -> int:
             launches_total[name] += n
         peak = peaks[label] = torch.cuda.max_memory_allocated() / 2**30
         print(f"{label}: launches {json.dumps({k: n for k, n in got.items() if n})}; "
-              f"host clock {dt:.1f} ms (incl. checks); peak memory {peak:.2f} GiB")
+              f"host clock {dt:.1f} ms (incl. checks); peak memory {peak:.2f} GiB "
+              f"(at {time.perf_counter() - t_start:.1f} s)")
         for name in expect:
             assert got[name] > 0, f"{label}: kernel {name} was not launched"
         for name in forbid:
@@ -1413,7 +1431,7 @@ def main() -> int:
             assert fp.trunc_mfa == fp.conv_len and fp.trunc == tplan.trunc
             assert torch.equal(mpn_mul_flagship(dx, dy, tplan), mpn_mul_flagship(dx, dy, fp)), label
             tr, fl = ab_ms(lambda: mpn_mul_flagship(dx, dy, tplan),
-                           lambda: mpn_mul_flagship(dx, dy, fp), reps)
+                           lambda: mpn_mul_flagship(dx, dy, fp), reps, warm=False)
             e2e[f"mul_{label}_truncated_device_ms"] = tr
             e2e[f"mul_{label}_flat_pair_device_ms"] = fl
             e2e[f"mul_{label}_truncated_kernels_per_call"] = device_kernels_per_call(
@@ -1425,7 +1443,7 @@ def main() -> int:
             assert torch.equal(st(dx, dy), mpn_mul_flagship(dx, dy, tplan)), label
             ab = ab_staged[f"mul {label}"] = {}
             ab["staged_ms"], ab["unstaged_ms"] = ab_ms(
-                lambda: st(dx, dy), lambda: mpn_mul_flagship(dx, dy, tplan), reps)
+                lambda: st(dx, dy), lambda: mpn_mul_flagship(dx, dy, tplan), reps, warm=False)
             ab["staged_peak_gib"] = peak_gib(lambda: st(dx, dy))
             ab["unstaged_peak_gib"] = peak_gib(lambda: mpn_mul_flagship(dx, dy, tplan))
             e2e[f"mul_{label}_device_ms"] = ab["staged_ms"]
@@ -1433,7 +1451,7 @@ def main() -> int:
                 assert torch.equal(st(dx), mpn_sqr_flagship(dx, tplan)), label
                 ab = ab_staged[f"sqr {label}"] = {}
                 ab["staged_ms"], ab["unstaged_ms"] = ab_ms(
-                    lambda: st(dx), lambda: mpn_sqr_flagship(dx, tplan), reps)
+                    lambda: st(dx), lambda: mpn_sqr_flagship(dx, tplan), reps, warm=False)
                 ab["staged_peak_gib"] = peak_gib(lambda: st(dx))
                 ab["unstaged_peak_gib"] = peak_gib(lambda: mpn_sqr_flagship(dx, tplan))
                 e2e[f"sqr_{label}_device_ms"] = ab["staged_ms"]
@@ -1455,6 +1473,16 @@ def main() -> int:
     drive(SMALL_BITS, "2e6", (9, 8, 256), even_ntt, True, primes, 5, no_school)
     drive(ODD_BITS, "1e7", (12, 1, 256), odd_ntt, False, primes, 3, no_school)
     drive(PLAN_BITS, "2e7", (12, 2, 512), even_ntt, False, primes, 3, no_school)
+    # 3x10^5-7x10^5 bits: the flat pair's batched transforms are wide rows
+    # (160-512 KB), one transform_small launch each; at odd w (3x10^5, 7x10^5;
+    # the schoolbook pointwise at L 80 / 96) no ladder launch remains; at even
+    # w (5x10^5) the inverse and sqr's forward are lone 2-D transforms, which
+    # the ladder takes in both packages
+    wide_odd = ("transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "conv_base", "canonicalize")
+    drive(WIDE_BITS[0], "3e5", (8, 5, 80), wide_odd, True, primes, 3, ("ladder",) + ntt)
+    drive(WIDE_BITS[1], "5e5", (8, 8, 128), ("transform_small",) + even_ntt, True, primes, 3,
+          no_school)
+    drive(WIDE_BITS[2], "7e5", (9, 3, 96), wide_odd, True, primes, 3, ("ladder",) + ntt)
     # staged from 10^8 up (flagship_is_staged): the zero-top forward
     drive(REC_BITS, "1e8", (13, 2, 1024), zerotop + ("normmod",) + ntt_post, False, primes, 3,
           no_top)
@@ -1483,7 +1511,7 @@ def main() -> int:
     assert torch.equal(mul_huge(dx, dy, p2), st2(dx, dy)), "mul_huge at 2e9"
     ab_huge = {}
     ab_huge["huge_ms"], ab_huge["staged_ms"] = ab_ms(lambda: mul_huge(dx, dy, p2),
-                                                     lambda: st2(dx, dy), 1)
+                                                     lambda: st2(dx, dy), 1, warm=False)
     ab_huge["huge_peak_gib"] = peak_gib(lambda: mul_huge(dx, dy, p2))
     ab_huge["staged_peak_gib"] = peak_gib(lambda: st2(dx, dy))
     e2e["mul_2e9_huge_vs_staged"] = ab_huge
@@ -1496,9 +1524,9 @@ def main() -> int:
           ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "canonicalize") + ntt,
           True, primes, 3, no_school, bits_b=UNB_SMALL[1])
     drive(UNB_MID[0], "6.3e7x5e6", (13, 1, 512, 17280),
-          ("mfa_cols", "ladder", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
+          ("mfa_cols", "transform_small", "sqrt2_top_fwd", "sqrt2_top_inv", "twiddle_half",
            "canonicalize") + ntt,
-          False, primes, 3, no_school + ("ladder_pe",), bits_b=UNB_MID[1])
+          False, primes, 3, no_school + ("ladder_pe", "ladder"), bits_b=UNB_MID[1])
     # staged and truncated: the row-IFFT leg per chunk, no Garner post leg
     drive(UNB_EVEN[0], "3.98e8x1.99e8", (14, 2, 2048, 36736),
           ("ladder_pe", "ladder", "normmod", "canonicalize") + ntt,
@@ -1897,6 +1925,12 @@ def main() -> int:
             print(f"sharded {name} {label} (plan {ranks[0][label]['plan']}, {SHARD_RANKS} gloo "
                   f"ranks on cuda:0, transport {ranks[0]['transport']}): exact ({how}); "
                   + json.dumps(rec))
+    # the row passes of the sharded 10^8 and 6.3x10^7 x 5x10^6 products: a
+    # rank's (128, 1024) / (128, 512) rows, which the reference fuses, on the
+    # whole-row transform (clusters) on every rank
+    for label in ("1e8", "6.3e7x5e6"):
+        for r in ranks:
+            assert r[label]["mul"]["launches"]["transform_small"] > 0, (label, r["rank"])
     shard_launches = {k: sum(r["launches"][k] for r in ranks) for k in kernels.LAUNCHES}
     for name, n in shard_launches.items():
         launches_total[name] += n
@@ -1993,7 +2027,7 @@ def main() -> int:
                           replaces=r["replaces"], launches=launches_total[r["counter"]],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=bms, bound_by=by, library_ms=r["library_ms"],
-                          **{k: r[k] for k in ("ab", "ab_ms") if k in r}))
+                          **{k: r[k] for k in ("ab", "ab_ms", "wide_ms") if k in r}))
     assert {r["counter"] for r in rows.values()} == set(kernels.LAUNCHES)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

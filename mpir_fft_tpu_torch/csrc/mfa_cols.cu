@@ -33,16 +33,13 @@
 //   * The column lives in ONE in-place buffer; a cluster of R CTAs holds
 //     n2 / R contiguous rows each (R from the column's bytes: the wrapper,
 //     ops/fused.py mfa_col_cluster).  Nothing else: no scratch rows.
-//   * A sub-transform (FFT / IFFT) runs as the whole-row transform runs its
-//     row (csrc/transform_small.cu): the stages of csrc/ladder_group.cuh's
-//     group routine, ladder_groups' stage ranges with the in-place carry
-//     between them, twiddles tabled once per (stage, pair) from the C/2
-//     exponents u w mod 2W, the column's cross exponents in the group's pe
-//     form at the forward's last stage and the inverse's first.  A stage
-//     whose pairs span two CTAs (m rows apart >= the rows of a CTA) runs
-//     row by row: each CTA computes its own rows' new digits, reading the
-//     partner row through distributed shared memory, a cluster barrier
-//     between the reads and the writes.
+//   * A sub-transform (FFT / IFFT) is csrc/cluster_rows.cuh's run_transform,
+//     the routine the whole-row transform's wide rows run
+//     (csrc/transform_small.cu): the stages of csrc/ladder_group.cuh's group
+//     routine in ladder_groups' stage ranges with the in-place carry between
+//     them, the column's cross exponents in the group's pe form at the
+//     forward's last stage and the inverse's first, and the stages whose
+//     pairs span two CTAs row by row through distributed shared memory.
 //   * The glue ops (top layers, folds, reconstructions, cross butterflies)
 //     run the same way: each thread reads the windows its outputs need into
 //     registers (the carry's lower neighbour is one more read of the same
@@ -54,19 +51,18 @@
 //     moves only its own rows.
 // The deferred-carry growth ~2^(18+k) over a group of k <= 4 stages
 // (fused.py:472-476) stays inside int32, as in the ladder.
-#include <cooperative_groups.h>
-
-#include "ladder_group.cuh"
-
-namespace cg = cooperative_groups;
+#include "cluster_rows.cuh"
 
 namespace {
 
 using mf::carry_of;
+using mf::neg_exp;
+using mf::red;
+using mf::Rows;
+using mf::row_pass;
 using mf::shift_of;
 
 constexpr int kOpFields = 8;
-constexpr int kMaxCluster = 8;
 // threads a CTA: 128 registers each hold one CTA an SM
 constexpr int kThreads = 512;
 
@@ -75,93 +71,16 @@ enum OpKind {
   OP_TAIL0, OP_TAIL1, OP_BFLY_INV, OP_OUT1
 };
 
-// One CTA's view of its column: its own rows [rank * rpc, (rank+1) * rpc)
-// in buf, the rest of the cluster's through row().
-struct Col {
-  int* buf;            // this CTA's rows, rpc rows of L digits
-  const int* in;       // the column's input rows (global)
-  const int* pe;       // the n2 cross exponents (shared)
-  int* ew;             // the current sub-transform's exponents u*w mod 2W
-  int* tab0;           // its ladder tables, this CTA's frame
-  int* tab1;
-  long long W2;        // 2W
-  int L, rpc, lg_rpc, rank, R;
-
-  // row q of the column, in this CTA or another of the cluster
-  __device__ __forceinline__ const int* row(int q) const {
-    const int rk = q >> lg_rpc;
-    int* p = buf + (q - (rk << lg_rpc)) * L;
-    return rk == rank ? p : cg::this_cluster().map_shared_rank(p, rk);
-  }
-  // every thread of the column's CTAs
-  __device__ __forceinline__ void sync_all() const {
-    if (R > 1)
-      cg::this_cluster().sync();
-    else
-      __syncthreads();
-  }
-};
-
-__device__ __forceinline__ int red(long long e, long long W2) {
-  e %= W2;
-  return static_cast<int>(e < 0 ? e + W2 : e);
-}
-
-__device__ __forceinline__ int neg_exp(int e, long long W2) {   // 2W - e mod 2W
-  return e ? static_cast<int>(W2) - e : 0;
-}
-
 template <int V, class G>
 __device__ __forceinline__ void digits(int (&o)[V], int i0, G g) {
 #pragma unroll
   for (int t = 0; t < V; ++t) o[t] = g(i0 + t);
 }
 
-// One pass over rows of this CTA in rounds of whole rows: slot s of a
-// round's T*P items is run s % (L/V) of row slot s / (L/V); map(slot) is
-// the local row, f(local row, i0, o) its new digits i0..i0+V-1 (false: the
-// row is not an output).  Reads go to registers, then CROSS ? the cluster :
-// the CTA syncs, then the writes.  Local passes round the rows per round
-// down to whole pairs (map puts a pair's rows in consecutive slots).
-// nrows: this CTA's slots; span: the slots that set the rounds (the same on
-// every CTA of a CROSS pass, which every CTA of the cluster calls).  No
-// barrier after the last round's writes.
-template <int V, int P, int T, bool CROSS, class Map, class F>
-__device__ __forceinline__ void row_pass(const Col& c, int nrows, int span, Map map, F f) {
-  const int ipp = c.L / V;
-  const int lg_ipp = mf::div_lg(ipp);
-  const unsigned mg_ipp = mf::div_magic(ipp);
-  int G = T * P / ipp;
-  if (!CROSS && G > 1) G &= ~1;
-  const int rounds = (span + G - 1) / G;
-  for (int r = 0; r < rounds; ++r) {
-    int o[P][V], at[P];
-#pragma unroll
-    for (int u = 0; u < P; ++u) {
-      const int s = u * T + static_cast<int>(threadIdx.x);
-      const int sl = mf::div_small(s, lg_ipp, mg_ipp);
-      const int slot = r * G + sl;
-      at[u] = -1;
-      if (sl < G && slot < nrows) {
-        const int i0 = (s - sl * ipp) * V;
-        const int ql = map(slot);
-        if (f(ql, i0, o[u])) at[u] = ql * c.L + i0;
-      }
-    }
-    if constexpr (CROSS)
-      cg::this_cluster().sync();
-    else
-      __syncthreads();
-#pragma unroll
-    for (int u = 0; u < P; ++u)
-      if (at[u] >= 0) mf::store_run<V>(c.buf + at[u], o[u]);
-  }
-}
-
 // An op whose outputs are rows [r0, r1), each from its own row and rows
 // that the op does not write: this CTA's share, CTA-local rounds.
 template <int V, int P, int T, class F>
-__device__ void single_op(const Col& c, int r0, int r1, F f) {
+__device__ void single_op(const Rows& c, int r0, int r1, F f) {
   const int first = c.rank * c.rpc;
   const int a = max(r0, first), b = min(r1, first + c.rpc);
   if (a >= b) return;
@@ -175,7 +94,7 @@ __device__ void single_op(const Col& c, int r0, int r1, F f) {
 // CTA (2n <= rpc) run there in local rounds of whole pairs; wider pairs
 // span two CTAs, each computing its own rows (every CTA takes part).
 template <int V, int P, int T, class F>
-__device__ void pair_op(const Col& c, int lo, int n, int ja, int jb, F f) {
+__device__ void pair_op(const Rows& c, int lo, int n, int ja, int jb, F f) {
   if (ja >= jb) return;
   const int first = c.rank * c.rpc;
   auto fn = [&](int ql, int i0, int (&o)[V]) {
@@ -193,114 +112,8 @@ __device__ void pair_op(const Col& c, int lo, int n, int ja, int jb, F f) {
   }
 }
 
-// Stage j of the sub-transform [lo, lo+C) whose pairs (m = C >> (j+1) rows
-// apart, m >= rpc) span two CTAs: each CTA's rows are all on one side.
-// Every CTA of the cluster calls it; it ends with the CTA in step.
 template <int V, int P, int T>
-__device__ void cross_stage(const Col& c, int lo, int C, int j, bool inverse) {
-  const int m = C >> (j + 1);
-  const int first = c.rank * c.rpc;
-  const bool mine = first >= lo && first < lo + C;
-  c.sync_all();                              // the partners' last writes
-  row_pass<V, P, T, true>(
-      c, mine ? c.rpc : 0, c.rpc, [](int s) { return s; },
-      [&](int ql, int i0, int (&o)[V]) {
-        const int q = first + ql, rel = q - lo;
-        const bool b_side = rel & m;
-        const int qa = b_side ? q - m : q;
-        const int* A = c.row(qa);
-        const int* B = c.row(qa + m);
-        const int e = c.ew[(rel & (m - 1)) << j];
-        if (!inverse) {
-          if (b_side) {
-            mf::twist<V, -1>(A, B, i0, e, c.L, o);
-          } else {
-            int a[V], b[V];
-            mf::load_run<V>(A + i0, a);
-            mf::load_run<V>(B + i0, b);
-#pragma unroll
-            for (int t = 0; t < V; ++t) o[t] = a[t] + b[t];
-          }
-        } else {
-          int a[V], u[V];
-          mf::twist<V, 0>(B, nullptr, i0, neg_exp(e, c.W2), c.L, u);
-          mf::load_run<V>(A + i0, a);
-#pragma unroll
-          for (int t = 0; t < V; ++t) o[t] = b_side ? a[t] - u[t] : a[t] + u[t];
-        }
-        return true;
-      });
-  __syncthreads();
-}
-
-// A whole sub-transform of rows [lo, lo+C) at root w: the ladder groups of
-// ops/fused.py ladder_groups (forward from stage 0 up, inverse from the top
-// group down), each group's stages then its carry; the table at its last /
-// first stage where use_pe.  This CTA's part: all of it where C <= rpc
-// (only lo's CTA works), else its own rows, the stages whose pairs cross
-// CTAs (j < xs) by cross_stage, the rest on the group routine.
-template <int V, int P, int T>
-__device__ void run_transform(const Col& c, int lo, int C, long long w, bool inverse,
-                              bool use_pe, int kmax) {
-  const int L = c.L;
-  int D = 0;
-  while ((1 << D) < C) ++D;
-  if (D == 0) {        // length 1: the table's shift alone
-    if (use_pe)
-      single_op<V, P, T>(c, lo, lo + 1, [&](int q, int i0, int (&o)[V]) {
-        mf::twist<V, 0>(c.row(q), nullptr, i0, inverse ? neg_exp(c.pe[q], c.W2) : c.pe[q], L, o);
-        return true;
-      });
-    return;
-  }
-  const int Kl = min(C, c.rpc);
-  int kl = 0;
-  while ((1 << kl) < Kl) ++kl;
-  const int xs = D - kl;                       // stages whose pairs cross CTAs
-  const int first = c.rank * c.rpc;
-  const int base = C <= c.rpc ? lo : first;    // this CTA's first row of the transform
-  const bool active = (base >> c.lg_rpc) == c.rank && base >= lo && base < lo + C;
-  const int half = C >> 1, halfl = Kl >> 1;
-  if (active) {
-    w %= c.W2;
-    for (int u = threadIdx.x; u < half; u += T) c.ew[u] = static_cast<int>(u * w % c.W2);
-  }
-  __syncthreads();
-  if (active) {
-    // local stage jl is stage jl + xs; local pair pl the pair pl + (base - lo)/2
-    const int poff = (base - lo) >> 1;
-    for (int t = threadIdx.x; t < kl * halfl; t += T) {
-      const int jl = t / halfl, pl = t - jl * halfl, j = jl + xs;
-      const int m = C >> (j + 1), p = pl + poff;
-      int s0 = 0, s1 = c.ew[(p & (m - 1)) << j];
-      if (use_pe && m == 1) {
-        s0 = c.pe[lo + 2 * p];
-        s1 = c.pe[lo + 2 * p + 1];
-      }
-      c.tab0[t] = inverse ? neg_exp(s0, c.W2) : s0;
-      c.tab1[t] = inverse ? neg_exp(s1, c.W2) : s1;
-    }
-  }
-  __syncthreads();
-  int* lbuf = c.buf + (base - first) * L;
-  for (int done = 0; done < D;) {
-    const int kg = min(kmax, D - done);
-    const int j0 = inverse ? D - done - kg : done;
-    const int l0 = max(j0, xs), x1 = min(j0 + kg, xs);
-    if (!inverse)
-      for (int j = j0; j < x1; ++j) cross_stage<V, P, T>(c, lo, C, j, false);
-    if (active && l0 < j0 + kg)
-      mf::ladder_group<V, P, T>(lbuf, Kl, kl, L, inverse, c.tab0, c.tab1, use_pe, l0 - xs,
-                                j0 + kg - l0);
-    if (inverse)
-      for (int j = x1 - 1; j >= j0; --j) cross_stage<V, P, T>(c, lo, C, j, true);
-    if (active) mf::carry_rows<V, P, T>(lbuf, Kl, L);
-    done += kg;
-  }
-}
-
-template <int V, int P, int T>
-__device__ void run_op(const Col& c, const long long* op, int kmax) {
+__device__ void run_op(const Rows& c, const long long* op, int kmax) {
   const int L = c.L;
   const long long W2 = c.W2;
   const int kind = static_cast<int>(op[0]), lo = static_cast<int>(op[1]);
@@ -310,7 +123,15 @@ __device__ void run_op(const Col& c, const long long* op, int kmax) {
   switch (kind) {
     case OP_FFT:
     case OP_IFFT:
-      run_transform<V, P, T>(c, lo, n, w, kind == OP_IFFT, use_pe, kmax);
+      if (n > 1) {
+        mf::run_transform<V, P, T>(c, lo, n, w, kind == OP_IFFT, use_pe, kmax);
+      } else if (use_pe) {    // length 1: the table's shift alone
+        single_op<V, P, T>(c, lo, lo + 1, [&](int q, int i0, int (&o)[V]) {
+          mf::twist<V, 0>(c.row(q), nullptr, i0,
+                          kind == OP_IFFT ? neg_exp(c.pe[q], W2) : c.pe[q], L, o);
+          return true;
+        });
+      }
       break;
     case OP_TOP_FWD:    // j < n: s = carry(a+b) (j < k), t = (a-b) z^j or a z^j
       pair_op<V, P, T>(c, lo, n, 0, n,
@@ -418,15 +239,9 @@ __device__ void run_op(const Col& c, const long long* op, int kmax) {
 }
 
 // The rows buffer, the n2 cross exponents, n2/2 exponents u*w and the two
-// ladder tables (log2(rpc) stages of rpc/2 pairs), ints.
-__host__ __device__ inline int tab_ints(int rpc) {
-  int lg = 0;
-  while ((1 << lg) < rpc) ++lg;
-  return (lg > 1 ? lg : 1) * (rpc > 2 ? rpc / 2 : 1);
-}
-
+// ladder tables, ints.
 size_t cols_smem_ints(int n2, int rpc, int L) {
-  return static_cast<size_t>(rpc) * L + n2 + (n2 > 2 ? n2 / 2 : 1) + 2 * tab_ints(rpc);
+  return static_cast<size_t>(rpc) * L + n2 + (n2 > 2 ? n2 / 2 : 1) + 2 * mf::rows_tab_ints(rpc);
 }
 
 template <int V, int P, int T = kThreads>
@@ -447,9 +262,9 @@ mfa_cols_kernel(const int* __restrict__ x, int* __restrict__ out,
   int* pe = buf + rpc * L;
   int* ew = pe + n2;
   int* tab0 = ew + (n2 > 2 ? n2 / 2 : 1);
-  int* tab1 = tab0 + tab_ints(rpc);
+  int* tab1 = tab0 + mf::rows_tab_ints(rpc);
   const long long W2 = 32LL * L;
-  const Col c{buf, x + base, pe, ew, tab0, tab1, W2, L, rpc, lg_rpc, rank, R};
+  const Rows c{buf, x + base, pe, ew, tab0, tab1, W2, L, rpc, lg_rpc, rank, R};
 
   // this CTA's rows, and the column's cross exponents
   const int* src = x + base + static_cast<long long>(rank) * rpc * L;
@@ -481,27 +296,11 @@ mfa_cols_kernel(const int* __restrict__ x, int* __restrict__ out,
 template <int V, int P>
 int launch(const void* x, void* out, const void* sched, int nops, long long B, int n2, int L,
            long long n1_mask, long long j1_off, long long wx, int kmax, int R, void* stream) {
-  const auto kernel = mfa_cols_kernel<V, P>;
   const size_t smem = sizeof(int) * cols_smem_ints(n2, n2 / R, L);
-  cudaError_t err = mf::prepare_group_kernel(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(B * R));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(R);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = R > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int*>(x), static_cast<int*>(out),
-                           static_cast<const long long*>(sched), nops, n2, L, n1_mask, j1_off, wx,
-                           kmax, R);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mf::launch_rows(
+      mfa_cols_kernel<V, P>, B, R, kThreads, smem, stream, static_cast<const int*>(x),
+      static_cast<int*>(out), static_cast<const long long*>(sched), nops, n2, L, n1_mask, j1_off,
+      wx, kmax, R));
 }
 
 }  // namespace
@@ -520,7 +319,7 @@ MF_EXPORT int mf_mfa_cols(const void* x, void* out, const void* sched, int nops,
                           int n2, int L, long long n1_mask, long long j1_off, long long wx,
                           int kmax, int R, void* stream) {
   if (n2 < 1 || (n2 & (n2 - 1)) || L < 1 || kmax < 1 || kmax > mf::kMaxLadderStages ||
-      nops < 0 || R < 1 || R > kMaxCluster || (R & (R - 1)) || n2 % R ||
+      nops < 0 || R < 1 || R > mf::kMaxCluster || (R & (R - 1)) || n2 % R ||
       (R > 1 && n2 / R < 2) || j1_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;

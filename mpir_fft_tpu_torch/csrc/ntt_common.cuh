@@ -1,4 +1,4 @@
-// Modular helpers of the NTT-CRT kernels (ntt_links.cu, ntt4.cu).  Every
+// Modular helpers of the NTT-CRT kernels (ntt_links.cu, ntt4.cu, ntt4_fused.cu).  Every
 // prime is a template argument, so each `%` is by a compile-time constant
 // (a multiply-high, no division).
 #pragma once

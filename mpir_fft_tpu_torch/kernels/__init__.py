@@ -148,8 +148,9 @@ _SIGNATURES = {
     # x, out, N, h, L, w, s (norm shift in [0, 2W), or -1), stream
     "mf_sqrt2_top_inv": (_P, _P, _LL, _LL, _I, _LL, _I, _P),
     # x, out, B, C, L, w, inverse, kmax, half (pre_half forward / post_half
-    # inverse on), its e0, its step (half-bit exponents), stream
-    "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _I, _LL, _LL, _P),
+    # inverse on), its e0, its step (half-bit exponents), R (the CTAs a
+    # row), stream
+    "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _I, _LL, _LL, _I, _P),
     # x, out (3 primes' planes), B, M, stream
     "mf_input_planes": (_P, _P, _LL, _I, _P),
     # sa, sb, out, B, M, prime index, stream

@@ -27,9 +27,11 @@ normmod; its canonical norm tail is identical).
 Blocking is Hopper's, not Mosaic's: a ladder CTA keeps K = 2^k ring
 elements of one h-position in one shared-memory buffer (K*L*4 bytes, the
 stages in place), so k is capped by that budget (LADDER_BUF_BYTES) and by
-the deferred-carry growth ~2^(18+k); a whole-transform CTA keeps a whole
-(C, L) row in one such buffer (WHOLE_BUF_BYTES) and runs the same stage
-routine on it."""
+the deferred-carry growth ~2^(18+k); the whole-row transform keeps a whole
+(C, L) row in one such buffer (to WHOLE_BUF_BYTES, several CTAs an SM) or,
+for the wider rows the reference fuses (to 512 KB), in one CTA of up to
+227 KB or a thread-block cluster of 2, 4 or 8 CTAs (whole_cluster), and
+runs the same stage routine on it."""
 
 from __future__ import annotations
 
@@ -225,17 +227,69 @@ def _steps_arg(steps) -> ctypes.Array:
 
 
 # ---------------------------------------------------------------------------
-# 2. whole transforms of small batch rows
+# 2. whole transforms of batch rows
 # ---------------------------------------------------------------------------
 
-# the one C*L-digit buffer a whole-transform CTA keeps its row in (the stages
-# run in place), as for the ladder: four such CTAs share an SM at (256, 48)
+# the rows the whole-row transform takes: every row the reference fuses
+# (mpir_fft_tpu/ops/fused.py MAX_FUSED_L :42, _padded_row_bytes /
+# whole_row_ok :83-94, MAX_FUSED_ROW_BYTES :89, as ops/transforms.py
+# _auto_fusable :50-62 applies them; the same numbers as the MFA columns'
+# rule below), and every row of at most WHOLE_BUF_BYTES -- one in-place
+# buffer of a CTA of the small layout, four of which share an SM at (256, 48)
+WHOLE_MAX_FUSED_L = 1024
+WHOLE_MAX_ROW_BYTES = 512 * 1024
 WHOLE_BUF_BYTES = 64 * 1024
+# a wide row's CTA: Hopper's opt-in dynamic shared memory a block, and the
+# cluster sizes that hold a wide row (8 is the portable maximum)
+WHOLE_CTA_SMEM = 227 * 1024
+WHOLE_CLUSTERS = (1, 2, 4, 8)
+
+
+def _padded_row_bytes(C: int, L: int) -> int:
+    """The reference's padded block of a (C, L) int32 row: C up to a
+    multiple of 8 rows, L to one of 128 lanes."""
+    return -(-C // 8) * 8 * (-(-L // 128) * 128) * 4
 
 
 def whole_fits(C: int, L: int) -> bool:
-    """Does one (C, L) row fit a whole-transform CTA's buffer?"""
-    return C * L * 4 <= WHOLE_BUF_BYTES
+    """Does the whole-row transform take a (C, L) row: the reference's rule
+    (L <= 1024 and a padded row within 512 KB) or a row of at most
+    WHOLE_BUF_BYTES (the small layout: the recursive mulmod's inner rings
+    at any L)."""
+    return C * L * 4 <= WHOLE_BUF_BYTES or (
+        L <= WHOLE_MAX_FUSED_L and _padded_row_bytes(C, L) <= WHOLE_MAX_ROW_BYTES)
+
+
+def whole_smem_bytes(C: int, R: int, L: int) -> int:
+    """Dynamic shared memory of one wide-row CTA holding C / R rows of a
+    (C, L) row (csrc/transform_small.cu wide_smem_bytes): the rows, the C/2
+    exponents u*w mod 2W, two ladder tables of log2(C/R) stages of C/(2R)
+    pairs, the rows' half-bit exponents."""
+    rpc = C // R
+    tab = max(rpc.bit_length() - 1, 1) * (rpc // 2 if rpc > 2 else 1)
+    return 4 * (rpc * L + C // 2 + 2 * tab + rpc)
+
+
+def whole_cluster(B: int, C: int, L: int, sms: int) -> int:
+    """The CTAs that hold one (C, L) row that whole_fits admits, in a batch
+    of B rows on a card of sms SMs: 1 for a row of at most WHOLE_BUF_BYTES
+    (the small layout); else the fewest of WHOLE_CLUSTERS whose CTA
+    (whole_smem_bytes) fits WHOLE_CTA_SMEM, doubled while the batch's B * R
+    CTAs would fill at most half the card, up to 8 (a wide row is one CTA an
+    SM, so a small batch otherwise leaves most SMs idle).  A wide row has
+    C >= 32, so each R divides it into at least 4 rows a CTA."""
+    if C * L * 4 <= WHOLE_BUF_BYTES:
+        return 1
+    ok = [R for R in WHOLE_CLUSTERS if whole_smem_bytes(C, R, L) <= WHOLE_CTA_SMEM]
+    R = ok[0]
+    while 2 * R in ok and 2 * B * R <= sms:
+        R *= 2
+    return R
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def transform_plain(kind: str, x: torch.Tensor, w: int, W: int, pre_half: tuple | None = None,
@@ -261,7 +315,9 @@ def fused_transform(kind: str, x: torch.Tensor, w: int, W: int, pre_half: tuple 
                     post_half: tuple | None = None) -> torch.Tensor:
     """The whole radix-2 transform (fft_radix2 for 'fwd', ifft_radix2 for
     'inv', root 2^w) of every (C, L) row of x (B, C, L) in one launch, the
-    row resident in shared memory.  pre_half = (e0, step2), 'fwd' only:
+    row resident in the shared memory of one CTA or of a thread-block
+    cluster of R = whole_cluster(B, C, L, the card's SMs) CTAs; the rows
+    whole_fits admits, else ValueError.  pre_half = (e0, step2), 'fwd' only:
     row j is first multiplied by 2^((e0 + j*step2)/2) (half-bit exponents);
     post_half, 'inv' only: the output row j is multiplied so -- the
     negacyclic weights (ops/negacyclic.py) in the same launch.  Output:
@@ -279,14 +335,24 @@ def fused_transform(kind: str, x: torch.Tensor, w: int, W: int, pre_half: tuple 
     if x.device.type == "cpu":
         return transform_plain(kind, x, w, W, pre_half, post_half)
     if not whole_fits(C, L):
-        raise ValueError(f"transform_small: a ({C}, {L}) row exceeds the shared-memory block")
-    half = pre_half if kind == "fwd" else post_half
+        raise ValueError(f"transform_small: the whole-row transform does not take a ({C}, {L}) "
+                         "row (whole_fits)")
+    R = whole_cluster(B, C, L, _sm_count(x.device.index))
+    return _launch_transform(kind, x, w, W, pre_half if kind == "fwd" else post_half, R)
+
+
+def _launch_transform(kind: str, x: torch.Tensor, w: int, W: int, half: tuple | None,
+                      R: int) -> torch.Tensor:
+    """One launch of csrc/transform_small.cu on the checked (B, C, L) CUDA
+    tensor x, R CTAs a row (whole_cluster's choice; utils/transform_bench
+    passes others to measure it)."""
+    B, C, L = x.shape
     e0, st2 = (0, 0) if half is None else (int(v) for v in half)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = kernels.lib().mf_transform_small(
             x.data_ptr(), out.data_ptr(), B, C, L, int(w), int(kind == "inv"),
-            ladder_stages(L), int(half is not None), e0, st2, kernels.stream_of(x))
+            ladder_stages(L), int(half is not None), e0, st2, R, kernels.stream_of(x))
     kernels.check(rc, "transform_small")
     kernels.LAUNCHES["transform_small" if half is None else "transform_small_half"] += 1
     return out
@@ -521,21 +587,11 @@ def fused_sqrt2_top_inv(x: torch.Tensor, w: int, W: int, norm_div: int = 0) -> t
 # 6. MFA column transforms with their cross twiddles
 # ---------------------------------------------------------------------------
 
-# which columns the column kernel takes: the reference's rule (copied from
-# mpir_fft_tpu/ops/fused.py MAX_FUSED_L :42, _padded_row_bytes / whole_row_ok
-# :83-94, MAX_FUSED_ROW_BYTES :89, and ops/mfa.py _run_cols :131-133)
-MFA_MAX_FUSED_L = 1024
-MFA_MAX_FULL_COL_BYTES = 512 * 1024
+# which columns the column kernel takes: the reference's rule (section 2's
+# numbers, as ops/mfa.py _run_cols :131-133 applies them to a full column);
 # the rows one CTA of the column kernel holds (the rest of its 227 KB block
-# is tables); a wider column takes a cluster of MFA_COL_CLUSTERS CTAs
+# is tables); a wider column takes a cluster of WHOLE_CLUSTERS CTAs
 MFA_COL_CTA_BYTES = 192 * 1024
-MFA_COL_CLUSTERS = (1, 2, 4, 8)
-
-
-def _padded_col_bytes(n2: int, L: int) -> int:
-    """The reference's padded block of an (n2, L) int32 column: n2 up to a
-    multiple of 8 rows, L to one of 128 lanes."""
-    return -(-n2 // 8) * 8 * (-(-L // 128) * 128) * 4
 
 
 def mfa_col_fits(n2: int, L: int, full: bool) -> bool:
@@ -544,7 +600,8 @@ def mfa_col_fits(n2: int, L: int, full: bool) -> bool:
     padded block is at most 512 KB.  The rest -- full columns past 512 KB,
     every column at L 2048 -- takes the truncate.py recursion on the ladder,
     in both packages."""
-    return L <= MFA_MAX_FUSED_L and (not full or _padded_col_bytes(n2, L) <= MFA_MAX_FULL_COL_BYTES)
+    return L <= WHOLE_MAX_FUSED_L and (
+        not full or _padded_row_bytes(n2, L) <= WHOLE_MAX_ROW_BYTES)
 
 
 def mfa_col_cluster(n2: int, L: int) -> int | None:
@@ -555,7 +612,7 @@ def mfa_col_cluster(n2: int, L: int) -> int | None:
     most (256, 1024), 1 MB, R 8.  The truncated columns of more than 1.5 MB
     that the reference's rule fuses but no plan gives take the truncate.py
     recursion (mfa._run_cols)."""
-    for R in MFA_COL_CLUSTERS:
+    for R in WHOLE_CLUSTERS:
         if n2 % R == 0 and (R == 1 or n2 // R >= 2) and (n2 // R) * L * 4 <= MFA_COL_CTA_BYTES:
             return R
     return None
@@ -718,7 +775,7 @@ def _launch_cols(counter: str, kind: str, x: torch.Tensor, w: int, n1: int, trun
     R = mfa_col_cluster(n2, L)
     if R is None:
         raise ValueError(f"{counter}: an ({n2}, {L}) column exceeds a cluster of "
-                         f"{MFA_COL_CLUSTERS[-1]} CTAs")
+                         f"{WHOLE_CLUSTERS[-1]} CTAs")
     sched = _schedule_on((kind, n2, w * n1, trunc2, bool(no_zero_tail)), x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

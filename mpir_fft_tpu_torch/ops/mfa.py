@@ -19,8 +19,10 @@ The passes on the card:
     (mfa_col_cluster), else the truncate.py recursion with
     the cross table on the ladder (its `pe` option), as the reference does
     (mfa.py:131-142);
-  * rows: fft_radix2 / ifft_radix2 at root w*n2 -- the whole-transform
-    kernel when an (n1, L) row fits (whole_fits), the ladder otherwise.
+  * rows: fft_radix2 / ifft_radix2 at root w*n2 -- the whole-row
+    transform for every (n1, L) row the reference fuses and every row of at
+    most 64 KB (whole_fits: the 6.3x10^7 x 5x10^6 plan's (128, 512) rows
+    on clusters of CTAs), the ladder otherwise.
 
 The staged flagship's pieces (ref mfa.py:197-263, :337-387): `ifft_mfa_rows`
 runs just the row-IFFT leg on chunks of whole rows, and `rows_done=True`

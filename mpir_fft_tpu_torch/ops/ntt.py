@@ -34,10 +34,10 @@ constants) is a copy of the reference's.  The device part is plain torch on
 int32 / int64 tensors with exact integer reduction (the reference's
 f32-Barrett reductions are a TPU workaround for slow integer division); the
 links between the GEMMs run as hand-written kernels -- csrc/ntt_links.cu
-(input_planes, mid_planes, garner_carry, garner_residues) and csrc/ntt4.cu
+(input_planes, mid_planes, garner_carry, garner_residues), csrc/ntt4.cu
 (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise, ntt4_inv_twiddle,
-ntt4_residues, and ntt4_fused, the whole 4-step pipeline per row under
-MPIR_FFT_NTT_FUSED=1) -- wrapped here beside their plain versions.  The
+ntt4_residues) and csrc/ntt4_fused.cu (ntt4_fused, the whole 4-step
+pipeline per row under MPIR_FFT_NTT_FUSED=1) -- wrapped here beside their plain versions.  The
 GEMMs themselves are torch._int_mm (the reference leaves them to XLA,
 outside any kernel)."""
 
@@ -274,7 +274,7 @@ def _ntt4_blocks(M: int, device: torch.device) -> tuple[Ntt4Prime, ...]:
                  for m in _ntt4_mats(M))
 
 
-# The fused kernel's operand layout (csrc/ntt4.cu): wgmma's 192-column N
+# The fused kernel's operand layout (csrc/ntt4_fused.cuh): wgmma's 192-column N
 # tile, and the fragment that holds an accumulator element
 FUSED_TILE_N = 192
 
@@ -282,7 +282,7 @@ FUSED_TILE_N = 192
 def _fused_tile(blk: np.ndarray) -> np.ndarray:
     """A [K, 192] int8 tile as the kernel's wgmma B operand: byte (q, n) at
     (q // 16) * 3072 + (n // 8) * 128 + (n % 8) * 16 + q % 16 -- 16-byte
-    K slabs of 24 core matrices (8 columns x 16 K bytes), csrc/ntt4.cu
+    K slabs of 24 core matrices (8 columns x 16 K bytes), csrc/ntt4_fused.cuh
     core_off<192>."""
     K = blk.shape[0]
     tile = blk.T.reshape(FUSED_TILE_N // 8, 8, K // 16, 16).transpose(2, 0, 1, 3)

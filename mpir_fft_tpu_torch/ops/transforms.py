@@ -2,15 +2,18 @@
 mpir_fft_tpu/ops/transforms.py).
 
 A transform of length C = x.shape[-2] takes one of two kernel routes:
-  * a batch of transforms (x.ndim >= 3) whose (C, L) row fits a
-    shared-memory block (ops/fused.py whole_fits) runs whole, one launch of
-    the whole-transform kernel (fused_transform) -- the reference's
-    `_auto_fusable` rule (transforms.py:50-62) with Hopper's limit: the
-    row in one in-place buffer of at most 64 KB (WHOLE_BUF_BYTES; four
-    such blocks share an SM), not Mosaic's L <= 1024 and 512 KB padded-row
-    cap.  This serves the recursive mulmod's inner negacyclic transforms
-    ((256, 32), (256, 48), (256, 64), (128, 72) rows at 10^8..1.6x10^9
-    bits) and small multiplies;
+  * a batch of transforms (x.ndim >= 3) whose (C, L) row the whole-row
+    transform takes (ops/fused.py whole_fits) runs whole, one launch of it
+    (fused_transform): the reference's `_auto_fusable` rule
+    (transforms.py:50-62: L <= 1024 and a padded row within 512 KB) and any
+    row of at most 64 KB (WHOLE_BUF_BYTES).  A row of at most 64 KB is one
+    CTA, four of which share an SM (the recursive mulmod's inner negacyclic
+    transforms, (256, 32), (256, 48), (256, 64), (128, 72) rows at
+    10^8..1.6x10^9 bits); a wider one (64-512 KB: the flat pair of
+    `mul` / `sqr` at about 1.2-8x10^5 bits, the MFA rows at L 512 / 1024)
+    one CTA of up to 227 KB or a thread-block cluster of 2, 4 or 8 CTAs
+    (ops/fused.py whole_cluster: the fewest CTAs that hold the row,
+    doubled while the batch would fill at most half the card's SMs);
   * everything else (the MB-sized outer flagship rows) runs as consecutive
     butterfly-ladder groups: each group of kg <= ladder_stages(L) stages is
     one pass over the whole [..., C, L] array, exactly the grouping of the
@@ -73,6 +76,18 @@ def _run(x: torch.Tensor, w: int, W: int, kind: str, pe=None, pre_half=None,
     if whole:
         return fused_transform(kind, x.reshape(-1, C, L).contiguous(), w, W, pre_half,
                                post_half).reshape(shape)
+    return ladder_transform(x, w, W, kind, pe, pre_half, skip_inner, post_half)
+
+
+def ladder_transform(x: torch.Tensor, w: int, W: int, kind: str, pe=None, pre_half=None,
+                     skip_inner: int = 0, post_half=None) -> torch.Tensor:
+    """The ladder route of _run for any x: one fused_butterfly_ladder launch
+    per ladder group (the table on the group ending at the last stage, the
+    forward weights in the first), a twiddle_half pass for a length-1
+    transform's pre_half and after the inverse for post_half."""
+    C, L = x.shape[-2], x.shape[-1]
+    D = C.bit_length() - 1
+    shape = x.shape
     x = x.contiguous()
     if pre_half is not None and D == 0:
         x = fused_twiddle_half(x, *pre_half, W)

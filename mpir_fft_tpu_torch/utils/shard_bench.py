@@ -92,7 +92,8 @@ def _runs(ctx, spec, seed: int):
 
 def rank_phase(ctx, specs, seed: int, primes, full_bits: int) -> dict:
     """Every spec's products on this rank: {label: {plan, name: {residues,
-    digits (rank 0, at up to full_bits), device_ms, exchanges, peak_gib}}},
+    digits (rank 0, at up to full_bits), launches (the checked run's, per
+    kernel), device_ms, exchanges, peak_gib}}},
     "launches" (the phase's, per kernel), "ladder" (rank 0: the in-core
     routes' launch shapes, tables as numpy arrays: a process's tensors do not
     outlive it), "transport", "backend", "rank"."""
@@ -105,6 +106,7 @@ def rank_phase(ctx, specs, seed: int, primes, full_bits: int) -> dict:
         rec = out[label] = {"plan": (plan.depth, plan.w, plan.W // DIGIT_BITS, plan.conv_len,
                                      plan.trunc_mfa, plan.n1)}
         for name, fn in runs:
+            before = dict(kernels.LAUNCHES)
             if ctx.rank == 0 and route != "huge":
                 with ladder_calls() as calls:
                     got = tensor_to_digits(fn())
@@ -115,7 +117,8 @@ def rank_phase(ctx, specs, seed: int, primes, full_bits: int) -> dict:
             else:
                 got = tensor_to_digits(fn())
             rows = got.reshape(-1, got.shape[-1])
-            r = rec[name] = {"residues": [residues(row, primes) for row in rows]}
+            r = rec[name] = {"residues": [residues(row, primes) for row in rows],
+                             "launches": {k: n - before[k] for k, n in kernels.LAUNCHES.items()}}
             if ctx.rank == 0 and max(ba, bb) <= full_bits:
                 r["digits"] = got
             del got, rows

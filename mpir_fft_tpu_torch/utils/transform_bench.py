@@ -12,6 +12,13 @@ Whole-row transforms, (B, C, L, w) with B the rows of one launch:
     rings, inner m 256);
   * (8192, 256, 32, 4) and (65536, 128, 72, 18): the inner transforms of the
     MPIR_FFT_NTT=0 plans at 10^8 and 10^9 bits;
+  * wide rows (64-512 KB: one CTA of up to 227 KB or a cluster of 2, 4 or
+    8): (2, 512, 80), (2, 1024, 64), (2, 1024, 128), (4, 1024, 96), the flat
+    pair of mul at 1.5-3x10^5, 2x10^5, 5x10^5 and 7x10^5 bits; (256, 128,
+    512), the 6.3x10^7 x 5x10^6 plan's MFA rows; (4, 128, 1024), a rank's
+    rows of the sharded 10^8-bit product -- each also on the ladder route
+    (raw digits identical, timed interleaved with the kernel: ab_ms) and its
+    plain forward at every cluster size that holds it (R_ms);
 each forward and inverse, plain (fused_transform) and weighted (the
 negacyclic transforms of ops/negacyclic.py, the route mulmod_fft takes, so
 that the script times any tree of the package alike: one launch where the
@@ -90,12 +97,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 
 import torch
 
 from mpir_fft_tpu_torch import kernels
-from mpir_fft_tpu_torch.ops import fused, mfa, negacyclic
+from mpir_fft_tpu_torch.ops import fused, mfa, negacyclic, transforms
 from mpir_fft_tpu_torch.ops.truncate import truncated
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, negacyclic_conv_chunks
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
@@ -103,7 +111,12 @@ from mpir_fft_tpu_torch.utils.profile import FP64_FMA_PER_S, INT32_OPS_PER_S, _e
 
 SEED = 20261016
 
-WHOLE_SHAPES = ((6528, 256, 48, 6), (5376, 256, 64, 8), (8192, 256, 32, 4), (65536, 128, 72, 18))
+WHOLE_SHAPES = ((6528, 256, 48, 6), (5376, 256, 64, 8), (8192, 256, 32, 4), (65536, 128, 72, 18),
+                # wide rows (64-512 KB), root 2^(2W/C): the flat pair of mul at 1.5-3x10^5,
+                # 2x10^5, 5x10^5 and 7x10^5 bits, the 6.3x10^7 x 5x10^6 plan's MFA rows, a
+                # rank's rows of the sharded 10^8-bit product
+                (2, 512, 80, 5), (2, 1024, 64, 2), (2, 1024, 128, 4), (4, 1024, 96, 3),
+                (256, 128, 512, 128), (4, 128, 1024, 256))
 NORMMOD_SHAPES = ((6528 * 256, 48, 8), (6528, 5120, 0), (5376 * 256, 64, 8), (5376, 6144, 0),
                   (65536, 6144, 16), (8192 * 256, 32, 8), (8192, 3072, 0),
                   (8192 * 128, 72, 7), (8192, 4096, 0))
@@ -176,34 +189,73 @@ def _record(rec: dict, ops_per_s: float = INT32_OPS_PER_S) -> dict:
     return dict(rec, bound_ms=b, bound_by=by, share=b / rec["ms"])
 
 
+def ab_ms(fa, fb, reps: int, warm: bool = True) -> tuple[float, float]:
+    """Median device ms of fa() and fb(), interleaved a, b, b, a in each of
+    reps rounds after one warm-up each (CUDA events; warm=False where the
+    caller has just run both)."""
+    if warm:
+        fa()
+        fb()
+    ta, tb = [], []
+    for _ in range(reps):
+        for fn, acc in ((fa, ta), (fb, tb), (fb, tb), (fa, ta)):
+            acc.append(_once_ms(fn)[1])
+    return statistics.median(ta), statistics.median(tb)
+
+
 def measure_whole(B: int, C: int, L: int, w: int, rand, reps: int) -> list[dict]:
     """The four launches of one (B, C, L) shape at root 2^w: fwd and inv,
     plain and weighted (name transform_small / transform_small_half), each
-    held against its plain version (raw digits), then timed."""
+    held against its plain version (raw digits), then timed.  A wide row
+    (past 64 KB: a CTA of its own or a cluster, R CTAs a row) is also run on
+    the ladder route (ops/transforms.py ladder_transform, the route such a
+    row took before the whole-row transform held it), raw digits identical,
+    the two timed
+    interleaved (ms, ab_ms); its plain forward also at every cluster size
+    that holds the row (R_ms, whole_cluster's pick among them)."""
     W = 16 * L
     D = C.bit_length() - 1
     x = rand((B, C, L), -(1 << 17), 1 << 17)
+    wide = C * L * 4 > fused.WHOLE_BUF_BYTES
+
+    def on_ladder(kind, **half):
+        return transforms.ladder_transform(x, w, W, kind, **half)
+
     runs = (
         ("transform_small", "fwd", lambda: fused.fused_transform("fwd", x, w, W),
-         lambda: fused.transform_plain("fwd", x, w, W)),
+         lambda: fused.transform_plain("fwd", x, w, W), lambda: on_ladder("fwd")),
         ("transform_small", "inv", lambda: fused.fused_transform("inv", x, w, W),
-         lambda: fused.transform_plain("inv", x, w, W)),
+         lambda: fused.transform_plain("inv", x, w, W), lambda: on_ladder("inv")),
         ("transform_small_half", "fwd", lambda: negacyclic.fft_negacyclic(x, w, W),
-         lambda: fused.transform_plain("fwd", _half_plain(x, 0, w, W), w, W)),
+         lambda: fused.transform_plain("fwd", _half_plain(x, 0, w, W), w, W),
+         lambda: on_ladder("fwd", pre_half=(0, w))),
         ("transform_small_half", "inv", lambda: negacyclic.ifft_negacyclic(x, w, W),
-         lambda: _half_plain(fused.transform_plain("inv", x, w, W), 0, -w, W)),
+         lambda: _half_plain(fused.transform_plain("inv", x, w, W), 0, -w, W),
+         lambda: on_ladder("inv", post_half=(0, -w))),
     )
     out = []
-    for name, kind, fn, plain in runs:
+    for name, kind, fn, plain, ladder in runs:
         got = fn()
         want, pms = _once_ms(plain)
         assert torch.equal(got, want), (name, kind, (B, C, L), "raw digits differ")
+        rec = dict(name=name, kind=kind, shape=[B, C, L], w=w)
+        if wide:
+            assert torch.equal(ladder(), want), (name, kind, (B, C, L), "ladder route differs")
+            rec["R"] = fused.whole_cluster(B, C, L, fused._sm_count(x.device.index))
         del got, want
         torch.cuda.empty_cache()
-        ms = _events_ms(fn, reps + 1)
+        if wide:
+            ms, rec["ab_ms"] = ab_ms(fn, ladder, reps)
+        else:
+            ms = _events_ms(fn, reps + 1)
+        if wide and name == "transform_small" and kind == "fwd":
+            rec["R_ms"] = {R: _events_ms(lambda: fused._launch_transform("fwd", x, w, W, None, R),
+                                         reps + 1)
+                           for R in fused.WHOLE_CLUSTERS
+                           if fused.whole_smem_bytes(C, R, L) <= fused.WHOLE_CTA_SMEM}
         out.append(_record(dict(
-            name=name, kind=kind, shape=[B, C, L], w=w, ms=ms, plain_ms=pms,
-            nbytes=8 * x.numel(), ops=(D + (2 if name.endswith("half") else 0)) * x.numel())))
+            rec, ms=ms, plain_ms=pms, nbytes=8 * x.numel(),
+            ops=(D + (2 if name.endswith("half") else 0)) * x.numel())))
     return out
 
 

@@ -21,6 +21,7 @@ from mpir_fft_tpu_torch.models.mul import (DRIVERS, _staged_flagship, flagship_i
                                            sqr)
 from mpir_fft_tpu_torch.ops.fused import (
     _affine_half_exps,
+    _launch_transform,
     CANON_ROW_MAX,
     CANON_TILE,
     canonicalize_plain_torch,
@@ -47,6 +48,7 @@ from mpir_fft_tpu_torch.ops.fused import (
     sqrt2_top_inv_plain,
     transform_plain,
     twiddle_half_rows_plain,
+    whole_cluster,
 )
 from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
 from mpir_fft_tpu_torch.ops.ntt import (
@@ -559,11 +561,17 @@ def test_sqrt2_top_inv_edge_rows(dev, L, nd):
 @pytest.mark.parametrize("B,C,L,w", [
     (3, 32, 16, 1), (5, 256, 32, 4), (2, 128, 72, 18), (4, 64, 84, 42), (3, 8, 71, 3),
     (7, 256, 48, 6), (5, 256, 64, 8), (3, 2, 8192, 5),
+    # wide rows, R CTAs a row by whole_cluster's rule: the flat pair at 3x10^5
+    # and 5x10^5 bits, a batch large enough for one CTA a row, the MFA rows
+    # of 6.3x10^7 x 5x10^6 bits, a rank's sharded 10^8 rows, one-digit runs
+    (2, 512, 80, 5), (80, 512, 80, 5), (2, 1024, 128, 4), (12, 128, 512, 128),
+    (4, 128, 1024, 256), (2, 512, 81, 5),
 ])
 def test_transform_small_matches_plain(dev, kind, B, C, L, w, half):
     """Raw digits identical to the plain version, without and with the
     half-bit option (pre_half forward, post_half inverse; the exponents
-    (e0, step * w), odd ones at e0 5)."""
+    (e0, step * w), odd ones at e0 5), on rows of at most 64 KB and on wide
+    rows (64-512 KB) at the cluster size whole_cluster picks."""
     rng = np.random.default_rng(7)
     W = 16 * L
     x = _rand(rng, (B, C, L), -(1 << 17), 1 << 17, dev)
@@ -574,6 +582,56 @@ def test_transform_small_matches_plain(dev, kind, B, C, L, w, half):
     want = transform_plain(kind, x.cpu(), w, W, pre, post)
     assert torch.equal(got.cpu(), want)
     assert int(got.abs().max()) < 1 << 17
+
+
+@pytest.mark.parametrize("half", [None, (5, -3)])
+@pytest.mark.parametrize("kind", ["fwd", "inv"])
+@pytest.mark.parametrize("B,C,L,w,R", [
+    (2, 512, 80, 5, 1), (2, 512, 80, 5, 8), (2, 1024, 64, 2, 2), (1, 1024, 128, 4, 4),
+    (2, 1024, 128, 4, 8), (3, 128, 512, 128, 2), (2, 1024, 96, 3, 2), (2, 512, 81, 5, 1),
+    (2, 512, 81, 5, 4), (2, 16, 64, 64, 2),
+])
+def test_transform_wide_clusters_match_plain(dev, kind, B, C, L, w, R, half):
+    """Every layout of the wide rows at a forced cluster size: one CTA of
+    up to 227 KB (R 1), clusters of 2, 4 and 8 CTAs, one-digit runs (L 81),
+    and a 64 KB row spread over a cluster: raw digits identical to the plain
+    version, with and without the half-bit option."""
+    rng = np.random.default_rng(20)
+    W = 16 * L
+    x = _rand(rng, (B, C, L), -(1 << 17), 1 << 17, dev)
+    opt = None if half is None else (half[0], half[1] * w)
+    pre, post = (opt, None) if kind == "fwd" else (None, opt)
+    name = "transform_small" if half is None else "transform_small_half"
+    got = _launched(name, lambda: _launch_transform(kind, x, w, W, opt, R))
+    assert torch.equal(got.cpu(), transform_plain(kind, x.cpu(), w, W, pre, post))
+
+
+def test_transform_wide_rejects(dev):
+    """No quiet fallback: a cluster size the kernel does not take, or a
+    block past the card's shared memory, fails with the launch's error."""
+    x = torch.zeros((2, 1024, 128), dtype=torch.int32, device=dev)
+    for R in (3, 16):
+        with pytest.raises(RuntimeError, match="transform_small"):
+            _launch_transform("fwd", x, 4, 2048, None, R)
+    with pytest.raises(RuntimeError, match="transform_small"):
+        _launch_transform("fwd", x, 4, 2048, None, 1)      # a 512 KB row in one CTA
+    assert whole_cluster(2, 1024, 128, 132) in (4, 8)
+
+
+@pytest.mark.parametrize("bits", [300_000, 500_000, 700_000])
+def test_mul_wide_rows_on_gpu(dev, bits):
+    """mul / sqr at 3x10^5, 5x10^5 and 7x10^5 bits, exact: the flat pair's
+    batched transforms (rows of 160-512 KB) take the whole-row transform;
+    at odd w (3x10^5, 7x10^5) no ladder launch remains."""
+    rnd = random.Random(bits)
+    a = rnd.getrandbits(bits) | (1 << (bits - 1))
+    b = rnd.getrandbits(bits) | (1 << (bits - 1))
+    kernels.reset_launches()
+    assert mul(a, b, device=dev) == a * b
+    assert sqr(a, device=dev) == a * a
+    assert kernels.LAUNCHES["transform_small"] > 0
+    if bits != 500_000:
+        assert kernels.LAUNCHES["ladder"] == 0
 
 
 @pytest.mark.parametrize("bits_a,bits_b", [(12000, 12000), (16000, 16000), (12000, 5000),
@@ -1139,9 +1197,10 @@ def test_sharded_full_columns_match_plain(dev, kind, n1, m2, L, v, off, cols):
 @pytest.mark.parametrize("kind", ["fwd", "inv"])
 @pytest.mark.parametrize("P,n1,L,row_w", [(4, 128, 1024, 256), (2, 256, 2048, 256)])
 def test_sharded_rows_match_plain(dev, kind, P, n1, L, row_w):
-    """A rank's MFA rows at 10^8 ((128, 1024), root 2^256) and 10^9 ((256,
-    2048), root 2^256), on the ladder: raw digits identical to the plain
-    run."""
+    """A rank's MFA rows at 10^8 ((128, 1024), root 2^256: 512 KB rows,
+    which the reference fuses, on the whole-row transform) and 10^9 ((256,
+    2048), root 2^256: L 2048, on the ladder): raw digits identical to the
+    plain run."""
     from mpir_fft_tpu_torch.ops.transforms import fft_radix2, ifft_radix2
 
     fn = fft_radix2 if kind == "fwd" else ifft_radix2
@@ -1149,7 +1208,10 @@ def test_sharded_rows_match_plain(dev, kind, P, n1, L, row_w):
     kernels.reset_launches()
     got = fn(x, row_w, 16 * L)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ladder"] > 0 and kernels.LAUNCHES["transform_small"] == 0
+    if L <= 1024:
+        assert kernels.LAUNCHES["transform_small"] == 1 and kernels.LAUNCHES["ladder"] == 0
+    else:
+        assert kernels.LAUNCHES["ladder"] > 0 and kernels.LAUNCHES["transform_small"] == 0
     assert torch.equal(got.cpu(), fn(x.cpu(), row_w, 16 * L))
 
 

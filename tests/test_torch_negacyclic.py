@@ -6,7 +6,8 @@ Raw digits of the weighted whole-row transform against the two-launch plain
 sequence it replaces, at the main path's inner-ring rows; the negacyclic
 transforms against the old weighting (a twiddle_half pass beside the
 transform); which wrappers each route calls; and whole_fits' admitted rows
-over the planner's plans.  Exact: integer arithmetic."""
+over the planner's plans against the reference's rule.  Exact: integer
+arithmetic."""
 
 import numpy as np
 import pytest
@@ -110,18 +111,17 @@ def test_negacyclic_routes(rng, monkeypatch):
     assert calls == [("fused_butterfly_ladder", None)] * groups + [("fused_twiddle_half", (0, -w))]
 
 
-def _old_whole_fits(C, L):
-    """The parent's rule: a ping-pong pair of (C, L) rows within 128 KB."""
-    return 2 * C * L * 4 <= 128 * 1024
-
-
 @pytest.mark.parametrize("ntt", [None, "0"])
-def test_whole_fits_admits_the_same_rows(ntt, monkeypatch):
-    """whole_fits, rewritten for the one in-place buffer, admits exactly
-    the rows it admitted before, at every whole-route candidate row of every
-    plan the planner picks from 10^5 to 2x10^9 bits (balanced and 3:1): the
-    recursive pointwise's inner rings, the MFA rows and columns, the flat
-    transforms."""
+def test_whole_fits_admits_the_reference_rows(ntt, monkeypatch):
+    """whole_fits admits every (C, L) row the reference's whole-transform
+    rule admits (mpir_fft_tpu/ops/fused.py whole_row_ok and MAX_FUSED_L, as
+    ops/transforms.py _auto_fusable applies them) -- every candidate row of
+    every plan the planner picks from 10^5 to 2x10^9 bits (balanced and
+    3:1): the recursive pointwise's inner rings, the MFA rows and columns,
+    the flat transforms -- and every row of at most 64 KB; a cluster of at
+    most 8 CTAs holds each admitted row at any batch; (8192, 128) stays out."""
+    from mpir_fft_tpu.ops import fused as jfused
+
     if ntt is None:
         monkeypatch.delenv("MPIR_FFT_NTT", raising=False)
     else:
@@ -136,9 +136,19 @@ def test_whole_fits_admits_the_same_rows(ntt, monkeypatch):
             while inner is not None:
                 rows.add((inner.m, inner.Lp))
                 inner = inner_plan(inner.Wp)
-    rows |= {(256, 32), (128, 72), (256, 48), (256, 64), (64, 256), (8192, 128)}
+    rows |= {(256, 32), (128, 72), (256, 48), (256, 64), (64, 256), (8192, 128), (512, 80),
+             (1024, 64), (1024, 128), (1024, 96), (128, 512), (128, 1024), (1024, 129)}
     for C, L in rows:
-        assert tfused.whole_fits(C, L) == _old_whole_fits(C, L), (C, L)
-    for C, L in ((256, 32), (128, 72), (256, 48), (256, 64), (64, 256)):
+        ref = jfused.whole_row_ok(C, L) and L <= jfused.MAX_FUSED_L
+        fits = tfused.whole_fits(C, L)
+        assert fits == (ref or C * L * 4 <= tfused.WHOLE_BUF_BYTES), (C, L)
+        if fits and C > 1:
+            for B in (1, 2, 12, 4096):
+                R = tfused.whole_cluster(B, C, L, 132)
+                assert R in tfused.WHOLE_CLUSTERS and C % R == 0, (C, L, B, R)
+                assert tfused.whole_smem_bytes(C, R, L) <= tfused.WHOLE_CTA_SMEM or R == 1
+    for C, L in ((256, 32), (128, 72), (256, 48), (256, 64), (64, 256), (512, 80), (1024, 128),
+                 (128, 1024)):
         assert tfused.whole_fits(C, L), (C, L)
-    assert not tfused.whole_fits(8192, 128)
+    assert not tfused.whole_fits(8192, 128) and not tfused.whole_fits(1024, 129)
+    assert not tfused.whole_fits(2048, 72) and not tfused.whole_fits(128, 2048)

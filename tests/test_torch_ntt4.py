@@ -147,7 +147,7 @@ def _unfragment(frag, shape, on_rows):
 
 
 def _kernel_planes(v):
-    """csrc/ntt4.cu put3: the int8 planes of |v| < 2^23, p0 + 256 p1 + 65536 p2."""
+    """csrc/ntt4_fused.cuh put3: the int8 planes of |v| < 2^23, p0 + 256 p1 + 65536 p2."""
     p0 = ((v + 128) & 255) - 128
     t = (v + 128) >> 8
     p2 = (t + 128) >> 8
