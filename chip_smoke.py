@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; fails without a CUDA device.
 2. Builds the kernels from csrc/ (one nvcc per source, all at once, for
    sm_90a) and prints the build time and the compiler's resource lines.
-3. Holds each of the twenty-six kernels, and the NTT's int8 GEMM, against its
+3. Holds each of the twenty-eight kernels, and the NTT's int8 GEMM, against its
    plain torch version on the card at the shapes the main path gives it,
    and times both (CUDA events, warmed up, median):
      ladder, normmod, canonicalize -- the 2x10^7-bit plan (depth 12, w 2,
@@ -183,6 +183,23 @@
        both device times printed side by side;
        2^30 (inner m 65536, Lp 4096; the final normmod one row of 2^26
        digits);
+     the pair tier (MPIR_FFT_NTT_PAIR=1, the reference's opt-in pointwise):
+       pair_input_planes, mid_planes at its five primes and
+       garner_pair_carry against their plain versions on each other's real
+       output, raw outputs identical, at (3, 8), (3, 128) and the 10^8 /
+       10^9 chunks (32768, 1024) / (32768, 2048) (those timed beside their
+       bytes bound), garner_pair_carry also on all-0xFFFF and all-(-2^25)
+       sums inside its digit bound; mul/sqr at 10^7, 10^8 and 10^9 bits and
+       mulmod_int at 2^22 under the variable, exact (residues; folded), the
+       pair links launched at all five primes (kernels.MID_PLANES_BY_PRIME),
+       no dense Garner, the staged products' garner_post hook asked and never
+       consumed; the same products with the variable unset launching exactly
+       what the default runs above launched, the hook consumed; then the A/B
+       (a record): utils/prof_pointwise's split of both tiers at the two
+       chunks (GEMMs with their int8 ops/s, links beside their bytes bound,
+       Garner) and the two whole pointwise products interleaved (P, D, D, P,
+       20 calls each), and the staged 10^8 / 10^9 products under each tier
+       (digits identical, device ms interleaved);
      fused -- no path of either package reaches the reference's fused(fn,
        x), so its counterpart is driven through its own entry point: the
        forward then the inverse of a (256, 512) block, equal to 256 times
@@ -247,6 +264,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import pathlib
 import random
@@ -466,6 +484,26 @@ NTT4_NEED_OPS = {"fold": 8, "mul": 5, "split": 4, "carry": 4, "fix": 2}
 NTT4_IMPL_OPS = {"fold": 9, "mul": 5, "split": 8, "digit": 26, "fix": 4}
 
 
+def pair_int32_ops(B: int, M: int) -> tuple[int, int]:
+    """The least int32 operations of the pair tier's two links on B rows of
+    M digits (as NTT4_NEED_OPS: the modular arithmetic the function needs,
+    no load, store or address): pair_input_planes a digit's balanced carry
+    4, a pair's residue at each prime (two reductions, a modular product,
+    an add) 8 and its plane split 4; garner_pair_carry a pair's five folds
+    5 each, the ten mixed-radix steps (a reduction and a modular product) 7
+    each, the five digits' chunks 3 each, one multiply-add per nonzero byte
+    of the place values and chunk, the five slot sums 2 each, two digit
+    sums 3 each and two carries 4 each."""
+    from mpir_fft_tpu_torch.ops.ntt import PRIMES_PAIR
+
+    pairs = B * M // 2
+    radix = [math.prod(PRIMES_PAIR[:j]) for j in range(len(PRIMES_PAIR))]
+    mads = 3 * sum(1 for r in radix for k in range(8) if (r >> (8 * k)) & 0xFF)
+    planes = B * M * 4 + pairs * len(PRIMES_PAIR) * (8 + 4)
+    garner = pairs * (5 * 5 + 10 * 7 + 5 * 3 + mads + 5 * 2 + 2 * 3 + 2 * 4)
+    return planes, garner
+
+
 def ntt4_fused_int32_ops(B: int, M: int, impl: bool = False) -> int:
     """The int32 operations of ntt4_fused on B products of M digits: the
     least the function needs (impl: as the kernel spends them).  Per value
@@ -547,16 +585,19 @@ def main() -> int:
     from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod
     from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_fft, mulmod_plan
     from mpir_fft_tpu_torch.ops.ntt import (
-        _blocks, _dot_raw, _ntt4_blocks, _ntt4_leg, _ntt4_shape, garner_carry, garner_carry_plain,
-        garner_residues, garner_residues_plain, input_planes, input_planes_plain, mid_planes,
-        mid_planes_plain, mulmod_ntt, ntt4_fused, ntt4_fused_plain, ntt4_fwd_twiddle,
-        ntt4_fwd_twiddle_plain, ntt4_input_planes, ntt4_input_planes_plain, ntt4_inv_twiddle,
-        ntt4_inv_twiddle_plain, ntt4_pointwise, ntt4_pointwise_plain, ntt4_residues,
-        ntt4_residues_plain)
+        PRIMES, PRIMES_PAIR, _blocks, _dot_raw, _ntt4_blocks, _ntt4_leg, _ntt4_shape,
+        _pair_blocks, garner_carry, garner_carry_plain, garner_pair_carry,
+        garner_pair_carry_plain, garner_residues, garner_residues_plain, input_planes,
+        input_planes_plain, mid_planes, mid_planes_plain, mulmod_ntt, ntt4_fused,
+        ntt4_fused_plain, ntt4_fwd_twiddle, ntt4_fwd_twiddle_plain, ntt4_input_planes,
+        ntt4_input_planes_plain, ntt4_inv_twiddle, ntt4_inv_twiddle_plain, ntt4_pointwise,
+        ntt4_pointwise_plain, ntt4_residues, ntt4_residues_plain, pair_input_planes,
+        pair_input_planes_plain)
     from mpir_fft_tpu_torch.ops.mfa import _block_cross_exps
     from mpir_fft_tpu_torch.utils.ladder_bench import (huge_passes, ladder_calls,
                                                        measure_launches, measure_post)
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params, plan_for_depth
+    from mpir_fft_tpu_torch.utils.prof_pointwise import pair_tier, profile_pointwise
     from mpir_fft_tpu_torch.utils.transform_bench import (
         CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, ab_ms,
         ladder_route, measure_canon,
@@ -1326,6 +1367,7 @@ def main() -> int:
 
     peaks = {}
     ab_staged = {}
+    launch_log = {}
 
     def peak_gib(fn) -> float:
         """Peak device memory of one fn() call, GiB (inputs on the card count)."""
@@ -1346,7 +1388,7 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t) * 1e3
-        got = dict(kernels.LAUNCHES)
+        got = launch_log[label] = dict(kernels.LAUNCHES)
         for name, n in got.items():
             launches_total[name] += n
         peak = peaks[label] = torch.cuda.max_memory_allocated() / 2**30
@@ -1623,6 +1665,241 @@ def main() -> int:
     mp, *_ = mulmod_case(MULMOD_N[3], "", ring_4step, no_ring)
     assert (mp.m, mp.Lp) == (65536, 4096), mp
     e2e["peak_memory_mulmod_2^30_gib"] = peaks["mulmod_int 2^30"]
+
+    # -- the pair tier (MPIR_FFT_NTT_PAIR=1, opt-in as in the reference) ------
+    # 1. each link against its plain version on the previous link's real
+    #    output, raw outputs identical: pair_input_planes, mid_planes at all
+    #    five primes (18433 and 59393 among them), garner_pair_carry, at
+    #    (3, 8), (3, 128) and the 10^8 / 10^9 pointwise chunks (32768, 1024)
+    #    / (32768, 2048), those two timed beside their bytes bound;
+    #    garner_pair_carry on all-0xFFFF and all-(-2^25) sums, inside its
+    #    bound.  2. mul / sqr at 10^7, 10^8 and 10^9 bits (staged, 1 / 4
+    #    chunks) and mulmod_int at 2^22 with the variable set, exact, counted:
+    #    the pair links launch at all five primes, no dense Garner, the staged
+    #    products' garner_post hook never consumed; then the same products
+    #    unset launch exactly what the default drives above launched.  3. The
+    #    A/B: the pointwise at the two chunks, pair against dense
+    #    (utils/prof_pointwise: the split, each link beside its bytes bound,
+    #    the GEMMs' int8 ops/s; the whole pointwise interleaved P, D, D, P,
+    #    20 calls each), and the staged 10^8 / 10^9 products on the card.
+    t_pair = time.perf_counter()
+    src_pair = "mpir_fft_tpu_torch/csrc/ntt_pair.cu"
+    pair_digits = (-(1 << 10), (1 << 16) + (1 << 10))     # garner_pair_carry's bound
+    for pB, pM in ((3, 8), (3, 128), (32768, 1024), (32768, 2048)):
+        x = rand((pB, pM), -(1 << 25), 1 << 25)
+        y = rand((pB, pM), -(1 << 25), 1 << 25)
+        pa = pair_input_planes(x)
+        want, pms = timed(lambda: pair_input_planes_plain(x))
+        identical(("pair_input_planes", pB, pM), pa, want)
+        pb = pair_input_planes(y)
+        identical(("pair_input_planes", pB, pM), pb, pair_input_planes_plain(y))
+        del want
+        parts, mid = [], []
+        for j, (p, F, G) in enumerate(_pair_blocks(pM, dev)):
+            sa, sb = _dot_raw(pa[j], F), _dot_raw(pb[j], F)
+            pp = mid_planes(sa, sb, p)
+            identical(("mid_planes", p, pB, pM), pp, mid_planes_plain(sa, sb, p))
+            if pB > 3:
+                mid.append(time_ms(lambda: mid_planes(sa, sb, p), 10, 2))
+            del sa, sb
+            parts.append(_dot_raw(pp, G))
+            del pp
+        d = garner_pair_carry(*parts)
+        want, gpms = timed(lambda: garner_pair_carry_plain(*parts))
+        identical(("garner_pair_carry", pB, pM), d, want)
+        assert pair_digits[0] < int(d.min()) and int(d.max()) < pair_digits[1], (pB, pM)
+        del want, d
+        if pB > 3:
+            ims = time_ms(lambda: pair_input_planes(x), 10, 2)
+            gms = time_ms(lambda: garner_pair_carry(*parts), 10, 2)
+            iops, gops = pair_int32_ops(pB, pM)
+            add_row("pair_input_planes", src_pair, "mpir_fft_tpu/ops/ntt.py:640", 0, ims, pms,
+                    9 * pB * pM, iops)
+            add_row("garner_pair_carry", src_pair, "mpir_fft_tpu/ops/ntt.py:558", 0, gms, gpms,
+                    24 * pB * pM, gops)
+            rec = e2e[f"pair_links_{pB}x{pM}"] = {}
+            for name, ms, pl, nbytes, ops in (
+                    ("pair_input_planes", ims, pms, 9 * pB * pM, iops),
+                    ("mid_planes (5 primes)", sum(mid), None, 5 * 9 * pB * pM, 0),
+                    ("garner_pair_carry", gms, gpms, 24 * pB * pM, gops)):
+                bms, by = bound(nbytes, ops)
+                rec[name] = {"ms": ms, "plain_ms": pl, "bound_ms": bms, "bound_by": by,
+                             "share": bms / ms}
+                print(f"{name} ({pB}, {pM}): identical to its plain version; {ms:.4f} ms, "
+                      f"{by} bound {bms:.4f} ms ({bms / ms:.1%})"
+                      + (f"; plain {pl:.3f} ms" if pl is not None else
+                         f"; per prime {json.dumps([round(t, 4) for t in mid])}"))
+        del x, y, pa, pb, parts
+        torch.cuda.empty_cache()
+    for fill in (0xFFFF, -(1 << 25)):
+        parts = [torch.full((64, 2048), fill, dtype=torch.int32, device=dev) for _ in PRIMES_PAIR]
+        d = garner_pair_carry(*parts)
+        identical(("garner_pair_carry", fill), d, garner_pair_carry_plain(*parts))
+        assert pair_digits[0] < int(d.min()) and int(d.max()) < pair_digits[1], fill
+        print(f"garner_pair_carry 5 x (64, 2048) all {fill:#x}: identical to its plain version; "
+              f"digits in [{int(d.min())}, {int(d.max())}]")
+    del parts, d
+    print(f"pair links: {time.perf_counter() - t_pair:.1f} s")
+
+    # 2. the products: the hook's cells recorded at each staged chunk
+    cells = []
+    real_post = mm.garner_post
+
+    def spy_post(*args):
+        ctx = real_post(*args)
+
+        class Rec:
+            def __enter__(self):
+                cells.append(ctx.__enter__())
+                return cells[-1]
+
+            def __exit__(self, *exc):
+                return ctx.__exit__(*exc)
+
+        return Rec()
+
+    pair_expect = ("pair_input_planes", "mid_planes", "garner_pair_carry", "int8_gemm",
+                   "canonicalize")
+    pair_forbid = ("input_planes", "garner_carry", "garner_carry_post", "garner_residues",
+                   "garner_residues_post", "ntt4_input_planes", "conv_base")
+
+    def pair_checks(label, staged, n_cells=None):
+        """After a run under the tier: the pair links at all five primes,
+        the hook asked (staged; n_cells times where given) and never
+        consumed.  Returns the launches by prime and the hook's asks."""
+        by_prime = {p: c for p, c in kernels.MID_PLANES_BY_PRIME.items() if c}
+        assert set(by_prime) == set(PRIMES_PAIR), (label, by_prime)
+        assert not any(c["consumed"] for c in cells), (label, "the hook was consumed")
+        assert bool(cells) == staged and n_cells in (None, len(cells)), (label, len(cells))
+        return by_prime, len(cells)
+
+    def unset_checks(label, earlier, n_cells):
+        """After the same run unset: the launches of the earlier default
+        run, the hook consumed as often as it was asked under the tier."""
+        assert launch_log[label] == launch_log[earlier], (label, earlier)
+        assert all(c["consumed"] for c in cells) and len(cells) == n_cells, label
+        assert {p for p, c in kernels.MID_PLANES_BY_PRIME.items() if c} == set(PRIMES), label
+
+    mm.garner_post = spy_post
+    try:
+        # mul/sqr at 10^7 and 10^8 and mulmod_int at 2^22, through the entry
+        # points, under the tier and unset; each checked
+        for label, bits, n, staged in (("mul/sqr 1e7", ODD_BITS, 4, False),
+                                       ("mul/sqr 1e8", REC_BITS, 2, True),
+                                       (f"mulmod_int 2^{MULMOD_N[0].bit_length() - 1}",
+                                        MULMOD_N[0], 0, False)):
+            if n == 0:
+                x, y = rnd.randrange((1 << bits) + 1), rnd.randrange((1 << bits) + 1)
+                want = mod_fermat(x * y, bits)
+                how = "Python's product, folded"
+
+                def run():
+                    assert mulmod_int(x, y, bits) == want, label
+            else:
+                x, y = operand(bits), operand(bits)
+                how = f"residues mod {n} 61-bit primes"
+
+                def run():
+                    pr, sq = mul(x, y), sqr(x)
+                    assert residues_agree(pr, x, y, primes[:n]), f"pair mul {label}"
+                    assert residues_agree(sq, x, x, primes[:n]), f"pair sqr {label}"
+            cells.clear()
+            with pair_tier():
+                counted(f"{label} (pair tier)", pair_expect + (("ladder",) if staged else ()),
+                        run, pair_forbid)
+            by_prime, n_cells = pair_checks(label, staged)
+            cells.clear()
+            with pair_tier(False):
+                counted(f"{label} (unset)", (), run)
+            unset_checks(f"{label} (unset)", label, n_cells)
+            print(f"{label} (pair tier): exact ({how}); mid_planes launches by prime "
+                  f"{json.dumps(by_prime)}; the hook "
+                  f"{f'asked {n_cells} times, never consumed' if staged else 'not asked'}; "
+                  f"unset: the launches of the default run above, the hook consumed")
+        # 10^9: mul() under the tier (staged, 4 chunks), its product by one
+        # residue (a 61-bit residue of a 2x10^9-bit int costs the host 2 s);
+        # then mul and sqr as mul() / sqr() run them on the card's digits
+        # (the same launches, no host conversion), under the tier and unset:
+        # the products identical, the unset launches the default run's
+        x, y = operand(HUGE_BITS), operand(HUGE_BITS)
+        q = primes[0]
+        rx, ry = x % q, y % q
+        cells.clear()
+        with pair_tier():
+            pr = counted("mul 1e9 (pair tier)", pair_expect + ("ladder",), lambda: mul(x, y),
+                         pair_forbid)
+        assert pr % q == rx * ry % q and pr.bit_length() in (2 * HUGE_BITS - 1, 2 * HUGE_BITS)
+        del pr
+        by_prime, n_cells = pair_checks("mul 1e9", True)
+        hplan = choose_params(HUGE_BITS, HUGE_BITS, sqrt2=True)
+        st9 = _staged_flagship(hplan)
+        dx9, dy9 = on_card(x, HUGE_BITS), on_card(y, HUGE_BITS)
+        del x, y
+        cells.clear()
+        with pair_tier():
+            got = counted("mul/sqr 1e9 on the card's digits (pair tier)",
+                          pair_expect + ("ladder",), lambda: (st9(dx9, dy9), st9(dx9)),
+                          pair_forbid)
+        pair_checks("mul/sqr 1e9", True, 2 * n_cells)
+        cells.clear()
+        with pair_tier(False):
+            want = counted("mul/sqr 1e9 on the card's digits (unset)", (),
+                           lambda: (st9(dx9, dy9), st9(dx9)))
+        unset_checks("mul/sqr 1e9 on the card's digits (unset)", "mul/sqr 1e9", 2 * n_cells)
+        identical("mul 1e9 pair tier", got[0], want[0])
+        identical("sqr 1e9 pair tier", got[1], want[1])
+        del got, want
+        print(f"mul 1e9 (pair tier): exact (residue mod a 61-bit prime), the hook asked "
+              f"{n_cells} times, never consumed; mul and sqr on the card's digits identical to "
+              f"the dense tier's, mid_planes launches by prime {json.dumps(by_prime)}; unset: "
+              f"the launches of the default run above, the hook consumed")
+    finally:
+        mm.garner_post = real_post
+
+    # 3. the A/B (a record, not a claim): the pointwise chunk of the 10^8 and
+    #    10^9-bit plans, pair against dense, then the staged products
+    for tag, pB, pM in (("1e8", 32768, 1024), ("1e9", 32768, 2048)):
+        prof = profile_pointwise(pB, pM, 10, pair=True)
+        e2e[f"pair_pointwise_{tag}"] = prof
+        print(f"pointwise ({pB}, {pM}) split (utils/prof_pointwise, ms, median of 10): "
+              + json.dumps(prof))
+        for tier, pre, n in (("dense", "", 3), ("pair", "pair_", 5)):
+            fwd, inv = f"{pre}fwd_gemms_x{2 * n}", f"{pre}inv_gemms_x{n}"
+            gemm = prof[fwd] + prof[inv]
+            links = prof[f"{pre}input_planes_x2"] + prof[f"{pre}mid_planes_x{n}"]
+            print(f"  {tier} tier at ({pB}, {pM}): GEMMs {gemm:.3f} ms (forward "
+                  f"{prof[fwd + '_int8_ops_per_s'] / 1e12:.1f} x 10^12 int8 ops/s, "
+                  f"{prof[fwd + '_int8_share']:.1%} of 1979 x 10^12; inverse "
+                  f"{prof[inv + '_int8_ops_per_s'] / 1e12:.1f} x 10^12, "
+                  f"{prof[inv + '_int8_share']:.1%}), links {links:.3f} ms (input planes "
+                  f"{prof[f'{pre}input_planes_x2_bytes_share']:.1%} of their bytes bound, "
+                  f"mid_planes {prof[f'{pre}mid_planes_x{n}_bytes_share']:.1%}), Garner "
+                  f"{prof[f'{pre}garner']:.3f} ms ({prof[f'{pre}garner_bytes_share']:.1%}); "
+                  f"whole {prof['pair_full' if pre else 'mulmod_ntt_full']:.3f} ms")
+        print(f"pointwise ({pB}, {pM}) A/B, interleaved P, D, D, P, 20 calls each: pair "
+              f"{prof['ab_pair_ms']:.3f} ms, dense {prof['ab_dense_ms']:.3f} ms "
+              f"({prof['ab_dense_ms'] / prof['ab_pair_ms']:.3f}x)")
+        torch.cuda.empty_cache()
+    st8 = _staged_flagship(choose_params(REC_BITS, REC_BITS, sqrt2=True))
+    staged_ops = {"1e8": (st8, on_card(operand(REC_BITS), REC_BITS),
+                          on_card(operand(REC_BITS), REC_BITS)),
+                  "1e9": (st9, dx9, dy9)}
+    del st9, dx9, dy9
+    for tag in ("1e8", "1e9"):
+        st, dx, dy = staged_ops.pop(tag)
+
+        def on_pair():
+            with pair_tier():
+                return st(dx, dy)
+
+        identical(("staged pair", tag), on_pair(), st(dx, dy))
+        p_ms, d_ms = ab_ms(on_pair, lambda: st(dx, dy), 5, warm=False)
+        e2e[f"mul_{tag}_pair_device_ms"], e2e[f"mul_{tag}_dense_device_ms"] = p_ms, d_ms
+        print(f"mul {tag} staged A/B (record, not a claim; device ms interleaved, 10 calls "
+              f"each): pair tier {p_ms:.3f}, dense {d_ms:.3f}; digits identical")
+        del dx, dy, st
+        torch.cuda.empty_cache()
+    print(f"pair phase: {time.perf_counter() - t_pair:.1f} s")
 
     # #9's counterpart: no path of either package reaches the reference's
     # fused(fn, x) (its one caller, maybe_fused, has no caller), so the

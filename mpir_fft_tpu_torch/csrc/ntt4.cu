@@ -15,7 +15,8 @@
 // the outputs are identical (and equal to the reference's: every output is
 // a function of exact residues).
 //
-// M = m1 m2 (m1 = 64; m2 = 64 or 128), digit i = i1 m2 + i2, three primes
+// M = m1 m2 (m1 = 64; m2 = 64 or 128; at M 2048, prof_pointwise's A/B
+// only, m1 32 and m2 64), digit i = i1 m2 + i2, three primes
 // 65537, 114689, 163841 and three signed-int8 planes per value (v = p0 +
 // 256 p1 + 65536 p2 of the centered residue).  The layouts are the port's
 // own: each link writes its planes as the rows the next torch._int_mm
@@ -166,7 +167,10 @@ ntt4_pointwise_kernel(const int* __restrict__ sa, const int* __restrict__ sb,
 
 int lg_of(int v) { return 31 - __builtin_clz(static_cast<unsigned>(v)); }
 
-bool bad_m(int M) { return M != 4096 && M != 8192; }
+// M 2048 (m1 32, m2 64) too: the dense tier's widest ring through the
+// 4-step tier, which utils/prof_pointwise.py --ab4 times beside the dense
+// tier (the reference's tools/prof_pointwise.py A/B); no plan routes it here
+bool bad_m(int M) { return M != 2048 && M != 4096 && M != 8192; }
 
 // the 4-step split M = m1 m2 of ops/ntt.py _ntt4_shape
 void split(int M, int* lg1, int* lg2) {
@@ -175,7 +179,7 @@ void split(int M, int* lg1, int* lg2) {
   *lg2 = lg - lg / 2;
 }
 
-bool bad_side(int v) { return v != 64 && v != 128; }
+bool bad_side(int v) { return v != 32 && v != 64 && v != 128; }
 
 }  // namespace
 

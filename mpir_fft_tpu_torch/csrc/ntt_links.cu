@@ -16,7 +16,10 @@
 //
 // Dense tier (input_planes, mid_planes, garner_carry): the primes 12289,
 // 40961, 61441 (== 1 mod 4096, M <= 2048), two signed-int8 planes per
-// value, lo at column i and hi at column M + i.  garner_residues takes the
+// value, lo at column i and hi at column M + i.  mid_planes also serves the
+// pair tier (ntt_pair.cu) on its rows of M pairs at its two other primes,
+// 18433 and 59393 (== 1 mod 2048, M <= 1024; the centered product below
+// (p/2)^2 < 2^30 as for the tier-1 primes).  garner_residues takes the
 // 4-step tier's primes 65537, 114689, 163841 (M = 4096, 8192).  Each kernel
 // is templated on its prime(s) (ntt_common.cuh).
 //
@@ -50,10 +53,15 @@
 
 namespace {
 
+using mf::fold;
 using mf::mod_center;
 using mf::mod_nonneg;
+using mf::planes_of;
 
 constexpr int kP1 = 12289, kP2 = 40961, kP3 = 61441;
+// the pair tier's other two primes (ops/ntt.py PRIMES_PAIR: 12289, 18433,
+// 40961, 59393, 61441), for mid_planes
+constexpr int kPairP2 = 18433, kPairP4 = 59393;
 constexpr int kMaxM = 2048;
 
 // The prime triples and their Garner constants: p1^-1 mod p2, p1^-1 mod
@@ -76,38 +84,6 @@ static_assert(garner_ok<Tier1>(), "tier-1 Garner constants");
 static_assert(garner_ok<Tier2>(), "tier-2 Garner constants");
 
 constexpr int kThreads = 256;
-
-// raw plane sums (S0, S1), |S_j| <= 2^26 -> S0 + 256 S1 mod P in [0, P);
-// S1 is reduced first so the sum stays int32-exact
-template <int P>
-__device__ __forceinline__ int fold(int s0, int s1) {
-  return mod_nonneg<P>(s0 + (mod_nonneg<P>(s1) << 8));
-}
-
-// the balanced int8 planes of a centered residue rc: rc = lo + 256 hi
-__device__ __forceinline__ signed char plane_lo(int rc) {
-  return static_cast<signed char>(((rc + 128) & 255) - 128);
-}
-__device__ __forceinline__ signed char plane_hi(int rc) {
-  return static_cast<signed char>((rc - (((rc + 128) & 255) - 128)) >> 8);
-}
-
-// four centered residues -> their lo planes at lo[0..3], hi planes at hi[0..3]
-__device__ __forceinline__ void store_planes4(const int (&rc)[4], signed char* lo,
-                                              signed char* hi) {
-  char4 l, h;
-  l.x = plane_lo(rc[0]); l.y = plane_lo(rc[1]); l.z = plane_lo(rc[2]); l.w = plane_lo(rc[3]);
-  h.x = plane_hi(rc[0]); h.y = plane_hi(rc[1]); h.z = plane_hi(rc[2]); h.w = plane_hi(rc[3]);
-  *reinterpret_cast<char4*>(lo) = l;
-  *reinterpret_cast<char4*>(hi) = h;
-}
-
-template <int P>
-__device__ __forceinline__ void planes_of(const int (&v)[4], signed char* lo, signed char* hi) {
-  const int rc[4] = {mod_center<P>(v[0]), mod_center<P>(v[1]), mod_center<P>(v[2]),
-                     mod_center<P>(v[3])};
-  store_planes4(rc, lo, hi);
-}
 
 // x (B, M) int32 digits -> out (3, B, 2M) int8: the balanced carry pass
 // (m_j = (x_j + 2^15) >> 16; xb_i = x_i - 2^16 m_i + m_(i-1), the top
@@ -362,20 +338,26 @@ MF_EXPORT int mf_input_planes(const void* x, void* out, long long B, int M, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// sa, sb (B, 2M) int32, out (B, 2M) int8; prime: index 0..2 into the
-// tier-1 primes.
-MF_EXPORT int mf_mid_planes(const void* sa, const void* sb, void* out, long long B, int M,
-                            int prime, void* stream) {
-  if (bad_m(M) || B < 0 || prime < 0 || prime > 2) return static_cast<int>(cudaErrorInvalidValue);
+// sa, sb (B, 2M) int32, out (B, 2M) int8; p: the prime itself, a tier-1
+// prime or one of the pair tier's two others (18433, 59393: ntt_pair.cu's
+// rows of M pairs).
+MF_EXPORT int mf_mid_planes(const void* sa, const void* sb, void* out, long long B, int M, int p,
+                            void* stream) {
+  if (bad_m(M) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const unsigned blocks = mf::stream_blocks(B * (M / 4), kThreads);
   const auto st = static_cast<cudaStream_t>(stream);
   const int* a = static_cast<const int*>(sa);
   const int* b = static_cast<const int*>(sb);
   signed char* o = static_cast<signed char*>(out);
-  if (prime == 0) mid_planes_kernel<kP1><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
-  else if (prime == 1) mid_planes_kernel<kP2><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
-  else mid_planes_kernel<kP3><<<blocks, kThreads, 0, st>>>(a, b, o, B, M);
+  switch (p) {
+    case kP1: mid_planes_kernel<kP1><<<blocks, kThreads, 0, st>>>(a, b, o, B, M); break;
+    case kP2: mid_planes_kernel<kP2><<<blocks, kThreads, 0, st>>>(a, b, o, B, M); break;
+    case kP3: mid_planes_kernel<kP3><<<blocks, kThreads, 0, st>>>(a, b, o, B, M); break;
+    case kPairP2: mid_planes_kernel<kPairP2><<<blocks, kThreads, 0, st>>>(a, b, o, B, M); break;
+    case kPairP4: mid_planes_kernel<kPairP4><<<blocks, kThreads, 0, st>>>(a, b, o, B, M); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -398,12 +380,14 @@ MF_EXPORT int mf_garner_carry(const void* s1, const void* s2, const void* s3, vo
 }
 
 // r1, r2, r3 (B, M) int32 residues in [0, p) of the primes 65537, 114689,
-// 163841 in that order, out (B, M) int32; M = 4096 or 8192.  post_K,
-// steps, k: as mf_garner_carry's.
+// 163841 in that order, out (B, M) int32; M = 4096 or 8192 (2048: the
+// --ab4 A/B of utils/prof_pointwise.py, ntt4.cu).  post_K, steps, k: as
+// mf_garner_carry's.
 MF_EXPORT int mf_garner_residues(const void* r1, const void* r2, const void* r3, void* out,
                                  long long B, int M, int post_K, const void* steps, int k,
                                  void* stream) {
-  if ((M != 4096 && M != 8192) || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((M != 2048 && M != 4096 && M != 8192) || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   if (post_K) return launch_post<Tier2, false>(r1, r2, r3, out, B, M, post_K, steps, k, stream);
   if (B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);

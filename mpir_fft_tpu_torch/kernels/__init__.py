@@ -14,10 +14,13 @@ by the wrappers only for CPU tensors.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it (a plain
 integer each, bumped by the wrapper right after a successful launch), and
-the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm"."""
+the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm".
+`MID_PLANES_BY_PRIME` splits the mid_planes launches by their prime (the
+dense tier's three, the pair tier's five)."""
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import functools
@@ -47,13 +50,16 @@ LAUNCHES = {
     "input_planes": 0, "mid_planes": 0, "garner_carry": 0, "garner_carry_post": 0,
     "ntt4_input_planes": 0, "ntt4_fwd_twiddle": 0, "ntt4_pointwise": 0, "ntt4_inv_twiddle": 0,
     "ntt4_residues": 0, "garner_residues": 0, "garner_residues_post": 0, "ntt4_fused": 0,
+    "pair_input_planes": 0, "garner_pair_carry": 0,
     "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
+MID_PLANES_BY_PRIME: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    MID_PLANES_BY_PRIME.clear()
 
 
 def _sources() -> list[pathlib.Path]:
@@ -153,8 +159,12 @@ _SIGNATURES = {
     "mf_transform_small": (_P, _P, _LL, _I, _I, _LL, _I, _I, _I, _LL, _LL, _I, _P),
     # x, out (3 primes' planes), B, M, stream
     "mf_input_planes": (_P, _P, _LL, _I, _P),
-    # sa, sb, out, B, M, prime index, stream
+    # sa, sb, out, B, M, the prime (a dense or pair tier prime), stream
     "mf_mid_planes": (_P, _P, _P, _LL, _I, _I, _P),
+    # x, out (5 primes' planes), B, Mp (pairs a row), stream
+    "mf_pair_input_planes": (_P, _P, _LL, _I, _P),
+    # s0..s4 (the pair primes' raw inverse sums), out, B, Mp, stream
+    "mf_garner_pair_carry": (_P, _P, _P, _P, _P, _P, _LL, _I, _P),
     # s1, s2, s3, out, B, M, post K (0: none), post steps (host long
     # long[k]), k, stream
     "mf_garner_carry": (_P, _P, _P, _P, _LL, _I, _I, _P, _I, _P),

@@ -94,6 +94,12 @@ def carry_pass(x: torch.Tensor) -> torch.Tensor:
     return r + _wrap_inject(c)
 
 
+def neg_digits(x: torch.Tensor) -> torch.Tensor:
+    """Ring negation (ref: mpn_neg_n + carry fixups); trivial in signed
+    redundant form."""
+    return -x
+
+
 def _exact_carries(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact incoming carry per digit (for initial cin=0) and the final
     carry-out (as a [..., 1] slice).  Requires d in [-2^16-1, 2^17) so every

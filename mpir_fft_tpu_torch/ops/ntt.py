@@ -1,6 +1,7 @@
 """Pointwise multiplication mod p = 2^(16M)+1 by a negacyclic NTT over
-three small primes with CRT recombination (counterpart of
-mpir_fft_tpu/ops/ntt.py: its dense tier and its 4-step tier).
+small primes with CRT recombination (counterpart of
+mpir_fft_tpu/ops/ntt.py: its dense tier, its 4-step tier and its opt-in
+pair tier).
 
 Per prime p, c mod p = INTT_p(NTT_p(a) * NTT_p(b)), each transform int8
 matrix products with int32 sums: a value mod p enters as k signed-int8
@@ -29,12 +30,28 @@ carry pass bounds the result below 2^16 + 2^12.  Under the garner_post
 hook (the staged flagship's), both Garner kernels also run the innermost
 inverse ladder group on each block of K rows before writing them.
 
+Pair tier, opt-in (MPIR_FFT_NTT_PAIR=1, read at call time, as the
+reference's ntt.py:990-992), even M with Mp = M/2 a power of two in [4,
+PAIR_MAX_M]: adjacent digits join into Mp base-2^32 values v_j = d_2j +
+2^16 d_(2j+1), the transform length halves, and five primes PRIMES_PAIR
+(P ~ 2^74.8) with k = 2 carry the wider coefficients (2|c| < 2^73.04
+at Mp = 1024): per prime three [B, M] @ [M, M] GEMMs, 2.4x fewer int8
+MACs than the dense tier's at the same ring.  The coefficient exceeds 64
+bits, so Garner's mixed-radix digits are spread into the digit row by the
+reference's byte-chunk method (_garner_pair_to_digits): every partial
+product below 2^16, every digit sum below 2^25.5, then one carry pass
+(digits inside (-2^10, 2^16 + 2^10)).  It never takes the garner_post
+hook: the staged flagship then runs its inverse leg itself, as in the
+reference.
+
 The host part (primes, roots, plane-block matrices, 4-step tables, Garner
 constants) is a copy of the reference's.  The device part is plain torch on
 int32 / int64 tensors with exact integer reduction (the reference's
 f32-Barrett reductions are a TPU workaround for slow integer division); the
 links between the GEMMs run as hand-written kernels -- csrc/ntt_links.cu
-(input_planes, mid_planes, garner_carry, garner_residues), csrc/ntt4.cu
+(input_planes, mid_planes, garner_carry, garner_residues), csrc/ntt_pair.cu
+(pair_input_planes, garner_pair_carry; the pair tier's mid_planes is
+ntt_links.cu's at two more primes), csrc/ntt4.cu
 (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise, ntt4_inv_twiddle,
 ntt4_residues) and csrc/ntt4_fused.cu (ntt4_fused, the whole 4-step
 pipeline per row under MPIR_FFT_NTT_FUSED=1) -- wrapped here beside their plain versions.  The
@@ -48,6 +65,7 @@ import contextlib
 import contextvars
 import ctypes
 import functools
+import math
 import os
 
 import numpy as np
@@ -60,6 +78,9 @@ from .transforms import ifft_innermost_body
 
 PRIMES = (12289, 40961, 61441)       # P ~ 2^44.8; |c| < P/2 up to M = 2048
 PRIMES_T2 = (65537, 114689, 163841)  # P ~ 2^50.1; |c| < P/2 up to M = 8192
+# the pair tier (opt-in): five sub-2^16 primes == 1 mod 2048, P ~ 2^74.8
+PRIMES_PAIR = (12289, 18433, 40961, 59393, 61441)
+PAIR_MAX_M = 1024                    # pairs; digit vectors up to M = 2048
 TIER1_MAX_M = 2048
 NTT_MAX_M = 8192
 
@@ -73,6 +94,19 @@ def _tier(M: int) -> tuple[tuple[int, int, int], int]:
 
 def ntt_supported(M: int) -> bool:
     return 4 <= M <= NTT_MAX_M and (M & (M - 1)) == 0
+
+
+def pair_supported(M: int) -> bool:
+    """M = 16-bit digit count; the pair tier serves even M with a
+    power-of-two pair count Mp = M/2 in [4, PAIR_MAX_M]."""
+    Mp = M // 2
+    return M % 2 == 0 and 4 <= Mp <= PAIR_MAX_M and (Mp & (Mp - 1)) == 0
+
+
+def _pair_on(M: int) -> bool:
+    """The pair tier takes rings of M digits: MPIR_FFT_NTT_PAIR=1 (read at
+    call time) and pair_supported(M)."""
+    return pair_supported(M) and os.environ.get("MPIR_FFT_NTT_PAIR", "0") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +209,10 @@ def _ntt4_mats(M: int) -> list[dict]:
     the i2 part rides the cross-twiddle table T (and on the inverse side
     psi^(-i2) rides Ti, M^-1 psi^(-i1*m2) scales G1's columns).  The forward
     transform emits the spectrum in (k1, k2)-blocked permuted order, which
-    the inverse consumes as it is."""
-    primes, k = _tier(M)
+    the inverse consumes as it is.  The 4-step tier's primes and planes at
+    every M (the reference's _tier(M) at each M it routes here; M 2048 only
+    in utils/prof_pointwise.py's --ab4 A/B)."""
+    primes, k = PRIMES_T2, 3
     lg = M.bit_length() - 1
     m1 = 1 << (lg // 2)
     m2 = M // m1
@@ -258,6 +294,16 @@ def _blocks(M: int, device: torch.device) -> tuple[tuple[int, torch.Tensor, torc
     M = 2048 each is [4096, 4096] (16 MB)."""
     return tuple((m["p"], _col_major(m["F"], device), _col_major(m["G"], device))
                  for m in _matrices(M))
+
+
+@functools.lru_cache(maxsize=4)
+def _pair_blocks(M: int,
+                 device: torch.device) -> tuple[tuple[int, torch.Tensor, torch.Tensor], ...]:
+    """Per prime of PRIMES_PAIR (p, F, G): the pair tier's [M, M] int8
+    plane blocks for rings of M digits (Mp = M/2 pairs, two planes), as
+    column-major tensors on `device`, built once per (M, device)."""
+    return tuple((m["p"], _col_major(m["F"], device), _col_major(m["G"], device))
+                 for m in _matrices_p(M // 2, PRIMES_PAIR, 2))
 
 
 Ntt4Prime = collections.namedtuple("Ntt4Prime", "p F1 F2 G1 G2 T Ti")
@@ -516,22 +562,29 @@ def input_planes(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# the primes mid_planes serves: the dense tier's and the pair tier's
+MID_PLANES_PRIMES = tuple(sorted(set(PRIMES + PRIMES_PAIR)))
+
+
 def mid_planes(sa: torch.Tensor, sb: torch.Tensor, p: int) -> torch.Tensor:
     """Fold both forward GEMM outputs, multiply mod p and replane for the
     inverse GEMM in one pass: sa, sb (B, 2M) raw int32 plane sums -> (B, 2M)
-    int8 planes of (fa * fb) mod p."""
+    int8 planes of (fa * fb) mod p, p one of MID_PLANES_PRIMES (the pair
+    tier's rows of M pairs too).  Each launch also counts under its prime
+    (kernels.MID_PLANES_BY_PRIME)."""
     M = _require_link(sa, "mid_planes", torch.int32, 2)
     _require_link(sb, "mid_planes", torch.int32, 2)
     _require_same("mid_planes", sa, sb)
-    if p not in PRIMES:
-        raise ValueError(f"mid_planes: p={p} is not one of {PRIMES}")
+    if p not in MID_PLANES_PRIMES:
+        raise ValueError(f"mid_planes: p={p} is not one of {MID_PLANES_PRIMES}")
     if sa.device.type == "cpu":
         return mid_planes_plain(sa, sb, p)
     B = sa.shape[0]
     out = torch.empty(sa.shape, dtype=torch.int8, device=sa.device)
     with torch.cuda.device(sa.device):
         _launch("mid_planes", kernels.lib().mf_mid_planes, sa.data_ptr(), sb.data_ptr(),
-                out.data_ptr(), B, M, PRIMES.index(p), kernels.stream_of(sa))
+                out.data_ptr(), B, M, p, kernels.stream_of(sa))
+    kernels.MID_PLANES_BY_PRIME[p] += 1
     return out
 
 
@@ -569,6 +622,140 @@ def garner_carry(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
         _launch("garner_carry_post" if K else "garner_carry", kernels.lib().mf_garner_carry,
                 s1.data_ptr(), s2.data_ptr(), s3.data_ptr(), out.data_ptr(), B, M, K, st, k,
                 kernels.stream_of(s1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The pair tier's links (csrc/ntt_pair.cu): the five primes of PRIMES_PAIR,
+# two int8 planes [lo | hi] per pair value, rows of Mp = M/2 pairs; between
+# them the dense tier's GEMMs and mid_planes on (B, 2Mp) rows.  Each wrapper
+# beside its plain version; a CPU tensor takes the plain version, a CUDA
+# tensor launches the kernel or raises.
+# ---------------------------------------------------------------------------
+
+def pair_input_planes_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version: the balanced carry pass of x (B, M), the pair values
+    v_j = xb_2j + 2^16 xb_(2j+1) (|v| < 2^31.03: int64), then per prime the
+    planes of the centered residue -> (5, B, M) int8, slab i the planes
+    [lo | hi] (Mp columns each) of prime PRIMES_PAIR[i]."""
+    xb = _balanced_pass(x).to(torch.int64)
+    v = xb[..., 0::2] + (xb[..., 1::2] << DIGIT_BITS)
+    return torch.stack([_to_planes(v, p) for p in PRIMES_PAIR])
+
+
+# the pair tier's mixed radix: p_i^-1 mod p_j (i < j) and the place values
+# p_0 .. p_(j-1)
+_PAIR_INV = tuple(tuple(pow(PRIMES_PAIR[i], -1, pj) for i in range(j))
+                  for j, pj in enumerate(PRIMES_PAIR))
+_PAIR_RADIX = tuple(math.prod(PRIMES_PAIR[:j]) for j in range(len(PRIMES_PAIR)))
+
+
+def mixed_radix(rs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Residues r_j in [0, p_j) of the primes PRIMES_PAIR -> Garner's
+    mixed-radix digits of the signed CRT value c = v_0 + p_0 v_1 + p_0 p_1
+    v_2 + ..., v_j in [0, p_j) but the last one centered (the reference's
+    _mixed_radix, ntt.py:542).  int32 tensors."""
+    vs = []
+    for j, pj in enumerate(PRIMES_PAIR):
+        t = rs[j].to(torch.int64)
+        for inv, v in zip(_PAIR_INV[j], vs):
+            t = torch.remainder(torch.remainder(t - v, pj) * inv, pj)
+        vs.append(t)
+    p = PRIMES_PAIR[-1]
+    vs[-1] = torch.where(vs[-1] > p // 2, vs[-1] - p, vs[-1])
+    return [v.to(torch.int32) for v in vs]
+
+
+def pair_chunk_sums(vs: list[torch.Tensor]) -> list:
+    """The byte-chunk sums of the reference's _garner_pair_to_digits
+    (ntt.py:558-613): with c = sum_j radix_j v_j, chunk m (bits 8m..8m+7)
+    collects ck * vc over radix_j's nonzero bytes ck at byte b and v_j's
+    chunks vc at chunk u (two bytes, then v_j >> 16) with b + u = m.  Every
+    partial product is below 2^16 and every sum below 2^17.1, so c =
+    sum_m A[m] 2^(8m) exactly in int32 pieces; A[m] is None where no
+    product lands."""
+    A = [None] * (sum(p.bit_length() for p in PRIMES_PAIR) // 8 + 4)
+    for const, v in zip(_PAIR_RADIX, vs):
+        chunks = (v & 0xFF, (v >> 8) & 0xFF, v >> 16)
+        m = 0
+        while const:
+            ck = const & 0xFF
+            if ck:
+                for u, vc in enumerate(chunks):
+                    A[m + u] = ck * vc if A[m + u] is None else A[m + u] + ck * vc
+            const >>= 8
+            m += 1
+    return A
+
+
+def pair_digit_sums(vs: list[torch.Tensor]) -> torch.Tensor:
+    """Mixed-radix digits (..., Mp) of the pair coefficients -> int32 digit
+    sums (..., 2Mp): chunk m of coefficient j lands at byte 4j + m, i.e.
+    digit 2j + m//2 at bit 8 (m & 1), so pair j + m//4, its even digit
+    where (m//2) is even; pieces past the top wrap negated at pair
+    granularity (2^(32 Mp) == -1), and the digit row interleaves the
+    even and odd digits of each pair.  |sum| < 2^25.5."""
+    sums = [0, 0]
+    for m, a in enumerate(pair_chunk_sums(vs)):
+        if a is None:
+            continue
+        part = a * 256 if m & 1 else a
+        for _ in range(m // 4):
+            part = _wrap_inject(part)
+        sums[(m // 2) % 2] = sums[(m // 2) % 2] + part
+    out = torch.stack(sums, dim=-1)
+    return out.reshape(out.shape[:-2] + (2 * out.shape[-2],))
+
+
+def garner_pair_carry_plain(*parts: torch.Tensor) -> torch.Tensor:
+    """Plain version: the five primes' raw inverse sums (B, 2Mp) folded to
+    residues, Garner's mixed-radix digits, the byte-chunk digit sums, one
+    carry pass -> (B, 2Mp) int32 digits in (-2^10, 2^16 + 2^10)."""
+    rs = [_fold_S(s, p) for s, p in zip(parts, PRIMES_PAIR)]
+    return carry_pass(pair_digit_sums(mixed_radix(rs)))
+
+
+def pair_input_planes(x: torch.Tensor) -> torch.Tensor:
+    """The pair tier's input link in one pass: x (B, M) int32 digits
+    (|digit| <= 2^25, pair_supported(M)) -> the balanced carry pass, the
+    pair values, per prime their planes -> (5, B, M) int8, slab i the
+    forward GEMM's input [lo | hi] for prime PRIMES_PAIR[i]."""
+    _require(x, "pair_input_planes", ndim=2, dtype=torch.int32)
+    B, M = x.shape
+    if not pair_supported(M):
+        raise ValueError(f"pair_input_planes: M={M} needs M/2 a power of two in [4, {PAIR_MAX_M}]")
+    if x.device.type == "cpu":
+        return pair_input_planes_plain(x)
+    if x.data_ptr() % 16:
+        raise ValueError("pair_input_planes: 16-byte aligned rows required")
+    out = torch.empty((len(PRIMES_PAIR), B, M), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("pair_input_planes", kernels.lib().mf_pair_input_planes, x.data_ptr(),
+                out.data_ptr(), B, M // 2, kernels.stream_of(x))
+    return out
+
+
+def garner_pair_carry(*parts: torch.Tensor) -> torch.Tensor:
+    """The pair tier's Garner in one pass: the five primes' raw inverse
+    GEMM sums (B, 2Mp) int32, in the order of PRIMES_PAIR -> (B, 2Mp)
+    bounded redundant digits (-2^10 < d < 2^16 + 2^10) of the negacyclic
+    product: fold, mixed radix, the byte-chunk spread, one carry pass."""
+    if len(parts) != len(PRIMES_PAIR):
+        raise ValueError(f"garner_pair_carry: {len(parts)} sums, one a prime of {PRIMES_PAIR}")
+    Mp = _require_link(parts[0], "garner_pair_carry", torch.int32, 2)
+    if Mp > PAIR_MAX_M:
+        raise ValueError(f"garner_pair_carry: {Mp} pairs a row, at most {PAIR_MAX_M}")
+    for s in parts[1:]:
+        _require_link(s, "garner_pair_carry", torch.int32, 2)
+    _require_same("garner_pair_carry", *parts)
+    if parts[0].device.type == "cpu":
+        return garner_pair_carry_plain(*parts)
+    B = parts[0].shape[0]
+    out = torch.empty((B, 2 * Mp), dtype=torch.int32, device=parts[0].device)
+    with torch.cuda.device(parts[0].device):
+        _launch("garner_pair_carry", kernels.lib().mf_garner_pair_carry,
+                *(s.data_ptr() for s in parts), out.data_ptr(), B, Mp,
+                kernels.stream_of(parts[0]))
     return out
 
 
@@ -897,6 +1084,26 @@ def _mulmod_dense(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return garner_carry(*parts, post=_take_post(B, M))
 
 
+def _mulmod_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The pair tier on (B, M) rows (y is x: a square), the flow of the
+    reference's _mulmod_ntt_pair (ntt.py:633-654): pair_input_planes per
+    operand, per prime two forward GEMMs [B, M] @ [M, M], mid_planes and
+    one inverse GEMM (the dense tier's _dot_raw and mid_planes), then
+    garner_pair_carry on the five raw inverse sums.  The garner_post hook
+    is never read (nor marked consumed)."""
+    pa = pair_input_planes(x)
+    pb = pa if y is x else pair_input_planes(y)
+    parts = []
+    for i, (p, F, G) in enumerate(_pair_blocks(x.shape[1], x.device)):
+        Sa = _dot_raw(pa[i], F)
+        Sb = Sa if y is x else _dot_raw(pb[i], F)
+        pp = mid_planes(Sa, Sb, p)
+        del Sa, Sb
+        parts.append(_dot_raw(pp, G))
+    del pa, pb
+    return garner_pair_carry(*parts)
+
+
 def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The 4-step tier on (B, M) rows (y is x: a square), chunk by chunk
     (NTT4_CHUNK_BYTES): per operand ntt4_input_planes, per prime the
@@ -935,11 +1142,14 @@ def gemm_ops(B: int, M: int) -> int:
     for B products of M-digit rings: per prime two forward transforms and
     one inverse, each one [B, 2M] @ [2M, 2M] GEMM on the dense tier, an
     [B m2, 3 m1] @ [3 m1, 3 m1] and an [B m1, 3 m2] @ [3 m2, 3 m2] GEMM on
-    the 4-step tier; batches of up to 16 rows padded to 32, as _dot_raw
-    pads them."""
+    the 4-step tier, under the pair tier (MPIR_FFT_NTT_PAIR=1 where it
+    serves M) five primes of three [B, M] @ [M, M] GEMMs; batches of up to
+    16 rows padded to 32, as _dot_raw pads them."""
     def mm(rows: int, k: int) -> int:
         return 2 * (32 if rows <= 16 else rows) * k * k
 
+    if _pair_on(M):
+        return 5 * 3 * mm(B, M)
     if M <= TIER1_MAX_M:
         return 3 * 3 * mm(B, 2 * M)
     m1, m2 = _ntt4_shape(M)
@@ -949,14 +1159,23 @@ def gemm_ops(B: int, M: int) -> int:
 def mulmod_ntt(a: torch.Tensor, b: torch.Tensor, canonical: bool = False) -> torch.Tensor:
     """(a * b) mod 2^(16M)+1 on digit vectors [..., M] (broadcast), M a
     power of two in [4, 8192]: the dense tier up to M = 2048, the 4-step
-    tier above.  Inputs may be redundant (|digit| <= 2^25); the output is
-    bounded redundant digits (|d| < 2^16 + 2^12) unless canonical=True.
-    `b is a` (a square) transforms once."""
+    tier above; with MPIR_FFT_NTT_PAIR=1 (read at call time) the pair tier
+    where pair_supported(M) (M 8..2048), in the reference's order
+    (ntt.py:978-992: the fused 4-step check, which only M > 2048 reaches,
+    inside _mulmod_4step).  Inputs may be redundant (|digit| <= 2^25); the
+    output is bounded redundant digits (|d| < 2^16 + 2^12) unless
+    canonical=True.  `b is a` (a square) transforms once."""
     M = a.shape[-1]
     if not ntt_supported(M):
         raise ValueError(f"mulmod_ntt: M={M} must be a power of two in [4, {NTT_MAX_M}]")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     x = a.expand(shape).reshape(-1, M).contiguous()
     y = x if b is a else b.expand(shape).reshape(-1, M).contiguous()
-    d = (_mulmod_dense if M <= TIER1_MAX_M else _mulmod_4step)(x, y).reshape(shape)
+    if M > TIER1_MAX_M:
+        tier = _mulmod_4step
+    elif _pair_on(M):
+        tier = _mulmod_pair
+    else:
+        tier = _mulmod_dense
+    d = tier(x, y).reshape(shape)
     return normmod(d) if canonical else d

@@ -140,6 +140,29 @@ def ifft_radix2(x: torch.Tensor, w: int, W: int, pre_exps=None,
     return _run(x, w, W, "inv", pre_exps, skip_inner=skip_inner, post_half=post_half)
 
 
+def revbin_iota(C: int, device=None) -> torch.Tensor:
+    """revbin(j, log2 C) for all j as an int64 tensor (the reference's
+    traced revbin_iota, transforms.py:95; revbin_vec on the host)."""
+    return torch.from_numpy(revbin_vec(C)).to(device)
+
+
+def fft_radix2_twiddle(x: torch.Tensor, w: int, W: int, ws: int, c: int) -> torch.Tensor:
+    """fft_radix2 followed by out[j] *= 2^(ws * revbin(j) * c): the MFA column
+    transform (the reference's fft_radix2_twiddle, transforms.py:340, ref
+    FFT_radix2_twiddle with r = 0, rs = 1), its table on the ladder's `pe`
+    option."""
+    pe = (revbin_iota(x.shape[-2], x.device) * (ws * c)) % (2 * W)
+    return fft_radix2(x, w, W, post_exps=pe)
+
+
+def ifft_radix2_twiddle(x: torch.Tensor, w: int, W: int, ws: int, c: int) -> torch.Tensor:
+    """Inverse of fft_radix2_twiddle (times 2^D): position j divided by
+    2^(ws * revbin(j) * c), then the inverse transform (ref
+    IFFT_radix2_twiddle)."""
+    pe = (revbin_iota(x.shape[-2], x.device) * (ws * c)) % (2 * W)
+    return ifft_radix2(x, w, W, pre_exps=pe)
+
+
 def inner_group(C: int, L: int) -> int:
     """Stage count of ifft_radix2's first-executed (innermost) ladder group
     on a length-C transform at digit width L (0 at C == 1): the stages

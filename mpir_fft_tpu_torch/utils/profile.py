@@ -99,6 +99,8 @@ KERNEL_NAMES = (
     ("ntt4_fwd_twiddle_kernel", "ntt4_fwd_twiddle"), ("ntt4_pointwise_kernel", "ntt4_pointwise"),
     ("ntt4_inv_twiddle_kernel", "ntt4_inv_twiddle"), ("ntt4_residues_kernel", "ntt4_residues"),
     ("ntt4_fused_kernel", "ntt4_fused"), ("garner_residues_kernel", "garner_residues"),
+    ("pair_input_planes_kernel", "pair_input_planes"),
+    ("garner_pair_carry_kernel", "garner_pair_carry"),
     ("input_planes_kernel", "input_planes"), ("mid_planes_kernel", "mid_planes"),
     ("garner_carry_kernel", "garner_carry"),
     # torch._int_mm's cuBLASLt kernels (the NTT's transform GEMMs)
@@ -286,7 +288,8 @@ def pointwise_gemm_ops(rows: int, W: int, recursive: bool) -> int:
     as models.mul._pointwise routes it: the NTT leaf's (ops/ntt.gemm_ops)
     where it serves the ring, the recursion's inner rings
     (ops/mulmod.inner_plan) where the pointwise recurses, none on the
-    schoolbook."""
+    schoolbook; under MPIR_FFT_NTT_PAIR=1 the pair tier's where it serves
+    the ring (gemm_ops reads the variable)."""
     L = W // DIGIT_BITS
     inner = None if not recursive and base_serves(L) else inner_plan(W)
     if inner is not None:

@@ -108,6 +108,7 @@ from mpir_fft_tpu_torch.ops.truncate import truncated
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain, negacyclic_conv_chunks
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
 from mpir_fft_tpu_torch.utils.profile import FP64_FMA_PER_S, INT32_OPS_PER_S, _events_ms, bound
+from mpir_fft_tpu_torch.utils.tune import timed_ms
 
 SEED = 20261016
 
@@ -189,17 +190,18 @@ def _record(rec: dict, ops_per_s: float = INT32_OPS_PER_S) -> dict:
     return dict(rec, bound_ms=b, bound_by=by, share=b / rec["ms"])
 
 
-def ab_ms(fa, fb, reps: int, warm: bool = True) -> tuple[float, float]:
+def ab_ms(fa, fb, reps: int, warm: bool = True, device="cuda") -> tuple[float, float]:
     """Median device ms of fa() and fb(), interleaved a, b, b, a in each of
-    reps rounds after one warm-up each (CUDA events; warm=False where the
-    caller has just run both)."""
+    reps rounds after one warm-up each (CUDA events; the host clock where
+    device is the CPU; warm=False where the caller has just run both)."""
+    dev = torch.device(device)
     if warm:
         fa()
         fb()
     ta, tb = [], []
     for _ in range(reps):
         for fn, acc in ((fa, ta), (fb, tb), (fb, tb), (fa, ta)):
-            acc.append(_once_ms(fn)[1])
+            acc.append(timed_ms(fn, dev)[1])
     return statistics.median(ta), statistics.median(tb)
 
 

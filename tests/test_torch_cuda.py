@@ -51,14 +51,20 @@ from mpir_fft_tpu_torch.ops.fused import (
     whole_cluster,
 )
 from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops import ntt as ntt_mod
 from mpir_fft_tpu_torch.ops.ntt import (
+    MID_PLANES_PRIMES,
     PRIMES,
+    PRIMES_PAIR,
     PRIMES_T2,
     _blocks,
     _dot_raw,
     _ntt4_blocks,
+    _pair_blocks,
     garner_carry,
     garner_carry_plain,
+    garner_pair_carry,
+    garner_pair_carry_plain,
     garner_residues,
     garner_residues_plain,
     input_planes,
@@ -78,9 +84,12 @@ from mpir_fft_tpu_torch.ops.ntt import (
     ntt4_pointwise_plain,
     ntt4_residues,
     ntt4_residues_plain,
+    pair_input_planes,
+    pair_input_planes_plain,
 )
 from mpir_fft_tpu_torch.ops.pointwise import conv_base_plain
-from mpir_fft_tpu_torch.ops.transforms import ifft_innermost_body
+from mpir_fft_tpu_torch.ops.transforms import (fft_radix2_twiddle, ifft_innermost_body,
+                                               ifft_radix2_twiddle)
 from mpir_fft_tpu_torch.ops.pointwise_fused import mulmod_base_fused
 from mpir_fft_tpu_torch.utils.ladder_bench import huge_passes
 from mpir_fft_tpu_torch.utils.params import MulPlan, choose_params, plan_for_depth, validate
@@ -732,6 +741,142 @@ def test_ntt_wrappers_reject(dev):
         garner_carry(s, s, s[:16])
     with pytest.raises(TypeError):
         garner_carry(s, s.float(), s)
+
+
+@pytest.mark.parametrize("B", [3, 4096])
+@pytest.mark.parametrize("M", [8, 128, 2048])
+def test_pair_links_match_plain(dev, monkeypatch, B, M):
+    """The pair tier's links against their plain versions, each on the
+    previous link's real output: pair_input_planes, ten GEMMs, mid_planes
+    at each of the five primes, garner_pair_carry -- identical; the digits
+    inside (-2^10, 2^16 + 2^10); mulmod_ntt under MPIR_FFT_NTT_PAIR=1 equal
+    to the CPU's."""
+    rng = np.random.default_rng(21)
+    x = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    y = _rand(rng, (B, M), -(1 << 25), 1 << 25, dev)
+    pa = _launched("pair_input_planes", lambda: pair_input_planes(x))
+    pb = pair_input_planes(y)
+    assert torch.equal(pa.cpu(), pair_input_planes_plain(x.cpu()))
+    assert torch.equal(pb.cpu(), pair_input_planes_plain(y.cpu()))
+    parts = []
+    for j, (p, F, G) in enumerate(_pair_blocks(M, dev)):
+        sa, sb = _dot_raw(pa[j], F), _dot_raw(pb[j], F)
+        assert torch.equal(sa, (pa[j].double() @ F.double()).int())    # exact: sums < 2^25
+        before = kernels.MID_PLANES_BY_PRIME[p]
+        pp = _launched("mid_planes", lambda: mid_planes(sa, sb, p))
+        assert kernels.MID_PLANES_BY_PRIME[p] == before + 1
+        assert torch.equal(pp.cpu(), mid_planes_plain(sa.cpu(), sb.cpu(), p))
+        parts.append(_dot_raw(pp, G))
+    d = _launched("garner_pair_carry", lambda: garner_pair_carry(*parts))
+    assert torch.equal(d.cpu(), garner_pair_carry_plain(*(s.cpu() for s in parts)))
+    assert -(1 << 10) < int(d.min()) and int(d.max()) < (1 << 16) + (1 << 10)
+    if B == 3:
+        monkeypatch.setenv("MPIR_FFT_NTT_PAIR", "1")
+        want = mulmod_ntt(x.cpu(), y.cpu(), canonical=True)
+        assert torch.equal(mulmod_ntt(x, y, canonical=True).cpu(), want)
+        assert torch.equal(mulmod_ntt(x, x, canonical=True).cpu(),
+                           mulmod_ntt(x.cpu(), x.cpu(), canonical=True))
+
+
+@pytest.mark.parametrize("fill", [0xFFFF, -(1 << 25), (1 << 25) - 1, None])
+def test_garner_pair_carry_extremes(dev, fill):
+    """Constant raw sums at the extremes (None: each prime's sums random in
+    +-2^25, a different prime's at each extreme row): identical to the plain
+    version, inside the bound."""
+    rng = np.random.default_rng(5)
+    B, M = 64, 2048
+    if fill is None:
+        parts = [_rand(rng, (B, M), -(1 << 25), 1 << 25, dev) for _ in PRIMES_PAIR]
+        for i, s in enumerate(parts):
+            s[i] = 0xFFFF
+            s[i + 5] = -(1 << 25)
+    else:
+        parts = [torch.full((B, M), fill, dtype=torch.int32, device=dev) for _ in PRIMES_PAIR]
+    d = garner_pair_carry(*parts)
+    assert torch.equal(d.cpu(), garner_pair_carry_plain(*(s.cpu() for s in parts)))
+    assert -(1 << 10) < int(d.min()) and int(d.max()) < (1 << 16) + (1 << 10)
+
+
+@pytest.mark.parametrize("p", MID_PLANES_PRIMES)
+def test_mid_planes_every_prime(dev, p):
+    """mid_planes at each of the dense and pair tiers' primes, rows of M 4
+    to 2048: identical to the plain version, counted under its prime."""
+    rng = np.random.default_rng(p)
+    for B, M in ((3, 4), (33, 256), (1024, 2048)):
+        sa = _rand(rng, (B, 2 * M), -(1 << 25), 1 << 25, dev)
+        sb = _rand(rng, (B, 2 * M), -(1 << 25), 1 << 25, dev)
+        before = kernels.MID_PLANES_BY_PRIME[p]
+        got = _launched("mid_planes", lambda: mid_planes(sa, sb, p))
+        assert kernels.MID_PLANES_BY_PRIME[p] == before + 1
+        assert torch.equal(got.cpu(), mid_planes_plain(sa.cpu(), sb.cpu(), p))
+
+
+def test_pair_wrappers_reject(dev):
+    """A prime outside PRIMES + PRIMES_PAIR, and shapes the pair kernels do
+    not take, raise before any launch."""
+    s = torch.zeros((32, 128), dtype=torch.int32, device=dev)
+    before = dict(kernels.LAUNCHES)
+    for p in (65537, 114689, 12345, 2):
+        with pytest.raises(ValueError):
+            mid_planes(s, s, p)
+    with pytest.raises(ValueError):
+        pair_input_planes(torch.zeros((4, 4), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        pair_input_planes(torch.zeros((4, 4096), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        pair_input_planes(s.view(-1)[1:1 + 31 * 128].view(31, 128))   # not 16-byte aligned
+    with pytest.raises(ValueError):
+        garner_pair_carry(s, s, s)
+    with pytest.raises(ValueError):
+        garner_pair_carry(s, s, s, s, s[:16])
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_mul_pair_tier_on_gpu(dev, monkeypatch):
+    """mul and sqr under MPIR_FFT_NTT_PAIR=1 at a default plan whose
+    pointwise the NTT serves (L 64): the pair links launch, the dense
+    tier's Garner does not; exact."""
+    monkeypatch.setenv("MPIR_FFT_NTT_PAIR", "1")
+    bits = 120000
+    rnd = random.Random(bits)
+    a, b = rnd.getrandbits(bits) | (1 << (bits - 1)), rnd.getrandbits(bits)
+    kernels.reset_launches()
+    assert mul(a, b, device=dev) == a * b
+    assert sqr(a, device=dev) == a * a
+    got = dict(kernels.LAUNCHES)
+    for name in ("pair_input_planes", "mid_planes", "garner_pair_carry", "int8_gemm"):
+        assert got[name] > 0, name
+    assert got["garner_carry"] == got["input_planes"] == 0
+    assert got["int8_gemm"] == 15 + 10        # mul: 2 x 5 forward + 5 inverse; sqr: 5 + 5
+    assert set(kernels.MID_PLANES_BY_PRIME) == set(PRIMES_PAIR)
+
+
+def test_ntt4_tier_at_m2048(dev, monkeypatch):
+    """The 4-step links at M 2048 (prof_pointwise --ab4: the module's
+    TIER1_MAX_M lowered): equal to the dense tier after normmod."""
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (64, 2048), -(1 << 17), 1 << 17, dev)
+    y = _rand(rng, (64, 2048), -(1 << 17), 1 << 17, dev)
+    want = mulmod_ntt(x, y, canonical=True)
+    monkeypatch.setattr(ntt_mod, "TIER1_MAX_M", 1024)
+    kernels.reset_launches()
+    got = mulmod_ntt(x, y, canonical=True)
+    assert kernels.LAUNCHES["ntt4_residues"] == 3 and kernels.LAUNCHES["garner_residues"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C,L,ws,c", [(16, 64, 4, 3), (256, 8, 1, 2)])
+def test_fft_radix2_twiddle_on_gpu(dev, C, L, ws, c):
+    """The twiddle transforms on the ladder's pe option: raw digits equal to
+    the CPU's (the plain ladder)."""
+    rng = np.random.default_rng(C)
+    W = 16 * L
+    w = 2 * W // C
+    x = _rand(rng, (3, C, L), -(1 << 17), 1 << 17, dev)
+    f = fft_radix2_twiddle(x, w, W, ws, c)
+    assert torch.equal(f.cpu(), fft_radix2_twiddle(x.cpu(), w, W, ws, c))
+    i = ifft_radix2_twiddle(f, w, W, ws, c)
+    assert torch.equal(i.cpu(), ifft_radix2_twiddle(f.cpu(), w, W, ws, c))
 
 
 @pytest.mark.parametrize("B", [17, 4096])

@@ -179,3 +179,49 @@ def test_sqrt2_odd_w_not_ported(rng):
     assert np.array_equal(canon(f), canon(jsqrt2.fft_sqrt2(jnp.asarray(x), 3, 64)))
     back = tsqrt2.ifft_sqrt2(f, 3, 64, norm_div=3)
     assert torch.equal(back, normmod(T(x)))
+
+
+@pytest.mark.parametrize("C,L,ws,c", [(8, 4, 16, 3), (64, 16, 8, 5), (16, 71, 3, 7),
+                                      (2, 8, 5, 1), (256, 8, 1, 2)])
+def test_fft_radix2_twiddle_matches_reference(rng, C, L, ws, c):
+    """fft_radix2_twiddle / ifft_radix2_twiddle (the table on the ladder's
+    pe option) equal the reference's after normmod, position j twiddled by
+    2^(ws revbin(j) c) against a Python-int oracle, and the inverse undoes
+    the forward times C."""
+    W = 16 * L
+    w = 2 * W // C if (2 * W) % C == 0 else 3
+    x = _rand(rng, (2, C, L))
+    f = ttr.fft_radix2_twiddle(T(x), w, W, ws, c)
+    jf = jtr.fft_radix2_twiddle(jnp.asarray(x), w, W, ws, c)
+    assert np.array_equal(canon(f), canon(jf))
+    p = (1 << W) + 1
+    base = canon(ttr.fft_radix2(T(x), w, W))
+    rb = ttr.revbin_iota(C)
+    assert torch.equal(rb, torch.from_numpy(np.array(jtr.revbin_iota(C))).long())
+    got = canon(f)
+    for r in range(2):
+        for j in range(C):
+            e = ws * int(rb[j]) * c % (2 * W)
+            assert int_from_digits(got[r, j]) == int_from_digits(base[r, j]) * pow(2, e, p) % p
+    i = ttr.ifft_radix2_twiddle(f, w, W, ws, c)
+    assert np.array_equal(canon(i), canon(jtr.ifft_radix2_twiddle(jnp.asarray(np.asarray(f)),
+                                                                  w, W, ws, c)))
+    back = canon(i)
+    for r in range(2):
+        for j in range(C):
+            assert int_from_digits(back[r, j]) == C * int_from_digits(x[r, j]) % p
+
+
+@pytest.mark.parametrize("L", [4, 33])
+def test_neg_digits(rng, L):
+    """Ring negation equals the reference's and -x mod 2^W + 1."""
+    from mpir_fft_tpu.ops.limb import neg_digits as jneg
+    from mpir_fft_tpu_torch.ops.limb import neg_digits
+
+    x = _rand(rng, (3, L))
+    x[0] = 0
+    got = neg_digits(T(x))
+    assert np.array_equal(got.numpy(), np.asarray(jneg(jnp.asarray(x))))
+    p = (1 << (16 * L)) + 1
+    for r in range(3):
+        assert int_from_digits(canon(got)[r]) == -int_from_digits(x[r]) % p
