@@ -1,0 +1,136 @@
+"""BENCHMARK.json against the contract's character rules, and the benchmark
+found by name: each cell's configuration, traffic mix, metric readers and
+layer files, and a cell, mix, metric and layer added as new files only."""
+
+import json
+import pathlib
+import shutil
+
+import pytest
+
+from bignum_bench import spec, systems, window
+from bignum_bench.harness import Context
+
+REPO = spec.REPO
+BENCH = spec.load()
+
+
+def test_names_and_units_use_only_allowed_characters():
+    assert spec.names_ok(BENCH) == []
+    for bad in ("a b", "a,b", "a/b", "", "x" * 65, "µs"):
+        assert not spec.NAME_RE.fullmatch(bad)
+    assert not spec.UNIT_RE.fullmatch("tokens per second")
+    assert spec.UNIT_RE.fullmatch("kernels/product")
+
+
+def test_declaration_has_the_contract_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert {m["name"] for m in BENCH["end_to_end"]} == {
+        "product_ms", "peak_mem_gib", "setup_s"}
+    assert {m["name"] for m in BENCH["per_layer"]} == {
+        "device_idle_share", "kernels_per_product", "torch_ops_ms", "transform_roofline",
+        "pointwise_roofline", "norm_combine_roofline"}
+    for m in BENCH["end_to_end"]:
+        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
+        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    for m in BENCH["per_layer"]:
+        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
+        assert m["moves"] == "product_ms"
+    for c in BENCH["workloads"]:
+        assert set(c) == {"name", "config", "traffic", "chips", "why"} and c["chips"] == 1
+        assert len(c["why"]) <= 200
+    assert all((REPO / p).is_dir() for p in BENCH["paths"])
+    assert all(not w.startswith("/") and ".." not in w for w in BENCH["command"])
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_resolves_its_files_by_name(cell):
+    c = spec.cell(BENCH, cell)
+    config = spec.config(BENCH, c["config"])
+    assert config["operation"] in ("mul", "sqrmod_fermat")
+    assert spec.traffic(c["traffic"])["loop"] in ("closed", "chain")
+    e2e = {m["name"] for m in spec.metrics_of(BENCH, cell, "end_to_end")}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    per_layer = spec.metrics_of(BENCH, cell, "per_layer")
+    assert per_layer
+    layer_names = {s["layer"] for s in window.load_layers(spec.ROOT).values()}
+    for m in per_layer:
+        assert callable(spec.reader(m["name"]).read)
+        assert m["layer"] in layer_names | {"device", "driver"}
+
+
+def test_config_files_are_under_paths_and_distinct():
+    files = [c["file"] for c in BENCH["configs"]]
+    assert len(set(files)) == len(files)
+    for f in files:
+        assert any(f.startswith(p + "/") for p in BENCH["paths"])
+        assert (REPO / f).is_file()
+
+
+KNOWN = {
+    "void (anonymous namespace)::ladder_kernel(int const*, int*, long long)": "transforms",
+    "void (anonymous namespace)::mfa_cols_kernel(int const*)": "transforms",
+    "(anonymous namespace)::input_planes_kernel(int const*, signed char*, long long, int)":
+        "pointwise",
+    "(anonymous namespace)::ntt4_input_planes_kernel(int const*, signed char*, long long)":
+        "pointwise",
+    "void (anonymous namespace)::garner_post_kernel(int const*)": "pointwise",
+    "cutlass::Kernel2<cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16>(Params)":
+        "pointwise",
+    "(anonymous namespace)::normmod_fold_kernel(int*, int const*)": "norm_combine",
+    "(anonymous namespace)::canon_reset_kernel(int*, long long)": "norm_combine",
+    "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<int>>()":
+        "torch_ops",
+    "Memcpy DtoD (Device -> Device)": "torch_ops",
+}
+
+
+def test_layer_files_claim_the_program_kernels():
+    layers = window.load_layers(spec.ROOT)
+    for name, stem in KNOWN.items():
+        assert window.layer_of(name, layers) == stem, name
+    assert window.layer_of("some_new_kernel(int*)", layers) is None
+
+
+def _copy_bench(tmp: pathlib.Path) -> pathlib.Path:
+    root = tmp / "bignum_bench"
+    shutil.copytree(spec.ROOT, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    return root
+
+
+def test_a_new_cell_mix_metric_and_layer_are_files_only(tmp_path):
+    before = {p: p.read_bytes() for p in spec.ROOT.rglob("*") if p.is_file()
+              and "__pycache__" not in p.parts}
+    root = _copy_bench(tmp_path)
+    (root / "configs" / "tiny.json").write_text(json.dumps(
+        {"operation": "mul", "bits_a": 4096, "bits_b": 2048}))
+    (root / "traffic" / "burst.json").write_text(json.dumps({"loop": "closed", "pool": 2}))
+    (root / "metrics" / "new_kernel_ms.py").write_text(
+        "def read(ctx):\n    t = ctx.layer_s_per_product('newlayer')\n"
+        "    return t * 1e3 if t > 0 else None\n")
+    (root / "layers" / "newlayer.json").write_text(json.dumps(
+        {"layer": "a new layer", "kernels": ["some_new_kernel"]}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "tiny", "source": "test", "file":
+                             "bignum_bench/configs/tiny.json", "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "tiny.burst", "config": "tiny", "traffic": "burst",
+                               "chips": 1, "why": "test"})
+    bench["per_layer"].append({"name": "new_kernel_ms", "unit": "ms", "better": "lower",
+                               "source": "device_trace", "layer": "a new layer",
+                               "moves": "product_ms", "workloads": ["tiny.burst"]})
+    assert spec.names_ok(bench) == []
+    cell = spec.cell(bench, "tiny.burst")
+    assert spec.config(bench, cell["config"], repo=tmp_path)["bits_a"] == 4096
+    assert spec.traffic(cell["traffic"], root=root)["pool"] == 2
+    names = [m["name"] for m in spec.metrics_of(bench, "tiny.burst", "per_layer")]
+    assert names == ["new_kernel_ms"]
+    layers = window.load_layers(root)
+    assert window.layer_of("void some_new_kernel(int*)", layers) == "newlayer"
+    tr = window.Trace((0, 1000), [window.Op("void some_new_kernel(int*)", 100, 300)], [])
+    ctx = Context(window.summarize(tr, layers), layers, 2,
+                  systems.mul_route(4096, 2048, 64, 64, 16))
+    assert spec.reader("new_kernel_ms", root=root).read(ctx) == pytest.approx(1e-4)
+    after = {p: p.read_bytes() for p in spec.ROOT.rglob("*") if p.is_file()
+             and "__pycache__" not in p.parts}
+    assert after == before
