@@ -16,12 +16,24 @@ by the wrappers only for CPU tensors.
 integer each, bumped by the wrapper right after a successful launch), and
 the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm".
 `MID_PLANES_BY_PRIME` splits the mid_planes launches by their prime (the
-dense tier's three, the pair tier's five)."""
+dense tier's three, the pair tier's five).  `COUNTERS` holds the work the
+program launched, on every device: "int8_ops", the NTT GEMMs' int8
+operations (two a multiply-add, padded rows included, as ops/ntt.py
+gemm_ops counts them).  `reset_launches()` zeroes all three.
+
+`span(name)` marks a stage of the program as "mf.<name>" on a
+torch.profiler window's host timeline, on the clock of its device trace;
+spans nest by containment.  They are FUNCTION-scope record functions
+(`_RecordFunctionFast`), which the profiler does not project onto the
+device timeline as it does `record_function`'s, so a window's device
+operations stay the kernels alone.  With no profiler recording, a span is
+one flag check and a shared no-op context."""
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -32,6 +44,7 @@ import subprocess
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -54,12 +67,37 @@ LAUNCHES = {
     "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
 MID_PLANES_BY_PRIME: collections.Counter = collections.Counter()
+COUNTERS = {"int8_ops": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     MID_PLANES_BY_PRIME.clear()
+    for name in COUNTERS:
+        COUNTERS[name] = 0
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the span "mf.<name>" while a torch.profiler
+    records, else the shared no-op context."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast("mf." + name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return traced
+    return wrap
 
 
 def _sources() -> list[pathlib.Path]:

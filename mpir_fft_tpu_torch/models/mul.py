@@ -53,6 +53,14 @@ Every driver is its `Stages` (split, forward, pointwise, inverse,
 normalize, combine; `driver_stages`), which the driver composes and the
 stage profile (utils/profile.py) times one by one.
 
+Spans (kernels.span; recorded only while a torch.profiler records): a
+driver's call runs inside mf.<driver> (mf.flagship for the flagship,
+staged or whole, and for sqr; mf.huge out of core), each stage inside
+mf.split, mf.fwd (one of each an operand), mf.pw, mf.inv, mf.norm and
+mf.combine; `mul`, `sqr` and `mul_many` inside mf.mul, mf.sqr and
+mf.mul_many, with their conversions in mf.digits_from_int, mf.h2d, mf.d2h
+and mf.int_from_digits.
+
 Plans: `mul` / `sqr` take a measured plan from the tune cache for their
 device where one is recorded (utils/tune.py cached_plan; MPIR_FFT_TUNE=0
 turns the lookup off), else the analytic `choose_params`; `mul_many`
@@ -70,6 +78,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from mpir_fft_tpu_torch.kernels import span, spanned
 from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod_div
 from mpir_fft_tpu_torch.ops.mfa import (_gather_cells, fft_radix2_mfa, ifft_mfa_rows,
@@ -203,9 +212,21 @@ def _plain_stages(kind: str, plan: MulPlan, ctx=None) -> Stages:
                   lambda v: _from_cells(inv(v)), norm, _combine_fn(plan, valid))
 
 
+def _stage(name: str, fn, *args):
+    """fn(*args) inside the span mf.<name>."""
+    with span(name):
+        return fn(*args)
+
+
+def _split_fwd(s: Stages, d: torch.Tensor) -> torch.Tensor:
+    return _stage("fwd", s.fwd, _stage("split", s.split, d))
+
+
 def _run_stages(s: Stages, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    c = s.inv(s.pw(s.fwd(s.split(a)), s.fwd(s.split(b))))
-    return s.combine(c if s.norm is None else s.norm(c))
+    c = _stage("inv", s.inv, _stage("pw", s.pw, _split_fwd(s, a), _split_fwd(s, b)))
+    if s.norm is not None:
+        c = _stage("norm", s.norm, c)
+    return _stage("combine", s.combine, c)
 
 
 def mpn_mul_radix2(a: torch.Tensor, b: torch.Tensor, plan: MulPlan) -> torch.Tensor:
@@ -283,16 +304,17 @@ def mpn_mul_flagship(a: torch.Tensor, b: torch.Tensor, plan: MulPlan,
     stacked cross to rows in one all-to-all."""
     assert plan.sqrt2
     s = _flat_flagship_stages(plan, sharded(ctx, plan.n1))
-    ia, ib = s.split(a), s.split(b)
-    if ia.shape == ib.shape:
-        # one transform over both stacked operands: double the batch per launch
-        fab = s.fwd(torch.stack([ia, ib]))
-        fa, fb = fab[0], fab[1]
-    else:
-        fa, fb = s.fwd(ia), s.fwd(ib)
-    prod = s.pw(fa, fb)
+    ia, ib = _stage("split", s.split, a), _stage("split", s.split, b)
+    with span("fwd"):
+        if ia.shape == ib.shape:
+            # one transform over both stacked operands: double the batch per launch
+            fab = s.fwd(torch.stack([ia, ib]))
+            fa, fb = fab[0], fab[1]
+        else:
+            fa, fb = s.fwd(ia), s.fwd(ib)
+    prod = _stage("pw", s.pw, fa, fb)
     del fa, fb
-    return s.combine(s.inv(prod))
+    return _stage("combine", s.combine, _stage("inv", s.inv, prod))
 
 
 def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan, ctx=None) -> torch.Tensor:
@@ -300,8 +322,8 @@ def mpn_sqr_flagship(a: torch.Tensor, plan: MulPlan, ctx=None) -> torch.Tensor:
     pointwise fa*fa; ctx as mpn_mul_flagship's."""
     assert plan.sqrt2
     s = _flat_flagship_stages(plan, sharded(ctx, plan.n1))
-    fh = s.fwd(s.split(a))
-    return s.combine(s.inv(s.pw(fh, fh)))
+    fh = _split_fwd(s, a)
+    return _stage("combine", s.combine, _stage("inv", s.inv, _stage("pw", s.pw, fh, fh)))
 
 
 # ---------------------------------------------------------------------------
@@ -496,14 +518,15 @@ def _staged_flagship(plan: MulPlan, ctx=None):
     ctx = sharded(ctx, plan.n1)
     s = _staged_flagship_stages(plan) if ctx is None else _staged_flagship_sharded(plan, ctx)
 
+    @spanned("flagship")
     def run(da, db=None):
-        fa = s.fwd(s.split(da))
-        fb = fa if db is None else s.fwd(s.split(db))
-        s.pw(fa, fb)
+        fa = _split_fwd(s, da)
+        fb = fa if db is None else _split_fwd(s, db)
+        _stage("pw", s.pw, fa, fb)
         del fb
-        c = s.inv(fa)
+        c = _stage("inv", s.inv, fa)
         del fa
-        return s.combine(c)
+        return _stage("combine", s.combine, c)
 
     return run
 
@@ -565,10 +588,10 @@ def _driver(kind: str, plan: MulPlan):
     if kind == "flagship":
         _require_huge_servable(plan)
         if flagship_is_huge(plan):
-            return lambda da, db: mul_huge(da, db, plan)
+            return spanned("huge")(lambda da, db: mul_huge(da, db, plan))
         if flagship_is_staged(plan):
             return _staged_flagship(plan)
-    return lambda da, db: fn(da, db, plan)
+    return spanned(kind)(lambda da, db: fn(da, db, plan))
 
 
 def _sqr_driver(plan: MulPlan):
@@ -576,10 +599,10 @@ def _sqr_driver(plan: MulPlan):
     _jitted_sqr, models/mul.py:603-612)."""
     _require_huge_servable(plan)
     if flagship_is_huge(plan):
-        return lambda da: sqr_huge(da, plan)
+        return spanned("huge")(lambda da: sqr_huge(da, plan))
     if flagship_is_staged(plan):
         return _staged_flagship(plan)
-    return lambda da: mpn_sqr_flagship(da, plan)
+    return spanned("flagship")(lambda da: mpn_sqr_flagship(da, plan))
 
 
 def _mul_piecewise(a: int, b: int, driver: str, device) -> int:
@@ -628,6 +651,25 @@ def _mul_piecewise(a: int, b: int, driver: str, device) -> int:
     return int.from_bytes(acc[:Lout].astype("<u2").tobytes(), "little")
 
 
+def _to_device(convert, v, n: int, device) -> torch.Tensor:
+    """convert(v, n) (the host's digits) inside mf.digits_from_int, then
+    their copy to `device` inside mf.h2d."""
+    with span("digits_from_int"):
+        digits = convert(v, n)
+    with span("h2d"):
+        return digits_to_tensor(digits, device)
+
+
+def _from_device(t: torch.Tensor, convert):
+    """The digits t copied to the host inside mf.d2h (the host waits there
+    for the device), then convert(digits) inside mf.int_from_digits."""
+    with span("d2h"):
+        digits = tensor_to_digits(t)
+    with span("int_from_digits"):
+        return convert(digits)
+
+
+@spanned("mul")
 def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     """Multiply two nonnegative Python ints through a driver of DRIVERS on
     `device`.  Small products are computed on the host.  A flagship plan
@@ -647,11 +689,12 @@ def mul(a: int, b: int, driver: str = "flagship", device="cuda") -> int:
     if driver == "flagship" and _piecewise_serves(plan):
         return _mul_piecewise(a, b, driver, device)
     run = _driver(driver, plan)
-    da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
-    db = digits_to_tensor(digits_from_int(b, cdiv(bb, DIGIT_BITS)), device)
-    return int_from_digits(tensor_to_digits(run(da, db)))
+    da = _to_device(digits_from_int, a, cdiv(ba, DIGIT_BITS), device)
+    db = _to_device(digits_from_int, b, cdiv(bb, DIGIT_BITS), device)
+    return _from_device(run(da, db), int_from_digits)
 
 
+@spanned("sqr")
 def sqr(a: int, device="cuda") -> int:
     """Square a nonnegative Python int with one forward transform (out of
     core past 2^29 elements); a plan the reference refuses raises
@@ -664,10 +707,11 @@ def sqr(a: int, device="cuda") -> int:
     if 2 * ba <= _SMALL_THRESHOLD_BITS:
         return a * a
     run = _sqr_driver(_select_plan(ba, ba, "flagship", device))
-    da = digits_to_tensor(digits_from_int(a, cdiv(ba, DIGIT_BITS)), device)
-    return int_from_digits(tensor_to_digits(run(da)))
+    da = _to_device(digits_from_int, a, cdiv(ba, DIGIT_BITS), device)
+    return _from_device(run(da), int_from_digits)
 
 
+@spanned("mul_many")
 def mul_many(pairs, driver: str = "flagship", device="cuda") -> list[int]:
     """Multiply many (a, b) pairs of nonnegative ints in ONE batched driver
     call (the reference's models/mul.py:615-647): every op of the pipeline
@@ -695,7 +739,11 @@ def mul_many(pairs, driver: str = "flagship", device="cuda") -> list[int]:
     if driver == "flagship" and (flagship_is_huge(plan) or flagship_is_staged(plan)):
         return [mul(a, b, driver, device) for a, b in pairs]
     La, Lb = cdiv(ba, DIGIT_BITS), cdiv(bb, DIGIT_BITS)
-    da = digits_to_tensor(np.stack([digits_from_int(a, La) for a, _ in pairs]), device)
-    db = digits_to_tensor(np.stack([digits_from_int(b, Lb) for _, b in pairs]), device)
-    out = tensor_to_digits(_driver(driver, plan)(da, db))
-    return [int_from_digits(row) for row in out]
+
+    def stacked(vs, n):
+        return np.stack([digits_from_int(v, n) for v in vs])
+
+    da = _to_device(stacked, [a for a, _ in pairs], La, device)
+    db = _to_device(stacked, [b for _, b in pairs], Lb, device)
+    return _from_device(_driver(driver, plan)(da, db),
+                        lambda out: [int_from_digits(row) for row in out])

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels import span, spanned
 from .fused import NORMMOD_LONG_MAX
 from .limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod, normmod_div, shift_mod
 from .negacyclic import fft_negacyclic, ifft_negacyclic
@@ -146,7 +147,9 @@ def mulmod_fft(x: torch.Tensor, y: torch.Tensor, plan: MulmodPlan) -> torch.Tens
     """(x * y) mod 2^N+1 by negacyclic FFT over the inner ring (ref
     FFT_mulmod_2expp1, mul_fft.c:2998-3117; mpir_fft_tpu/ops/mulmod.py:124-217).
     x, y: [..., LN] digit vectors, redundant (|digit| <= ~2^17) or canonical
-    (the -1 residue as [-1, 0, ...]); returns canonical digits."""
+    (the -1 residue as [-1, 0, ...]); returns canonical digits.  Its
+    stages run inside the spans mf.split, mf.fwd (one of each an operand),
+    mf.pw, mf.inv and mf.norm (kernels.span)."""
     N, m, b, Wp, wp = plan.N, plan.m, plan.b, plan.Wp, plan.wp
     LN = N // DIGIT_BITS
     if b % DIGIT_BITS == 0:
@@ -156,39 +159,51 @@ def mulmod_fft(x: torch.Tensor, y: torch.Tensor, plan: MulmodPlan) -> torch.Tens
         x0, mx = x, None
         y0, my = y, None
     else:
-        x0, mx = _strip_minus1(normmod(x))
-        y0, my = _strip_minus1(normmod(y))
+        with span("split"):
+            x0, mx = _strip_minus1(normmod(x))
+            y0, my = _strip_minus1(normmod(y))
 
-    fa = fft_negacyclic(fft_split_bits(x0, b, m, plan.Lp), wp, Wp)
-    fb = fft_negacyclic(fft_split_bits(y0, b, m, plan.Lp), wp, Wp)
-    c = ifft_negacyclic(mulmod(fa, fb, Wp), wp, Wp)
-    # negacyclic_scale (divide by 2^(depth+1)) and normmod in one pass
-    v = normmod_div(c, plan.depth + 1, Wp)
+    def forward(v):
+        with span("split"):
+            rows = fft_split_bits(v, b, m, plan.Lp)
+        with span("fwd"):
+            return fft_negacyclic(rows, wp, Wp)
 
-    # sign lift: c_j = v_j - p' * [v_j > T], T = 2^(2b + depth + 5)
-    gt = _greater_than_pow2(v, 2 * b + plan.depth + 5)
-    v0, mneg = _strip_minus1(v)   # -1 forms contribute -2^(jb) directly
+    fa = forward(x0)
+    fb = forward(y0)
+    with span("pw"):
+        prod = mulmod(fa, fb, Wp)
+    with span("inv"):
+        c = ifft_negacyclic(prod, wp, Wp)
+    del prod
+    with span("norm"):
+        # negacyclic_scale (divide by 2^(depth+1)) and normmod in one pass
+        v = normmod_div(c, plan.depth + 1, Wp)
 
-    K = -(-(Wp + plan.depth + 4) // DIGIT_BITS)
-    comb = fft_combine_bits(v0, b, LN + K)
-    # ring fold: value == lo + hi * 2^N == lo - hi (mod p)
-    lo, hi = comb[..., :LN], comb[..., LN:]
-    folded = lo - torch.cat([hi, torch.zeros_like(lo[..., : LN - K])], dim=-1)
+        # sign lift: c_j = v_j - p' * [v_j > T], T = 2^(2b + depth + 5)
+        gt = _greater_than_pow2(v, 2 * b + plan.depth + 5)
+        v0, mneg = _strip_minus1(v)   # -1 forms contribute -2^(jb) directly
 
-    if b % DIGIT_BITS == 0 and m * (b // DIGIT_BITS) == LN:
-        corr_p = _spread(gt, b // DIGIT_BITS)
-        corr_m = _spread(mneg, b // DIGIT_BITS)
-    else:
-        corr_p = _flags_at_bits(gt, m, b, LN)
-        corr_m = _flags_at_bits(mneg, m, b, LN)
-    folded = folded - corr_p - corr_m - shift_mod(corr_p, Wp, N)
+        K = -(-(Wp + plan.depth + 4) // DIGIT_BITS)
+        comb = fft_combine_bits(v0, b, LN + K)
+        # ring fold: value == lo + hi * 2^N == lo - hi (mod p)
+        lo, hi = comb[..., :LN], comb[..., LN:]
+        folded = lo - torch.cat([hi, torch.zeros_like(lo[..., : LN - K])], dim=-1)
 
-    if mx is not None:
-        # (x0 - mx)(y0 - my) = x0 y0 - mx y0 - my x0 + mx my
-        folded = (folded - torch.where(mx[..., None], y0, 0)
-                  - torch.where(my[..., None], x0, 0))
-        folded[..., 0] += (mx & my).to(torch.int32)
-    return normmod(folded)
+        if b % DIGIT_BITS == 0 and m * (b // DIGIT_BITS) == LN:
+            corr_p = _spread(gt, b // DIGIT_BITS)
+            corr_m = _spread(mneg, b // DIGIT_BITS)
+        else:
+            corr_p = _flags_at_bits(gt, m, b, LN)
+            corr_m = _flags_at_bits(mneg, m, b, LN)
+        folded = folded - corr_p - corr_m - shift_mod(corr_p, Wp, N)
+
+        if mx is not None:
+            # (x0 - mx)(y0 - my) = x0 y0 - mx y0 - my x0 + mx my
+            folded = (folded - torch.where(mx[..., None], y0, 0)
+                      - torch.where(my[..., None], x0, 0))
+            folded[..., 0] += (mx & my).to(torch.int32)
+        return normmod(folded)
 
 
 def inner_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
@@ -201,6 +216,7 @@ def inner_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
     return mulmod_plan(N, depth)
 
 
+@spanned("mulmod")
 def mulmod(x: torch.Tensor, y: torch.Tensor, N: int, depth: int | None = None,
            canonical: bool = False) -> torch.Tensor:
     """(x * y) mod 2^N+1 with automatic algorithm choice (ref
@@ -211,7 +227,8 @@ def mulmod(x: torch.Tensor, y: torch.Tensor, N: int, depth: int | None = None,
 
     Inputs may be redundant (|digit| <= ~2^17) or canonical; with
     canonical=False the base path returns bounded redundant digits (the
-    recursive path always returns canonical digits)."""
+    recursive path always returns canonical digits).  Each call runs inside
+    the span mf.mulmod (kernels.span)."""
     L = N // DIGIT_BITS
     assert x.shape[-1] == y.shape[-1] == L
     plan = inner_plan(N, depth)
@@ -225,6 +242,7 @@ def mulmod(x: torch.Tensor, y: torch.Tensor, N: int, depth: int | None = None,
 _MULMOD_INT_SMALL_BITS = 1 << 14
 
 
+@spanned("mulmod_int")
 def mulmod_int(a: int, b: int, N: int, depth: int | None = None, device="cuda") -> int:
     """(a * b) mod (2^N + 1) for Python ints on `device`: the user-level
     Fermat-ring product (ref fft_mulmod_2expp1, mul_fft.c:3125-3167;
@@ -235,7 +253,9 @@ def mulmod_int(a: int, b: int, N: int, depth: int | None = None, device="cuda") 
     multiple of 16, computes on the host.  On the card the final normmod is
     one row of N/16 digits, so N/16 may not pass NORMMOD_LONG_MAX (2^30
     digits: N = 2^34 bits, 4 GiB a row); such an N raises ValueError before
-    any operand is converted."""
+    any operand is converted.  Each call runs inside the span mf.mulmod_int,
+    its steps inside mf.digits_from_int, mf.h2d (one of each an operand),
+    mf.mulmod, mf.d2h and mf.int_from_digits (kernels.span)."""
     if N < 1:
         raise ValueError("N must be positive")
     if N // DIGIT_BITS > NORMMOD_LONG_MAX and torch.device(device).type != "cpu":
@@ -252,7 +272,15 @@ def mulmod_int(a: int, b: int, N: int, depth: int | None = None, device="cuda") 
     L = N // DIGIT_BITS
 
     def digits(v):
-        return torch.from_numpy(digits_from_int(v if v < (1 << N) else -1, L)).to(device)
+        with span("digits_from_int"):
+            d = torch.from_numpy(digits_from_int(v if v < (1 << N) else -1, L))
+        with span("h2d"):
+            return d.to(device)
 
-    out = int_from_digits(mulmod(digits(a), digits(b), N, depth, canonical=True).cpu().numpy())
+    prod = mulmod(digits(a), digits(b), N, depth, canonical=True)
+    with span("d2h"):
+        host = prod.cpu().numpy()
+    del prod
+    with span("int_from_digits"):
+        out = int_from_digits(host)
     return out if out >= 0 else out + p     # the -1 form is the residue 2^N

@@ -441,11 +441,14 @@ def _dot_raw(planes: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
     """[B, 2M] int8 planes @ [2M, 2M] int8 block -> raw int32 plane sums
     (exact: |S_j| <= 2M 128^2).  torch._int_mm on the card wants more than
     16 rows, so a short batch is padded with zero rows.  On the card each
-    call counts as one "int8_gemm" launch."""
+    call counts as one "int8_gemm" launch; on every device its int8
+    operations, padded rows included, count under COUNTERS["int8_ops"]."""
     rows = planes.shape[0]
     if rows <= 16:
         planes = torch.cat([planes, planes.new_zeros((32 - rows, planes.shape[1]))])
-    out = torch._int_mm(planes, blk)[:rows]
+    with kernels.span("int8_gemm"):
+        out = torch._int_mm(planes, blk)[:rows]
+    kernels.COUNTERS["int8_ops"] += 2 * planes.shape[0] * planes.shape[1] * blk.shape[1]
     if out.is_cuda:
         kernels.LAUNCHES["int8_gemm"] += 1
     return out
@@ -1104,6 +1107,10 @@ def _mulmod_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return garner_pair_carry(*parts)
 
 
+def _fused_on() -> bool:
+    return os.environ.get("MPIR_FFT_NTT_FUSED", "0") == "1"
+
+
 def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The 4-step tier on (B, M) rows (y is x: a square), chunk by chunk
     (NTT4_CHUNK_BYTES): per operand ntt4_input_planes, per prime the
@@ -1115,7 +1122,7 @@ def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     from the fused kernel instead (ntt.py:978-989)."""
     B, M = x.shape
     square = y is x
-    fused = os.environ.get("MPIR_FFT_NTT_FUSED", "0") == "1"
+    fused = _fused_on()
     rows = max(1, NTT4_CHUNK_BYTES // (12 * M))
     post = _take_post(B, M)
     if post is not None:                    # chunks of whole K-row blocks
@@ -1164,7 +1171,9 @@ def mulmod_ntt(a: torch.Tensor, b: torch.Tensor, canonical: bool = False) -> tor
     (ntt.py:978-992: the fused 4-step check, which only M > 2048 reaches,
     inside _mulmod_4step).  Inputs may be redundant (|digit| <= 2^25); the
     output is bounded redundant digits (|d| < 2^16 + 2^12) unless
-    canonical=True.  `b is a` (a square) transforms once."""
+    canonical=True.  `b is a` (a square) transforms once.  The tier runs
+    inside the span mf.ntt.dense, mf.ntt.pair, mf.ntt.4step or
+    mf.ntt.fused (kernels.span)."""
     M = a.shape[-1]
     if not ntt_supported(M):
         raise ValueError(f"mulmod_ntt: M={M} must be a power of two in [4, {NTT_MAX_M}]")
@@ -1172,10 +1181,11 @@ def mulmod_ntt(a: torch.Tensor, b: torch.Tensor, canonical: bool = False) -> tor
     x = a.expand(shape).reshape(-1, M).contiguous()
     y = x if b is a else b.expand(shape).reshape(-1, M).contiguous()
     if M > TIER1_MAX_M:
-        tier = _mulmod_4step
+        tier, name = _mulmod_4step, "ntt.fused" if _fused_on() else "ntt.4step"
     elif _pair_on(M):
-        tier = _mulmod_pair
+        tier, name = _mulmod_pair, "ntt.pair"
     else:
-        tier = _mulmod_dense
-    d = tier(x, y).reshape(shape)
+        tier, name = _mulmod_dense, "ntt.dense"
+    with kernels.span(name):
+        d = tier(x, y).reshape(shape)
     return normmod(d) if canonical else d

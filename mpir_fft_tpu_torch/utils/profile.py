@@ -20,17 +20,21 @@ fixed seed; default 10^7, 10^8 and 10^9:
     ops", its five costliest kernels by name beside; the int8 GEMMs by
     cuBLASLt kernel name, with their launches per call), the device kernels
     launched per call, and the device's busy and idle share of the window;
-  * the host-clock split of mul() into its steps: planner, digits_from_int
-    of both operands, host-to-device copies, the synchronised flagship call
-    (after one warm-up call at the size), device-to-host copy,
+  * the split of one mul() call on the Python ints (after a warm-up call)
+    into its steps, read from the program's spans (kernels.span) in a
+    torch.profiler window: planner (mul()'s own time outside the spans
+    below), digits_from_int of both operands, host-to-device copies, the
+    flagship call (the host's time enqueueing it: the route's span), the
+    device-to-host copy (the host waits there for the card to finish) and
     int_from_digits;
-  * the peak device memory of one flagship call.
+  * the peak device memory of that mul() call.
 With --mulmod LG ... (e.g. 22 24 29), the same for mulmod_int at N = 2^LG,
 residues random from the seed: its plan (m, Lp), the device time of
 mulmod(canonical=True) on the digits (CUDA events), the profiler window's
-kernels (the long-row normmod as "normmod (long)"), the host-clock split of
-mulmod_int (digits_from_int, host to device, the synchronised mulmod,
-device to host, int_from_digits) and the peak device memory of one call.
+kernels (the long-row normmod as "normmod (long)"), the split of one
+mulmod_int call from its spans (digits_from_int, host to device, mulmod
+enqueued, device to host with the wait, int_from_digits), the host's share of
+it outside the card's work, and its peak device memory.
 Prints one JSON object per size, then the card's nvidia-smi name and
 power-limit line.  Needs a CUDA device; without one it raises."""
 
@@ -49,10 +53,10 @@ import torch
 
 from mpir_fft_tpu_torch import kernels
 from mpir_fft_tpu_torch.models.mul import (_driver, _select_plan, driver_stages, flagship_is_huge,
-                                           flagship_is_staged)
-from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, Ring, digits_from_int, int_from_digits
+                                           flagship_is_staged, mul)
+from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, Ring, digits_from_int
 from mpir_fft_tpu_torch.ops.mfa import fft_radix2_mfa, ifft_radix2_mfa
-from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_plan
+from mpir_fft_tpu_torch.ops.mulmod import inner_plan, mulmod, mulmod_int, mulmod_plan
 from mpir_fft_tpu_torch.ops.negacyclic import fft_negacyclic, ifft_negacyclic
 from mpir_fft_tpu_torch.ops.ntt import gemm_ops, ntt_supported
 from mpir_fft_tpu_torch.ops.pointwise import _use_ntt, base_serves
@@ -134,31 +138,48 @@ def device_kernels_per_call(fn, reps: int = 1) -> float:
                if ev.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
-def _host_steps(run, ha, hb, label: str, steps: dict):
-    """The host-clock steps around one call run(da, db) on the card, into
-    steps: host-to-device copies of the digits ha, hb, the synchronised call
-    (label; after a warm-up call), device-to-host copy, int_from_digits.
-    Returns da, db and the call's peak device memory (bytes)."""
-    dev = torch.device("cuda", 0)
-    t = time.perf_counter()
-    da, db = torch.from_numpy(ha).to(dev), torch.from_numpy(hb).to(dev)
-    torch.cuda.synchronize()
-    steps["host to device"] = time.perf_counter() - t
-    run(da, db)                           # warm-up: first launches of each op
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    prod = run(da, db)
-    torch.cuda.synchronize()
-    steps[label] = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated()
-    t = time.perf_counter()
-    hp = prod.cpu().numpy()
-    steps["device to host"] = time.perf_counter() - t
-    t = time.perf_counter()
-    int_from_digits(hp)
-    steps["int_from_digits"] = time.perf_counter() - t
-    return da, db, peak
+# the host steps of mul() / mulmod_int(): key -> the span it is read from
+HOST_STEPS = {"digits_from_int x2": "mf.digits_from_int", "host to device": "mf.h2d",
+              "device to host": "mf.d2h", "int_from_digits": "mf.int_from_digits"}
+
+
+def span_ms(prof) -> dict[str, float]:
+    """Host ms of a finished torch.profiler window's mf.* spans, summed by
+    name over the spans no span of the same name encloses (a recursive
+    mulmod's inner rings count once, inside the outer call)."""
+    out: dict[str, float] = {}
+    ends: dict[str, int] = {}
+    evs = sorted((ev for ev in prof.profiler.kineto_results.events()
+                  if ev.name().startswith("mf.")), key=lambda ev: ev.start_ns())
+    for ev in evs:
+        name, start = ev.name(), ev.start_ns()
+        if start < ends.get(name, -1):
+            continue
+        ends[name] = start + ev.duration_ns()
+        out[name] = out.get(name, 0.0) + ev.duration_ns() / 1e6
+    return out
+
+
+def host_steps(call, outer: str, route: str, label: str, device="cuda") -> tuple[dict, int]:
+    """The steps of one call() (mul() or mulmod_int() on Python ints) after a
+    warm-up call, in host ms from the program's spans: HOST_STEPS, `label`
+    from the span `route` (the host's time enqueueing the route), and, where
+    label is "flagship", "planner": the span `outer` less all of them.
+    Returns them and the call's peak device memory (bytes; 0 off the card)."""
+    on_card = torch.device(device).type == "cuda"
+    call()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    ms = span_ms(prof)
+    steps = {k: ms.get(name, 0.0) for k, name in HOST_STEPS.items()}
+    steps[label] = ms.get(route, 0.0)
+    if label == "flagship":
+        steps = {"planner": ms[outer] - sum(steps.values()), **steps}
+    return steps, peak
 
 
 def random_operand(rnd: random.Random, bits: int) -> int:
@@ -177,16 +198,12 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
     rnd = random.Random(SEED + bits_a + bits_b)
     a, b = random_operand(rnd, bits_a), random_operand(rnd, bits_b)
 
-    steps = {}
-    t = time.perf_counter()
     plan = _select_plan(bits_a, bits_b, "flagship", "cuda")
-    steps["planner"] = time.perf_counter() - t
     run = _driver("flagship", plan)
-    t = time.perf_counter()
-    ha = digits_from_int(a, cdiv(bits_a, DIGIT_BITS))
-    hb = digits_from_int(b, cdiv(bits_b, DIGIT_BITS))
-    steps["digits_from_int x2"] = time.perf_counter() - t
-    da, db, peak = _host_steps(run, ha, hb, "flagship", steps)
+    route = "mf.huge" if flagship_is_huge(plan) else "mf.flagship"
+    steps, peak = host_steps(lambda: mul(a, b), "mf.mul", route, "flagship")
+    da = torch.from_numpy(digits_from_int(a, cdiv(bits_a, DIGIT_BITS))).cuda()
+    db = torch.from_numpy(digits_from_int(b, cdiv(bits_b, DIGIT_BITS))).cuda()
     W = plan.W
     inner = inner_plan(W)
     return {
@@ -198,7 +215,7 @@ def profile_size(bits_a: int, bits_b: int, reps: int) -> dict:
                   "staged" if flagship_is_staged(plan) else "whole"),
         "device_ms": _events_ms(lambda: run(da, db), reps),
         **_window(lambda: run(da, db), reps),
-        "mul_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
+        "mul_host_steps_ms": steps,
         "peak_memory_gib": peak / 2**30,
     }
 
@@ -210,20 +227,19 @@ def profile_mulmod(lg: int, reps: int) -> dict:
     a, b = rnd.randrange((1 << N) + 1), rnd.randrange((1 << N) + 1)
     L = N // DIGIT_BITS
     run = lambda x, y: mulmod(x, y, N, canonical=True)   # noqa: E731
-    steps = {}
-    t = time.perf_counter()
-    ha = digits_from_int(a if a < (1 << N) else -1, L)
-    hb = digits_from_int(b if b < (1 << N) else -1, L)
-    steps["digits_from_int x2"] = time.perf_counter() - t
-    da, db, peak = _host_steps(run, ha, hb, "mulmod", steps)
+    steps, peak = host_steps(lambda: mulmod_int(a, b, N), "mf.mulmod_int", "mf.mulmod",
+                             "mulmod")
+    da = torch.from_numpy(digits_from_int(a if a < (1 << N) else -1, L)).cuda()
+    db = torch.from_numpy(digits_from_int(b if b < (1 << N) else -1, L)).cuda()
     plan = mulmod_plan(N)
     return {
         "mulmod_N": N,
         "plan": {"m": plan.m, "Lp": plan.Lp, "wp": plan.wp, "b": plan.b},
         "device_ms": _events_ms(lambda: run(da, db), reps),
         **_window(lambda: run(da, db), reps),
-        "mulmod_int_host_steps_ms": {k: v * 1e3 for k, v in steps.items()},
-        "host_share": 1.0 - steps["mulmod"] / sum(steps.values()),
+        "mulmod_int_host_steps_ms": steps,
+        # outside the card's work: neither enqueueing mulmod nor waiting for it
+        "host_share": 1.0 - (steps["mulmod"] + steps["device to host"]) / sum(steps.values()),
         "peak_memory_gib": peak / 2**30,
     }
 
