@@ -94,7 +94,8 @@
        and 64, the mulmod_int 2^29 ring's unweighting (32768, 4096), the
        NTT=0 10^8 inner weights, an odd step at L 256, an L % 4 != 0 row
        (L 71) (utils/transform_bench.measure_twiddle);
-     the 4-step tier (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise,
+     the 4-step tier's linked route (MPIR_FFT_NTT_FUSED=0:
+       ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise,
        ntt4_inv_twiddle, ntt4_residues, garner_residues, and its GEMM) on
        the 2x10^9-bit plan's whole pointwise batch (131072, 4096), each link
        fed the previous one's real output, the plain versions compared
@@ -105,11 +106,14 @@
        its residues identical to the plain pipeline's and to the linked
        route's, timed beside its int8 and int32 bounds and the linked
        route (ntt4_input_planes, 18 GEMMs, the links), with ptxas's lines
-       and cuobjdump's count of its tensor-core MMA instructions; fused
+       and cuobjdump's count of its tensor-core MMA instructions; the whole
+       tier on B 1, 17 and 89 rows of M 4096 and 8192, its default (fused)
+       route against the linked one, identical, timed in turns (medians of
+       24 calls a side), product and square; fused
        (#9's counterpart: one whole block in one launch) forward and
        inverse at (64, 512), (256, 512) and (128, 1024), raw digits
        identical.  Then an A/B record on the same
-       (131072, 4096) operands: mulmod_ntt's 4-step tier against the
+       (131072, 4096) operands: mulmod_ntt's 4-step tier (fused) against the
        recursive mulmod_fft at mulmod_plan(65536), equal after normmod, both
        timed.
    Canonical outputs must be equal; the NTT links' outputs identical;
@@ -142,7 +146,8 @@
        Lp 48 on the schoolbook / Lp 64 on the dense NTT, each weighted inner
        transform one transform_small_half launch: no twiddle_half, no plain
        transform_small, no NTT link at 1.2x10^9, no conv_base at 1.5x10^9),
-       2x10^9 (depth 15, w 2, L 4096: the 4-step tier; peak memory at most
+       2x10^9 (depth 15, w 2, L 4096: the 4-step tier's fused route, no
+       link and no GEMM; peak memory at most
        32 GiB), then an A/B record on its operands: models/huge.py mul_huge
        called directly on that plan (exactly 2^29 elements, so mul() stages
        it) against the staged route, digits identical, device ms
@@ -174,13 +179,15 @@
      mul(a, b, driver=k) for the six other drivers at 2x10^6 x 1.4x10^6
        bits, full compare (mfa and mfa_trunc through the column kernel);
      mulmod_int at N = 2^22 and 2^24 (inner rings Lp 256 and 512, on the
-       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier; one ring,
+       NTT) and 2^29 (inner m 32768, Lp 4096: the 4-step tier's fused
+       route; one ring,
        so its transforms take the ladder: ladder_pre_half forward, a
        twiddle_half pass after the inverse; the final normmod on the long
        route at every N), against
        Python's product folded mod 2^N+1 (2^22) or the port's own mul,
-       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=1 (ntt4_fused),
-       both device times printed side by side;
+       folded; 2^29 once more under MPIR_FFT_NTT_FUSED=0 (the linked
+       route: ntt4_input_planes, the GEMMs, the links), both device times
+       printed side by side;
        2^30 (inner m 65536, Lp 4096; the final normmod one row of 2^26
        digits);
      the pair tier (MPIR_FFT_NTT_PAIR=1, the reference's opt-in pointwise):
@@ -321,9 +328,7 @@ SHARD_FULL_BITS = 100_000_000
 # schoolbook, #9 and ntt4_fused
 SHARD_KERNELS = ("ladder", "ladder_pe", "mfa_cols", "normmod", "canonicalize", "twiddle_half",
                  "sqrt2_top_fwd", "sqrt2_top_inv", "transform_small", "input_planes",
-                 "mid_planes", "garner_carry", "ntt4_input_planes", "ntt4_fwd_twiddle",
-                 "ntt4_pointwise", "ntt4_inv_twiddle", "ntt4_residues", "garner_residues",
-                 "int8_gemm")
+                 "mid_planes", "garner_carry", "ntt4_fused", "garner_residues", "int8_gemm")
 MAX_PEAK_GIB_2E9 = 32.0
 MAX_PEAK_GIB_UNB_HUGE = 24.0
 SLICES = 4          # the plain 4-step links are held slice by slice
@@ -597,7 +602,7 @@ def main() -> int:
     from mpir_fft_tpu_torch.utils.ladder_bench import (huge_passes, ladder_calls,
                                                        measure_launches, measure_post)
     from mpir_fft_tpu_torch.utils.params import cdiv, choose_params, plan_for_depth
-    from mpir_fft_tpu_torch.utils.prof_pointwise import pair_tier, profile_pointwise
+    from mpir_fft_tpu_torch.utils.prof_pointwise import env, pair_tier, profile_pointwise
     from mpir_fft_tpu_torch.utils.transform_bench import (
         CONV_SHAPES, NORMMOD_LONG_SHAPES, NORMMOD_SHAPES, TWIDDLE_SHAPES, WHOLE_SHAPES, ab_ms,
         ladder_route, measure_canon,
@@ -1271,7 +1276,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ab4 = time_ms(lambda: mulmod_ntt(x, y), 3, 1)
     abr = time_ms(lambda: mulmod_fft(x, y, mp65), 2, 1)
-    print(f"A/B (record, not a claim) on ({tB}, {tM}): mulmod_ntt 4-step {ab4:.3f} ms, "
+    print(f"A/B (record, not a claim) on ({tB}, {tM}): mulmod_ntt 4-step (fused route) "
+          f"{ab4:.3f} ms, "
           f"mulmod_fft at {mp65} (m {mp65.m}, Lp {mp65.Lp}) {abr:.3f} ms; equal after normmod")
     del x, y
     torch.cuda.empty_cache()
@@ -1333,6 +1339,32 @@ def main() -> int:
     print(f"ntt4_fused SASS: {sass_mma_count(sass, 'ntt4_fused_kernel')}")
     print(f"ntt4_fused phase: {time.perf_counter() - t_phase:.1f} s, of which waiting for "
           f"cuobjdump {time.perf_counter() - t_sass:.1f} s")
+
+    # the 4-step tier at small batches (a mulmod_int ring, the flagship's L
+    # 4096 / 8192 plans), whole: the default (fused) route against the
+    # linked one (MPIR_FFT_NTT_FUSED=0), identical, timed in turns (ab_ms:
+    # a, b, b, a) over 12 rounds, 24 calls a side, product and square
+    def linked_tier(u, v):
+        with env("MPIR_FFT_NTT_FUSED", "0"):
+            return mulmod_ntt(u, v)
+
+    small_ab = {}
+    for sM in (4096, 8192):
+        for sB in (1, 17, 89):
+            x = rand((sB, sM), -(1 << 17), 1 << 17)
+            y = rand((sB, sM), -(1 << 17), 1 << 17)
+            identical(("4-step default vs linked", sB, sM), mulmod_ntt(x, y), linked_tier(x, y))
+            identical(("4-step default vs linked, square", sB, sM), mulmod_ntt(x, x),
+                      linked_tier(x, x))
+            f_ms, l_ms = ab_ms(lambda: mulmod_ntt(x, y), lambda: linked_tier(x, y), 12)
+            fs_ms, ls_ms = ab_ms(lambda: mulmod_ntt(x, x), lambda: linked_tier(x, x), 12)
+            small_ab[f"{sB}x{sM}"] = {"fused": f_ms, "linked": l_ms, "fused_square": fs_ms,
+                                      "linked_square": ls_ms}
+            print(f"4-step tier ({sB}, {sM}), medians of 24 in turns (record, not a claim): "
+                  f"product fused {f_ms:.4f} ms, linked {l_ms:.4f} ms ({l_ms / f_ms:.2f}x); "
+                  f"square fused {fs_ms:.4f} ms, linked {ls_ms:.4f} ms ({ls_ms / fs_ms:.2f}x)")
+    print("4-step tier small batches, ms: " + json.dumps(small_ab))
+    del x, y
 
     # #9's counterpart: one whole block's transform in one launch (the
     # column kernel on one column), raw digits identical to its plain
@@ -1421,13 +1453,17 @@ def main() -> int:
                     "canonicalize") + ntt
     no_twiddle = ("twiddle_half", "transform_small")
     no_school = ("conv_base",)
-    ntt4 = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
-            "ntt4_residues", "garner_residues", "int8_gemm")
-    even_ntt4 = ("ladder", "ladder_pre_half", "normmod", "canonicalize",
-                 "garner_residues_post") + tuple(k for k in ntt4 if k != "garner_residues")
-    # the 4-step leaf, not the recursive route nor the dense tier
+    # the 4-step tier's default route (the fused kernel, then Garner), and
+    # the links of its linked route (MPIR_FFT_NTT_FUSED=0, with the GEMMs)
+    ntt4 = ("ntt4_fused", "garner_residues")
+    ntt4_links = ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
+                  "ntt4_residues")
+    even_ntt4 = ("ladder", "ladder_pre_half", "normmod", "canonicalize", "garner_residues_post",
+                 "ntt4_fused")
+    # the 4-step leaf's default route, not the recursive route nor the
+    # dense tier nor the linked route
     no_rec = ("conv_base", "transform_small", "transform_small_half", "twiddle_half",
-              "input_planes", "mid_planes", "garner_carry", "ntt4_fused")
+              "input_planes", "mid_planes", "garner_carry", "int8_gemm") + ntt4_links
 
     def residues_agree(prod, x, y, ps):
         return all(prod % p == (x % p) * (y % p) % p for p in ps)
@@ -1536,7 +1572,7 @@ def main() -> int:
     # transform_small_half launch per weighted inner transform
     staged_rec = zerotop + ("transform_small_half", "normmod")
     no_post = ("ladder_pe", "mfa_cols", "sqrt2_top_fwd") + posts + no_twiddle
-    no_ntt4 = tuple(k for k in ntt4 if k != "int8_gemm") + ("ntt4_fused",)
+    no_ntt4 = ntt4_links + ntt4
     drive(REC5_BITS, "1.2e9", (14, 5, 5120), staged_rec + ("conv_base", "sqrt2_top_inv"), False,
           primes[:2], 1, no_post + ntt + no_ntt4)
     drive(REC6_BITS, "1.5e9", (14, 6, 6144), staged_rec + ntt, False, primes[:2], 1,
@@ -1638,28 +1674,21 @@ def main() -> int:
     no_mfa = ("mfa_cols", "ladder_pe")
     for n_bits in MULMOD_N[:2]:
         mulmod_case(n_bits, "", rec_flat_ntt, no_school + no_mfa + ("transform_small_half",))
-    # 2^29: inner rings of Lp 4096 on the 4-step tier, linked and fused
+    # 2^29: inner rings of Lp 4096 on the 4-step tier, fused (the default)
+    # and linked
     ring_4step = ("ladder", "ladder_pre_half", "twiddle_half", "normmod", "normmod_long",
                   "canonicalize") + ntt4
     no_ring = tuple(k for k in no_rec if k != "twiddle_half") + no_mfa
     mp, x, y, want = mulmod_case(MULMOD_N[2], "", ring_4step, no_ring)
     assert (mp.m, mp.Lp) == (32768, 4096), mp
-    old = os.environ.get("MPIR_FFT_NTT_FUSED")
-    os.environ["MPIR_FFT_NTT_FUSED"] = "1"
-    try:
-        mulmod_case(MULMOD_N[2], " fused", ("ladder", "normmod", "normmod_long", "canonicalize",
-                                            "ntt4_fused", "garner_residues"),
-                    ("ntt4_input_planes", "int8_gemm", "conv_base", "transform_small",
-                     "input_planes") + no_mfa,
+    with env("MPIR_FFT_NTT_FUSED", "0"):
+        mulmod_case(MULMOD_N[2], " linked", ("ladder", "normmod", "normmod_long", "canonicalize",
+                                             "garner_residues", "int8_gemm") + ntt4_links,
+                    ("ntt4_fused", "conv_base", "transform_small", "input_planes") + no_mfa,
                     (x, y), want)
-    finally:
-        if old is None:
-            del os.environ["MPIR_FFT_NTT_FUSED"]
-        else:
-            os.environ["MPIR_FFT_NTT_FUSED"] = old
-    print(f"mulmod_int 2^29 device ms (record, not a claim): linked "
-          f"{e2e['mulmod_2^29_device_ms']:.3f}, MPIR_FFT_NTT_FUSED=1 "
-          f"{e2e['mulmod_2^29_fused_device_ms']:.3f}")
+    print(f"mulmod_int 2^29 device ms (record, not a claim): fused (the default) "
+          f"{e2e['mulmod_2^29_device_ms']:.3f}, MPIR_FFT_NTT_FUSED=0 (linked) "
+          f"{e2e['mulmod_2^29_linked_device_ms']:.3f}")
     # 2^30: the final normmod is one row of 2^26 digits, where 2W = 2^31
     # passes a C int; inner rings of Lp 4096 on the 4-step tier, as at 2^29
     mp, *_ = mulmod_case(MULMOD_N[3], "", ring_4step, no_ring)
@@ -1951,7 +1980,7 @@ def main() -> int:
     huge_route = ("ladder", "ladder_pe", "normmod", "twiddle_half", "canonicalize") + ntt4
     no_huge = ("sqrt2_top_fwd", "sqrt2_top_inv", "mfa_cols", "ladder_pre_half", "conv_base",
                "normmod_long", "transform_small", "transform_small_half", "input_planes",
-               "mid_planes", "garner_carry", "ntt4_fused") + posts
+               "mid_planes", "garner_carry") + ntt4_links + posts
     host = {}
 
     def run4():

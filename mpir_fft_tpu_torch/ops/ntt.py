@@ -18,11 +18,16 @@ stay below M (2^15 + 2^9 + 2)^2 < 2^41.1 < P/2.
 4-step tier, M = 4096 and 8192: primes PRIMES_T2 (P ~ 2^50.1; |c| <
 2^43.1 < P/2), k = 3, M = m1 m2 (m1 = 2^(lg M // 2)) and each transform two
 passes of m-point plane-block products with a twiddle between them
-(_ntt4_mats; the negacyclic psi weights ride F1/T and Ti/G1).  The rows of
-every GEMM are B*m long and contracted last, so each one is a single 2-D
-torch._int_mm; the transposes of the 4-step happen inside the link kernels.
-The batch runs in row chunks that keep the largest int32 GEMM output under
-NTT4_CHUNK_BYTES.
+(_ntt4_mats; the negacyclic psi weights ride F1/T and Ti/G1).  By default
+each row's whole 3-prime pipeline runs in one kernel (ntt4_fused: wgmma
+block products, planes, twiddles and pointwise in registers and shared
+memory, only the residues written).  MPIR_FFT_NTT_FUSED=0 (read at call
+time) takes the linked route, the reference's default: the rows of every
+GEMM are B*m long and contracted last, so each one is a single 2-D
+torch._int_mm, and the transposes of the 4-step happen inside the link
+kernels.  Either route runs the batch in row chunks that keep its largest
+int32 output (the linked route's GEMM sums, the fused route's residues:
+both 12 B M bytes a chunk) under NTT4_CHUNK_BYTES.
 
 Garner's mixed radix gives the signed coefficient c exactly in int64; its
 three base-2^16 pieces land at digits i, i+1, i+2 (negacyclic) and one
@@ -54,9 +59,9 @@ links between the GEMMs run as hand-written kernels -- csrc/ntt_links.cu
 ntt_links.cu's at two more primes), csrc/ntt4.cu
 (ntt4_input_planes, ntt4_fwd_twiddle, ntt4_pointwise, ntt4_inv_twiddle,
 ntt4_residues) and csrc/ntt4_fused.cu (ntt4_fused, the whole 4-step
-pipeline per row under MPIR_FFT_NTT_FUSED=1) -- wrapped here beside their plain versions.  The
-GEMMs themselves are torch._int_mm (the reference leaves them to XLA,
-outside any kernel)."""
+pipeline per row, the tier's default route) -- wrapped here beside their
+plain versions.  The GEMMs of the other routes are torch._int_mm (the
+reference leaves them to XLA, outside any kernel)."""
 
 from __future__ import annotations
 
@@ -1059,12 +1064,13 @@ def _take_post(B: int, M: int) -> tuple | None:
     return hook[1], hook[2]
 
 
-# The 4-step tier runs the batch in row chunks whose largest int32 GEMM
-# output (Bc*m rows of 3m' sums, 12 Bc M bytes) stays under this many bytes:
-# the port's counterpart of the reference's _PW_CHUNK_BYTES (models/mul.py),
-# sized for an 80 GB card.  At the 2x10^9-bit plan's (131072, 4096) batch
-# that is 4 chunks of 32768 rows; unchunked, the GEMM outputs alone would
-# take 6 GiB each.
+# The 4-step tier runs the batch in row chunks whose largest int32 output
+# stays under this many bytes: the linked route's GEMM sums (Bc*m rows of
+# 3m' sums) and the fused route's (3, Bc, M) residues are both 12 Bc M
+# bytes.  The port's counterpart of the reference's _PW_CHUNK_BYTES
+# (models/mul.py), sized for an 80 GB card.  At the 2x10^9-bit plan's
+# (131072, 4096) batch that is 4 chunks of 32768 rows; unchunked, the GEMM
+# outputs alone would take 6 GiB each.
 NTT4_CHUNK_BYTES = 2 << 30
 
 
@@ -1108,18 +1114,20 @@ def _mulmod_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_on() -> bool:
-    return os.environ.get("MPIR_FFT_NTT_FUSED", "0") == "1"
+    """The 4-step tier's route: the fused kernel unless MPIR_FFT_NTT_FUSED=0."""
+    return os.environ.get("MPIR_FFT_NTT_FUSED", "1") != "0"
 
 
 def _mulmod_4step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The 4-step tier on (B, M) rows (y is x: a square), chunk by chunk
-    (NTT4_CHUNK_BYTES): per operand ntt4_input_planes, per prime the
-    forward legs (F1 GEMM, ntt4_fwd_twiddle, F2 GEMM), ntt4_pointwise, the
-    inverse leg (G2 GEMM, ntt4_inv_twiddle, G1 GEMM, ntt4_residues), then
-    garner_residues (the flow of ntt.py:1027-1046; with the garner_post
-    leg where the hook applies, the chunks whole K-row blocks).  With
-    MPIR_FFT_NTT_FUSED=1 (read at call time) each chunk's residues come
-    from the fused kernel instead (ntt.py:978-989)."""
+    (NTT4_CHUNK_BYTES): each chunk's three residue rows from ntt4_fused
+    (the reference's opt-in fused pipeline, ntt.py:978-989), then
+    garner_residues, with the garner_post leg where the hook applies (the
+    chunks whole K-row blocks).  Under MPIR_FFT_NTT_FUSED=0 (read at call
+    time) the residues come from the linked route, the reference's default
+    (ntt.py:1027-1046): per operand ntt4_input_planes, per prime the
+    forward legs (F1 GEMM, ntt4_fwd_twiddle, F2 GEMM), ntt4_pointwise and
+    the inverse leg (G2 GEMM, ntt4_inv_twiddle, G1 GEMM, ntt4_residues)."""
     B, M = x.shape
     square = y is x
     fused = _fused_on()
@@ -1151,7 +1159,9 @@ def gemm_ops(B: int, M: int) -> int:
     [B m2, 3 m1] @ [3 m1, 3 m1] and an [B m1, 3 m2] @ [3 m2, 3 m2] GEMM on
     the 4-step tier, under the pair tier (MPIR_FFT_NTT_PAIR=1 where it
     serves M) five primes of three [B, M] @ [M, M] GEMMs; batches of up to
-    16 rows padded to 32, as _dot_raw pads them."""
+    16 rows padded to 32, as _dot_raw pads them.  On the card the 4-step
+    tier's fused route does the same products inside ntt4_fused, outside
+    _dot_raw and COUNTERS["int8_ops"]."""
     def mm(rows: int, k: int) -> int:
         return 2 * (32 if rows <= 16 else rows) * k * k
 
@@ -1166,14 +1176,16 @@ def gemm_ops(B: int, M: int) -> int:
 def mulmod_ntt(a: torch.Tensor, b: torch.Tensor, canonical: bool = False) -> torch.Tensor:
     """(a * b) mod 2^(16M)+1 on digit vectors [..., M] (broadcast), M a
     power of two in [4, 8192]: the dense tier up to M = 2048, the 4-step
-    tier above; with MPIR_FFT_NTT_PAIR=1 (read at call time) the pair tier
-    where pair_supported(M) (M 8..2048), in the reference's order
-    (ntt.py:978-992: the fused 4-step check, which only M > 2048 reaches,
-    inside _mulmod_4step).  Inputs may be redundant (|digit| <= 2^25); the
-    output is bounded redundant digits (|d| < 2^16 + 2^12) unless
-    canonical=True.  `b is a` (a square) transforms once.  The tier runs
-    inside the span mf.ntt.dense, mf.ntt.pair, mf.ntt.4step or
-    mf.ntt.fused (kernels.span)."""
+    tier above (on the fused kernel; its linked route under
+    MPIR_FFT_NTT_FUSED=0); with MPIR_FFT_NTT_PAIR=1 (read at call time)
+    the pair tier where pair_supported(M) (M 8..2048), in the reference's
+    order (ntt.py:978-992: the fused 4-step check, which only M > 2048
+    reaches, inside _mulmod_4step).  Inputs may be redundant (|digit| <=
+    2^25); the output is bounded redundant digits (|d| < 2^16 + 2^12)
+    unless canonical=True.  `b is a` (a square) transforms once.  The tier
+    runs inside the span mf.ntt.dense, mf.ntt.pair, mf.ntt.fused (the
+    4-step tier's fused route) or mf.ntt.4step (its linked route)
+    (kernels.span)."""
     M = a.shape[-1]
     if not ntt_supported(M):
         raise ValueError(f"mulmod_ntt: M={M} must be a power of two in [4, {NTT_MAX_M}]")

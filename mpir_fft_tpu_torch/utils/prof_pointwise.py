@@ -13,9 +13,9 @@ card, the host clock on the CPU), on rows of B products of M digits:
     (both operands), fwd_gemms_x6, mid_planes_x3, inv_gemms_x3, garner, and
     sum_parts_ms;
   * --ab4 (at M 2048, the dense tier's widest ring): mulmod_ntt_4step, the
-    same rings through the 4-step tier (its primes and three planes; the
-    module's TIER1_MAX_M lowered for the call, as the reference's tool
-    does);
+    same rings through the 4-step tier's linked route (its primes and three
+    planes; the module's TIER1_MAX_M lowered for the call, as the
+    reference's tool does);
   * --pair (where ops/ntt.pair_supported(M)): the pair tier's split, the
     same rows with a pair_ prefix (input planes of both operands, ten
     forward GEMMs [B, M] @ [M, M], five mid_planes, five inverse GEMMs,
@@ -57,17 +57,23 @@ def _ms(fn, reps: int, dev: torch.device) -> float:
 
 
 @contextlib.contextmanager
-def pair_tier(on: bool = True):
-    """MPIR_FFT_NTT_PAIR set to 1 (on) or unset, restored after."""
-    old = os.environ.pop("MPIR_FFT_NTT_PAIR", None)
-    if on:
-        os.environ["MPIR_FFT_NTT_PAIR"] = "1"
+def env(name: str, value: str | None):
+    """The environment variable `name` set to `value` (None: unset),
+    restored after."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("MPIR_FFT_NTT_PAIR", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["MPIR_FFT_NTT_PAIR"] = old
+            os.environ[name] = old
+
+
+def pair_tier(on: bool = True):
+    """MPIR_FFT_NTT_PAIR set to 1 (on) or unset, restored after."""
+    return env("MPIR_FFT_NTT_PAIR", "1" if on else None)
 
 
 def _link(out: dict, name: str, ms: float, nbytes: float) -> None:
@@ -126,11 +132,14 @@ def split(a: torch.Tensor, b: torch.Tensor, reps: int, pair: bool = False) -> di
 
 
 def ab_4step_ms(a: torch.Tensor, b: torch.Tensor, reps: int) -> float:
-    """mulmod_ntt on rings of M = 2048 digits through the 4-step tier."""
+    """mulmod_ntt on rings of M = 2048 digits through the 4-step tier's
+    linked route (MPIR_FFT_NTT_FUSED=0: the fused kernel serves M 4096 and
+    8192 only)."""
     saved = ntt.TIER1_MAX_M
     ntt.TIER1_MAX_M = a.shape[1] // 2
     try:
-        return _ms(lambda: ntt.mulmod_ntt(a, b), reps, a.device)
+        with env("MPIR_FFT_NTT_FUSED", "0"):
+            return _ms(lambda: ntt.mulmod_ntt(a, b), reps, a.device)
     finally:
         ntt.TIER1_MAX_M = saved
 

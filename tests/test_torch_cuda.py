@@ -51,6 +51,7 @@ from mpir_fft_tpu_torch.ops.fused import (
     whole_cluster,
 )
 from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits
+from mpir_fft_tpu_torch.ops.mulmod import mulmod
 from mpir_fft_tpu_torch.ops import ntt as ntt_mod
 from mpir_fft_tpu_torch.ops.ntt import (
     MID_PLANES_PRIMES,
@@ -853,7 +854,9 @@ def test_mul_pair_tier_on_gpu(dev, monkeypatch):
 
 def test_ntt4_tier_at_m2048(dev, monkeypatch):
     """The 4-step links at M 2048 (prof_pointwise --ab4: the module's
-    TIER1_MAX_M lowered): equal to the dense tier after normmod."""
+    TIER1_MAX_M lowered, the linked route MPIR_FFT_NTT_FUSED=0): equal to
+    the dense tier after normmod."""
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
     rng = np.random.default_rng(4)
     x = _rand(rng, (64, 2048), -(1 << 17), 1 << 17, dev)
     y = _rand(rng, (64, 2048), -(1 << 17), 1 << 17, dev)
@@ -979,10 +982,11 @@ def test_ntt4_wrappers_reject(dev):
 
 
 @pytest.mark.parametrize("bits,L", [(524200, 4096), (1048500, 8192)])
-def test_mul_tier2_plans_on_gpu(dev, bits, L):
+def test_mul_tier2_plans_on_gpu(dev, monkeypatch, bits, L):
     """plan_for_depth(bits, bits, 3) (L 4096, L 8192; conv 32): exact, the
-    pointwise on the 4-step tier (18 GEMMs for a product, 12 for a square),
-    nothing recursive."""
+    pointwise on the 4-step tier's linked route (MPIR_FFT_NTT_FUSED=0; 18
+    GEMMs for a product, 12 for a square), nothing recursive."""
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
     plan = plan_for_depth(bits, bits, 3, sqrt2=True)
     assert plan.W // 16 == L
     rnd = random.Random(bits)
@@ -1003,6 +1007,68 @@ def test_mul_tier2_plans_on_gpu(dev, bits, L):
     kernels.reset_launches()
     assert int_from_digits(mpn_sqr_flagship(da, plan).cpu().numpy()) == a * a
     assert kernels.LAUNCHES["int8_gemm"] == 12 and kernels.LAUNCHES["ntt4_input_planes"] == 1
+
+
+@pytest.mark.parametrize("bits,L", [(524200, 4096), (1048500, 8192)])
+def test_mul_tier2_plans_fused_on_gpu(dev, monkeypatch, bits, L):
+    """The same plans on the 4-step tier's default route: exact, one
+    ntt4_fused launch for the product and one (the square instance) for the
+    square, no link kernel and no int8 GEMM."""
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED", raising=False)
+    plan = plan_for_depth(bits, bits, 3, sqrt2=True)
+    assert plan.W // 16 == L
+    rnd = random.Random(bits + 1)
+    a = rnd.getrandbits(bits) | (1 << (bits - 1))
+    b = rnd.getrandbits(bits) | (1 << (bits - 1))
+    da = torch.from_numpy(digits_from_int(a, -(-bits // 16))).to(dev)
+    db = torch.from_numpy(digits_from_int(b, -(-bits // 16))).to(dev)
+    for want, run in ((a * b, lambda: mpn_mul_flagship(da, db, plan)),
+                      (a * a, lambda: mpn_sqr_flagship(da, plan))):
+        kernels.reset_launches()
+        assert int_from_digits(run().cpu().numpy()) == want
+        got = dict(kernels.LAUNCHES)
+        assert got["ntt4_fused"] == 1 and got["garner_residues"] == 1
+        for name in ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise",
+                     "ntt4_inv_twiddle", "ntt4_residues", "int8_gemm", "conv_base"):
+            assert got[name] == 0, name
+
+
+# N 2^16 / 2^17: B rings of M 4096 / 8192 on the base leaf, squares; 2^29:
+# one row of 32768 inner rings of M 4096, a product (the Pepin chain's
+# path at half its size); chunk_rows: NTT4_CHUNK_BYTES patched to that many
+# rows, so that the remainder is a chunk of its own
+@pytest.mark.parametrize("N,B,chunk_rows", [
+    (1 << 16, 1, None), (1 << 16, 17, None), (1 << 16, 89, None), (1 << 16, 89, 64),
+    (1 << 17, 1, None), (1 << 17, 17, None), (1 << 17, 89, None), (1 << 17, 89, 64),
+    (1 << 29, 1, 20000)])
+def test_mulmod_default_route_is_fused_on_gpu(dev, monkeypatch, N, B, chunk_rows):
+    """mulmod(x, x, N, canonical=True) through the 4-step tier's default
+    route launches ntt4_fused (and garner_residues) once a chunk and no
+    ntt4_input_planes, link or int8 GEMM, and equals the linked route
+    (MPIR_FFT_NTT_FUSED=0) digit for digit."""
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED", raising=False)
+    L = N // 16
+    M, rows = (L, B) if L <= 8192 else (4096, 32768 * B)
+    chunks = 1
+    if chunk_rows is not None:
+        monkeypatch.setattr(ntt_mod, "NTT4_CHUNK_BYTES", chunk_rows * 12 * M)
+        chunks = -(-rows // chunk_rows)
+        assert chunks == 2
+    x = _rand(np.random.default_rng(N + B), (B, L), 0, 1 << 16, dev)
+    kernels.reset_launches()
+    got = mulmod(x, x, N, canonical=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ntt4_fused"] == chunks
+    assert kernels.LAUNCHES["garner_residues"] == chunks
+    for name in ("ntt4_input_planes", "ntt4_fwd_twiddle", "ntt4_pointwise", "ntt4_inv_twiddle",
+                 "ntt4_residues", "int8_gemm"):
+        assert kernels.LAUNCHES[name] == 0, name
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
+    kernels.reset_launches()
+    want = mulmod(x, x, N, canonical=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ntt4_fused"] == 0 and kernels.LAUNCHES["ntt4_input_planes"] > 0
+    assert torch.equal(got, want)
 
 
 def test_mulmod_int_fused_on_gpu(dev, monkeypatch):

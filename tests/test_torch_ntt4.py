@@ -12,6 +12,7 @@ so digits are compared after normmod, inside the reference's bound
 |d| < 2^16 + 2^12.  Everything is integer arithmetic: the tolerance is
 exact."""
 
+import contextlib
 import dataclasses
 import functools
 import random
@@ -29,10 +30,11 @@ from mpir_fft_tpu.ops.fused import force_pallas
 from mpir_fft_tpu.ops.limb import normmod as jnormmod
 from mpir_fft_tpu.utils.params import plan_for_depth as j_plan_for_depth
 from mpir_fft_tpu_torch.models import mul as tmul
+from mpir_fft_tpu_torch.ops import fused as tfused
 from mpir_fft_tpu_torch.ops import mulmod as tmm
 from mpir_fft_tpu_torch.ops import ntt as tntt
 from mpir_fft_tpu_torch.ops import pointwise as tpw
-from mpir_fft_tpu_torch.ops.limb import digits_from_int, int_from_digits, normmod
+from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod
 from mpir_fft_tpu_torch.utils.interop import digits_to_tensor, plan_from_reference, tensor_to_digits
 from mpir_fft_tpu_torch.utils.params import plan_for_depth
 
@@ -417,11 +419,13 @@ def test_mulmod_ntt4_square_broadcast_and_chunks(monkeypatch):
 def test_mulmod_ntt4_fused_matches_reference(monkeypatch):
     """#16: with MPIR_FFT_NTT_FUSED=1 the chunks go through ntt4_fused (its
     plain version on the CPU), equal to the reference's _mulmod_ntt_fused
-    (interpret mode) after normmod and to the linked path."""
+    (interpret mode) after normmod and to the linked path
+    (MPIR_FFT_NTT_FUSED=0)."""
     M = 4096
     rng = np.random.default_rng(6)
     a = rng.integers(-(1 << 24), 1 << 24, (LINK_B, M)).astype(np.int32)
     b = rng.integers(-(1 << 24), 1 << 24, (LINK_B, M)).astype(np.int32)
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
     linked = tntt.mulmod_ntt(T(a), T(b))
     monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "1")
     calls = []
@@ -434,6 +438,95 @@ def test_mulmod_ntt4_fused_matches_reference(monkeypatch):
     with force_pallas(True):
         want = jntt._mulmod_ntt_fused(jnp.asarray(a), jnp.asarray(b))
     assert np.array_equal(normmod(got).numpy(), np.asarray(jnormmod(want)))
+
+
+def _route_log(monkeypatch):
+    """Record the spans mulmod_ntt enters (kernels.span's names) and each
+    ntt4_fused call as (rows, square, the spans open around it)."""
+    stack, entered, calls = [], [], []
+
+    @contextlib.contextmanager
+    def span(name):
+        stack.append(name)
+        entered.append(name)
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    real = tntt.ntt4_fused
+    monkeypatch.setattr(tntt.kernels, "span", span)
+    monkeypatch.setattr(tntt, "ntt4_fused", lambda x, y: calls.append(
+        (x.shape[0], x is y, tuple(stack))) or real(x, y))
+    return entered, calls
+
+
+@pytest.mark.parametrize("digits", ["random", "extreme"])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("M", [4096, 8192])
+def test_mulmod_ntt4_default_route_is_fused(monkeypatch, M, square, digits):
+    """With MPIR_FFT_NTT_FUSED unset the 4-step tier takes ntt4_fused (its
+    plain version on the CPU) once a chunk, inside the span mf.ntt.fused:
+    here two chunks (NTT4_CHUNK_BYTES patched: 2 rows and 1), a product or
+    a square, digits random or at the redundant extremes (|d| = 2^25).
+    Equal digit for digit to the linked route (MPIR_FFT_NTT_FUSED=0, span
+    mf.ntt.4step), and after normmod to the reference's default 4-step
+    path and to Python's product."""
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED", raising=False)
+    rng = np.random.default_rng(M + 2 * square + (digits == "extreme"))
+    if digits == "random":
+        a = rng.integers(-(1 << 25), (1 << 25) + 1, (3, M)).astype(np.int32)
+        b = rng.integers(-(1 << 25), (1 << 25) + 1, (3, M)).astype(np.int32)
+    else:
+        a = ((rng.integers(0, 2, (3, M)) * 2 - 1) << 25).astype(np.int32)
+        b = np.full((3, M), 0xFFFF, np.int32)
+    if square:
+        b = a
+    x = T(a)
+    y = x if square else T(b)
+    entered, calls = _route_log(monkeypatch)
+    monkeypatch.setattr(tntt, "NTT4_CHUNK_BYTES", 2 * 12 * M)
+    got = tntt.mulmod_ntt(x, y)
+    assert calls == [(2, square, ("ntt.fused",)), (1, square, ("ntt.fused",))]
+    assert entered[0] == "ntt.fused" and "ntt.4step" not in entered
+    assert int(got.abs().max()) < DIGIT_BOUND
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
+    entered.clear()
+    linked = tntt.mulmod_ntt(x, y)
+    assert len(calls) == 2 and entered[0] == "ntt.4step" and "ntt.fused" not in entered
+    assert torch.equal(got, linked)
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED")
+    canon = normmod(got).numpy()
+    _oracle_rows(canon, a, b, M)
+    want = jntt.mulmod_ntt(jnp.asarray(a), jnp.asarray(b), canonical=True)
+    assert np.array_equal(canon, np.asarray(want))
+
+
+@pytest.mark.parametrize("M", [4096, 8192])
+def test_mulmod_ntt4_fused_route_takes_the_garner_post_hook(monkeypatch, M):
+    """The staged flagship's garner_post hook on the default (fused) route:
+    consumed, the chunks whole K-row blocks (2K rows and K here), each
+    through ntt4_fused; the digits equal the leg run after the unhooked
+    product (post_plain) and the linked route's under the same hook."""
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED", raising=False)
+    W = DIGIT_BITS * M
+    kg = tfused.ladder_stages(M)
+    K = 1 << kg
+    steps = tuple(W >> (kg - j) for j in range(kg))
+    rng = np.random.default_rng(M + 5)
+    x, y = (T(rng.integers(-(1 << 17), 1 << 17, (3 * K, M))) for _ in range(2))
+    _, calls = _route_log(monkeypatch)
+    monkeypatch.setattr(tntt, "NTT4_CHUNK_BYTES", (2 * K + 1) * 12 * M)
+    with tntt.garner_post(M, K, steps) as cell:
+        got = tntt.mulmod_ntt(x, y)
+    assert cell["consumed"] is True
+    assert [c[0] for c in calls] == [2 * K, K]
+    assert torch.equal(got, tntt.post_plain(tntt.mulmod_ntt(x, y), (K, steps)))
+    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "0")
+    with tntt.garner_post(M, K, steps) as cell:
+        linked = tntt.mulmod_ntt(x, y)
+    assert cell["consumed"] is True and len(calls) == 4       # 2 hooked, 2 unhooked
+    assert torch.equal(got, linked)
 
 
 # ---------------------------------------------------------------------------

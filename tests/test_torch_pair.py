@@ -348,9 +348,10 @@ def test_staged_pair_leaves_the_hook(monkeypatch):
 
 def test_prof_pointwise_rows_on_cpu(monkeypatch):
     """The profiler's rows at a small shape, the pair split and the --ab4
-    A/B at M 2048 among them; it leaves the variable and TIER1_MAX_M as it
+    A/B at M 2048 among them; it leaves the variables and TIER1_MAX_M as it
     found them."""
     monkeypatch.delenv("MPIR_FFT_NTT_PAIR", raising=False)
+    monkeypatch.delenv("MPIR_FFT_NTT_FUSED", raising=False)
     out = prof_pointwise.profile_pointwise(4, 16, 1, pair=True, device="cpu")
     for key in ("mulmod_ntt_full", "input_planes_x2", "fwd_gemms_x6", "mid_planes_x3",
                 "inv_gemms_x3", "garner", "sum_parts_ms", "pair_full", "pair_input_planes_x2",
@@ -361,6 +362,8 @@ def test_prof_pointwise_rows_on_cpu(monkeypatch):
     assert out["pair_garner_bytes"] == 24 * 4 * 16
     out = prof_pointwise.profile_pointwise(2, 2048, 1, ab4=True, device="cpu")
     assert out["mulmod_ntt_4step"] > 0
-    assert tntt.TIER1_MAX_M == 2048 and "MPIR_FFT_NTT_PAIR" not in __import__("os").environ
+    env = __import__("os").environ
+    assert tntt.TIER1_MAX_M == 2048 and "MPIR_FFT_NTT_PAIR" not in env
+    assert "MPIR_FFT_NTT_FUSED" not in env
     with pytest.raises(ValueError):
         prof_pointwise.profile_pointwise(2, 4, 1, pair=True, device="cpu")
