@@ -10,7 +10,7 @@ import time
 
 import torch
 
-from bignum_bench import generator, judge, peaks, spec, systems, window
+from bignum_bench import generator, judge, peaks, spans, spec, systems, window
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mpir_fft_tpu")
 
@@ -28,14 +28,29 @@ END_TO_END = {
 }
 
 
+def program_counters(port: bool) -> dict:
+    """The program's work counters (mpir_fft_tpu_torch.kernels.COUNTERS) as
+    they stand; {} where the system is not the port."""
+    if not port:
+        return {}
+    from mpir_fft_tpu_torch import kernels
+
+    return dict(kernels.COUNTERS)
+
+
 @dataclasses.dataclass
 class Context:
-    """What a per-layer metric's reader sees (metrics/*.py read(ctx))."""
+    """What a per-layer metric's reader sees (metrics/*.py read(ctx)).
+    `spans` is spans.summarize of the traced window (the program's "mf.*"
+    spans by name), `counters` the change of the program's counters over
+    it; None where the run gives neither."""
     summary: window.Summary
     layers: dict
     products: int
     route: dict
     hbm_bytes_per_s: float = peaks.HBM_BYTES_PER_S
+    spans: dict | None = None
+    counters: dict | None = None
 
     def layer_s_per_product(self, stem: str) -> float:
         return self.summary.layer_ns.get(stem, 0) / 1e9 / self.products
@@ -106,6 +121,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
         if on_card:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
+        counted = program_counters(make_system is None)
         prof.__enter__()
     setup_s = time.perf_counter() - t0
     log("set-up, seconds from the start at each step's end: " + json.dumps(marks))
@@ -118,15 +134,21 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float, trace: bool
 
     run = Run(win, setup_s, peak, {})
     if prof is not None:
+        now = program_counters(make_system is None)
+        counted = {k: v - counted.get(k, 0) for k, v in now.items()}
         tr = window.collect(prof)
         del prof
         layers = window.load_layers(spec.ROOT)
         run.summary = window.summarize(tr, layers)
-        run.context = Context(run.summary, layers, win.calls, system.route)
+        by_span = spans.summarize(tr)
+        run.context = Context(run.summary, layers, win.calls, system.route,
+                              spans=by_span, counters=counted)
         log(f"trace: {run.summary.ops} device operations of the program, "
             f"{tr.excluded} of the harness's checks left out")
         log("kernels " + json.dumps(dict(sorted(run.summary.kernels.items(),
                                                 key=lambda kv: -kv[1][1]))))
+        log("spans, a product: [calls, host, blocked, device, idle ms] " + json.dumps(
+            spans.per_product(by_span, win.calls)) + "; counters " + json.dumps(counted))
         if run.summary.unclaimed:
             log("kernels no layer file claims: " + repr(
                 {k: v / 1e6 for k, v in run.summary.unclaimed.items()}))

@@ -7,7 +7,7 @@ from bignum_bench.spans import OUTERMOST
 
 
 def read(ctx):
-    spans = getattr(ctx, "spans", None)
+    spans = ctx.spans
     if not spans or spans[OUTERMOST].calls == 0:
         return None
     return spans[OUTERMOST].idle_ns / 1e6 / ctx.products

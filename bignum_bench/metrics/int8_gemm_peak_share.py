@@ -9,7 +9,7 @@ from bignum_bench.peaks import INT8_OPS_PER_S
 
 
 def read(ctx):
-    spans, counters = getattr(ctx, "spans", None), getattr(ctx, "counters", None)
+    spans, counters = ctx.spans, ctx.counters
     if not spans or not counters or "mf.int8_gemm" not in spans:
         return None
     ops, ns = counters.get("int8_ops", 0), spans["mf.int8_gemm"].device_ns

@@ -9,23 +9,29 @@ import sys
 import pytest
 import torch
 
-from bignum_bench import generator, harness, judge, spec, systems
+from bignum_bench import generator, harness, judge, spans, spec, systems
 
 BENCH = spec.load()
-SMALL = {"mul6.products": {"bits_a": 40000, "bits_b": 40000},
-         "pepin_F30.chain": {"N": 1 << 16}}
+CELLS = [w["name"] for w in BENCH["workloads"]]
+# each cell's size on the CPU, by its configuration's operation
+SMALL = {"mul": {"bits_a": 40000, "bits_b": 40000}, "sqrmod_fermat": {"N": 1 << 16}}
 
 
 def small(cell: str) -> dict:
-    return {**spec.config(BENCH, spec.cell(BENCH, cell)["config"]), **SMALL[cell]}
+    config = spec.config(BENCH, spec.cell(BENCH, cell)["config"])
+    return {**config, **SMALL[config["operation"]]}
 
 
-def run(cell, make_system=None, seed=2**31 + 11, seconds=0.3):
-    return harness.run_cell(BENCH, cell, seed, seconds, False, device="cpu",
+def loop(cell: str) -> str:
+    return spec.traffic(spec.cell(BENCH, cell)["traffic"])["loop"]
+
+
+def run(cell, make_system=None, seed=2**31 + 11, seconds=0.3, trace=False):
+    return harness.run_cell(BENCH, cell, seed, seconds, trace, device="cpu",
                             config=small(cell), make_system=make_system, log=lambda s: None)
 
 
-@pytest.mark.parametrize("cell", list(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_seeded_inputs_reproduce(cell):
     config, traffic = small(cell), spec.traffic(spec.cell(BENCH, cell)["traffic"])
     one = generator.make_inputs(config, traffic, 2**31 + 5, "cpu")
@@ -40,7 +46,7 @@ def test_seeded_inputs_reproduce(cell):
         assert len(one) == traffic["pool"]
 
 
-@pytest.mark.parametrize("cell", list(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_program_passes_and_every_output_is_judged(cell):
     r = run(cell)
     assert judge.correct(r.numbers), r.numbers
@@ -52,7 +58,7 @@ def test_the_program_passes_and_every_output_is_judged(cell):
     json.dumps(line)
 
 
-@pytest.mark.parametrize("cell", list(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails(cell):
     r = run(cell, lambda c, d: systems.build(c, "control", d))
     assert not judge.correct(r.numbers)
@@ -94,12 +100,14 @@ def broken(fault, k):
 # set-up makes the first calls (a closed loop: one, then pool + 1 more, six
 # in all; a chain: two): k past them lands in the window, on a kept output
 # or on a later one
-@pytest.mark.parametrize("cell,fault,k", [
-    ("mul6.products", Altered, 8),       # the first output of a pool entry: kept, judged
-    ("mul6.products", Altered, 14),      # a later output: compared with the kept one
-    ("pepin_F30.chain", Altered, 4),
-    ("pepin_F30.chain", Unchanged, 4),
-])
+FAULTS = {
+    "closed": [(Altered, 8),        # the first output of a pool entry: kept, judged
+               (Altered, 14)],      # a later output: compared with the kept one
+    "chain": [(Altered, 4), (Unchanged, 4)],
+}
+
+
+@pytest.mark.parametrize("cell,fault,k", [(c, f, k) for c in CELLS for f, k in FAULTS[loop(c)]])
 def test_each_fault_fails(cell, fault, k):
     r = run(cell, broken(fault, k), seconds=1.0)
     assert r.window.calls >= 8
@@ -107,9 +115,24 @@ def test_each_fault_fails(cell, fault, k):
     assert r.numbers["failed"] >= 1
 
 
+def test_a_traced_run_carries_the_programs_spans_and_counters():
+    """The context a traced run hands the readers: the port's spans over the
+    window, its counters' change, and a span metric reading a number."""
+    cell = next(c for c in CELLS if spec.config(
+        BENCH, spec.cell(BENCH, c)["config"])["operation"] == "mul")
+    r = run(cell, trace=True)
+    assert judge.correct(r.numbers), r.numbers
+    ctx = r.context
+    assert ctx.spans[spans.OUTERMOST].calls > 0
+    assert isinstance(ctx.counters, dict)
+    assert isinstance(spec.reader("driver_enqueue_ms").read(ctx), float)
+    line = harness.result_line(BENCH, cell, r, True, "cpu", "cpu")
+    assert "driver_enqueue_ms" in line["metrics"]
+
+
 def test_run_without_a_card_exits_with_no_result():
     res = subprocess.run([sys.executable, str(spec.ROOT / "run.py"), "--workload",
-                          "mul6.products", "--seed", "1", "--seconds", "1", "--trace", "0"],
+                          CELLS[0], "--seed", "1", "--seconds", "1", "--trace", "0"],
                          capture_output=True, text=True, cwd=spec.REPO, timeout=120)
     assert res.returncode != 0 and res.stdout.strip() == ""
 
@@ -117,7 +140,7 @@ def test_run_without_a_card_exits_with_no_result():
 @pytest.mark.cuda
 def test_a_cell_runs_on_the_card(cuda_card):
     res = subprocess.run([sys.executable, str(spec.ROOT / "run.py"), "--workload",
-                          "mul6.products", "--seed", "2147483659", "--seconds", "1",
+                          CELLS[0], "--seed", "2147483659", "--seconds", "1",
                           "--trace", "0"], capture_output=True, text=True, cwd=spec.REPO,
                          timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]

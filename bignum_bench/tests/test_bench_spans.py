@@ -1,7 +1,7 @@
 """The program's spans in a trace (spans.py) on plain records, and the
 three readers of them (metrics/driver_stall_ms.py, driver_enqueue_ms.py,
 int8_gemm_peak_share.py), including their silence where a context carries
-no spans or counters, as the harness's does today."""
+no spans or counters, as a parent whose program has none gives."""
 
 import dataclasses
 
@@ -92,13 +92,14 @@ def test_spans_outside_the_window_and_the_checks_are_left_out():
 
 
 def _ctx(with_spans: bool, counters=None, products: int = 2):
+    """The context a traced run gives, or with_spans False the parent's
+    case: a context that carries neither spans nor counters."""
     tr = _trace(with_spans)
-    ctx = Context(window.summarize(tr, LAYERS), LAYERS, products,
-                  systems.mul_route(100577280, 100577280, 32768, 32768, 1024))
-    if with_spans:
-        ctx.spans = spans.summarize(tr)
-        ctx.counters = counters if counters is not None else {}
-    return ctx
+    route = systems.mul_route(100577280, 100577280, 32768, 32768, 1024)
+    if not with_spans:
+        return Context(window.summarize(tr, LAYERS), LAYERS, products, route)
+    return Context(window.summarize(tr, LAYERS), LAYERS, products, route,
+                   spans=spans.summarize(tr), counters=counters if counters is not None else {})
 
 
 def test_readers_read_the_spans_and_counters():
@@ -113,7 +114,7 @@ def test_readers_read_the_spans_and_counters():
 
 @pytest.mark.parametrize("metric", READERS)
 def test_readers_are_silent_without_spans(metric):
-    """The harness's context today, and a parent's program: no spans, no counters."""
+    """The parent's case: a context without spans or counters."""
     assert spec.reader(metric).read(_ctx(False)) is None
 
 
