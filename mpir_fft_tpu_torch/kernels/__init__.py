@@ -19,7 +19,11 @@ the NTT's int8 GEMMs (torch._int_mm on the card) under "int8_gemm".
 dense tier's three, the pair tier's five).  `COUNTERS` holds the work the
 program launched, on every device: "int8_ops", the NTT GEMMs' int8
 operations (two a multiply-add, padded rows included, as ops/ntt.py
-gemm_ops counts them).  `reset_launches()` zeroes all three.
+gemm_ops counts them); "trunc_copy_bytes", the bytes written by the torch
+copies of the truncated route (trunc_mfa < conv_len): the concatenations of
+ops/truncate.py `_cat` and ops/mfa.py `_cat3`, models/mul.py `_pad_rows`
+and the staged pointwise's chunk write-back and fill, each counted where
+it copies (`count_copy`).  `reset_launches()` zeroes all three.
 
 `span(name)` marks a stage of the program as "mf.<name>" on a
 torch.profiler window's host timeline, on the clock of its device trace;
@@ -67,7 +71,7 @@ LAUNCHES = {
     "int8_gemm": 0,     # torch._int_mm calls of the NTT (ops/ntt.py _dot_raw), not a csrc kernel
 }
 MID_PLANES_BY_PRIME: collections.Counter = collections.Counter()
-COUNTERS = {"int8_ops": 0}
+COUNTERS = {"int8_ops": 0, "trunc_copy_bytes": 0}
 
 
 def reset_launches() -> None:
@@ -76,6 +80,13 @@ def reset_launches() -> None:
     MID_PLANES_BY_PRIME.clear()
     for name in COUNTERS:
         COUNTERS[name] = 0
+
+
+def count_copy(out: torch.Tensor) -> torch.Tensor:
+    """out, a tensor a torch copy of the truncated route just wrote, after
+    adding its bytes to COUNTERS["trunc_copy_bytes"]."""
+    COUNTERS["trunc_copy_bytes"] += out.numel() * out.element_size()
+    return out
 
 
 _NO_SPAN = contextlib.nullcontext()

@@ -57,9 +57,11 @@ Spans (kernels.span; recorded only while a torch.profiler records): a
 driver's call runs inside mf.<driver> (mf.flagship for the flagship,
 staged or whole, and for sqr; mf.huge out of core), each stage inside
 mf.split, mf.fwd (one of each an operand), mf.pw, mf.inv, mf.norm and
-mf.combine; `mul`, `sqr` and `mul_many` inside mf.mul, mf.sqr and
-mf.mul_many, with their conversions in mf.digits_from_int, mf.h2d, mf.d2h
-and mf.int_from_digits.
+mf.combine; below the full length the staged pointwise's row-IFFT legs
+inside mf.pw.rows, under mf.pw, and the truncated transforms' phases
+inside the spans of ops/sqrt2.py; `mul`, `sqr` and `mul_many` inside
+mf.mul, mf.sqr and mf.mul_many, with their conversions in
+mf.digits_from_int, mf.h2d, mf.d2h and mf.int_from_digits.
 
 Plans: `mul` / `sqr` take a measured plan from the tune cache for their
 device where one is recorded (utils/tune.py cached_plan; MPIR_FFT_TUNE=0
@@ -78,7 +80,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from mpir_fft_tpu_torch.kernels import span, spanned
+from mpir_fft_tpu_torch.kernels import count_copy, span, spanned
 from mpir_fft_tpu_torch.models.huge import huge_serves, mul_huge, sqr_huge
 from mpir_fft_tpu_torch.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits, normmod_div
 from mpir_fft_tpu_torch.ops.mfa import (_gather_cells, fft_radix2_mfa, ifft_mfa_rows,
@@ -144,13 +146,14 @@ def _combine_fn(plan: MulPlan, valid: int):
 
 
 def _pad_rows(prod: torch.Tensor, C: int, axis: int = -2) -> torch.Tensor:
-    """prod with zero rows appended along `axis` up to length C."""
+    """prod with zero rows appended along `axis` up to length C (a copy,
+    counted)."""
     n = prod.shape[axis]
     if n == C:
         return prod
     shape = list(prod.shape)
     shape[axis] = C - n
-    return torch.cat([prod, prod.new_zeros(shape)], dim=axis)
+    return count_copy(torch.cat([prod, prod.new_zeros(shape)], dim=axis))
 
 
 def _as_cells(c: torch.Tensor, plan: MulPlan) -> torch.Tensor:
@@ -451,7 +454,9 @@ def _staged_flagship_stages(plan: MulPlan) -> Stages:
             with garner_post(L, 1 << kg, post_steps) as cell:
                 prod = _pointwise(fa, fb, W, True)
             return prod if cell["consumed"] else inner(prod)
-        return inner(_pointwise(fa, fb, W, True))
+        prod = _pointwise(fa, fb, W, True)
+        with span("pw.rows"):
+            return inner(prod)
 
     def pw(fa, fb):
         # the forwards hold conv_len rows, the chunks cover the first t
@@ -461,6 +466,8 @@ def _staged_flagship_stages(plan: MulPlan) -> Stages:
             fa[i:j] = pw_inner(ca, ca if fb is fa else fb[i:j])
         if t < C:
             fa[t:] = 0
+            # the chunks' write-back and the fill: every row of fa once
+            count_copy(fa)
         return fa
 
     return Stages(_split_fn(plan, h if zerotop else C), fwd, pw,

@@ -53,6 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import count_copy
 from .fused import fused_mfa_cols, fused_sqrt2_top_inv, mfa_col_cluster, mfa_col_fits
 from .limb import carry_pass, mul_2expmod, normmod_div
 from .sqrt2 import (_fft_trunc_sqrt2, _ifft_trunc_sqrt2, _sqrt2_top_fwd, _sqrt2_top_inv,
@@ -62,11 +63,11 @@ from .truncate import _cat, truncated
 
 
 def _cat3(*parts: torch.Tensor) -> torch.Tensor:
-    """Concat along axis -3, dropping zero-length parts."""
+    """Concat along axis -3, dropping zero-length parts; a copy is counted."""
     parts = [p for p in parts if p.shape[-3] > 0]
     if len(parts) == 1:
         return parts[0]
-    return torch.cat(parts, dim=-3)
+    return count_copy(torch.cat(parts, dim=-3))
 
 
 def _block_cross_exps(rows: int, st: int, n1_mask: int, n2: int, w: int, W: int,

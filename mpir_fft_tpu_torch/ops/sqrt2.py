@@ -15,13 +15,21 @@ half-exponents: the top layer (the reference's `_top_exps`,
 each way (ops/fused.py fused_sqrt2_top_fwd / fused_sqrt2_top_inv, which
 build the q^j table j*w themselves), and the two half transforms at root
 2^w run as ONE transform over the [..., 2, h, L] view, so the halves are
-never copied apart or concatenated."""
+never copied apart or concatenated.
+
+Spans (kernels.span) of the truncated pair, the flat and the MFA drivers
+alike: mf.trunc.top around the odd-w top layer each way, mf.mfa.trunc
+around each truncated inner transform (trunc_fn), and mf.trunc.rebuild
+around the inverse's rebuild past trunc (the right inputs' twiddle_half
+pass and their concatenation, then the left half's doubled rows with
+their norm tail)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels import span, spanned
 from .fused import (fused_sqrt2_top_fwd, fused_sqrt2_top_inv, fused_twiddle_half,
                     twiddle_half_rows_plain)
 from .limb import carry_pass, normmod_div
@@ -93,7 +101,7 @@ def _sqrt2_top_inv(sl: torch.Tensor, orr: torch.Tensor, w: int, W: int, norm_div
     post = carry_pass or the norm_div tail; one kernel pass.  Sharded
     (ops/mfa.py), on the whole halves on every rank, after the gather."""
     k = sl.shape[-2]
-    out = fused_sqrt2_top_inv(torch.cat([sl, orr], dim=-2), w, W, norm_div=norm_div)
+    out = fused_sqrt2_top_inv(_cat(sl, orr), w, W, norm_div=norm_div)
     return out[..., :k, :], out[..., k:, :]
 
 
@@ -110,12 +118,14 @@ def _fft_trunc_sqrt2(x: torch.Tensor, w: int, W: int, trunc: int, full, trunc_fn
     assert 1 <= trunc <= C
     if trunc == C:
         return fft_sqrt2(x, w, W)
+    trunc_fn = spanned("mfa.trunc")(trunc_fn)
     if w % 2 == 0:
         return trunc_fn(x, w // 2, trunc, False)
     h = C // 2
     if trunc <= h:
         return _cat(trunc_fn(x[..., :h, :], w, trunc, False), x[..., h:, :])
-    s, t = _sqrt2_top_fwd(x, w, W)
+    with span("trunc.top"):
+        s, t = _sqrt2_top_fwd(x, w, W)
     return _cat(full(s, w), trunc_fn(t, w, trunc - h, True))
 
 
@@ -131,6 +141,7 @@ def _ifft_trunc_sqrt2(v: torch.Tensor, w: int, W: int, trunc: int, norm_div: int
     assert 1 <= trunc <= C
     if trunc == C:
         return ifft_sqrt2(v, w, W, norm_div=norm_div)
+    trunc_fn = spanned("mfa.trunc")(trunc_fn)
 
     def nd(x):
         return normmod_div(x, norm_div, W) if norm_div else x
@@ -146,15 +157,18 @@ def _ifft_trunc_sqrt2(v: torch.Tensor, w: int, W: int, trunc: int, norm_div: int
     # the missing right inputs t_j = s_j q^j, unscaled (ref mul_fft.c:2680-
     # 2691): the division by 2^lg(h) folds into the half-bit exponent, so the
     # reconstruction is one twiddle pass
-    tail = twiddle_half(sL[..., k:, :], np.arange(k, h, dtype=np.int64) * w
-                        - 2 * (h.bit_length() - 1), W)
-    vr = _cat(v[..., h:trunc, :], tail)
-    del tail
+    with span("trunc.rebuild"):
+        tail = twiddle_half(sL[..., k:, :], np.arange(k, h, dtype=np.int64) * w
+                            - 2 * (h.bit_length() - 1), W)
+        vr = _cat(v[..., h:trunc, :], tail)
+        del tail
     oR = trunc_fn(vr, w, k, True)
     del vr
-    xa, xb = _sqrt2_top_inv(sL[..., :k, :], oR[..., :k, :], w, W, norm_div=norm_div)
+    with span("trunc.top"):
+        xa, xb = _sqrt2_top_inv(sL[..., :k, :], oR[..., :k, :], w, W, norm_div=norm_div)
     del oR
-    mid = nd(carry_pass(sL[..., k:, :] + sL[..., k:, :]))
+    with span("trunc.rebuild"):
+        mid = nd(carry_pass(sL[..., k:, :] + sL[..., k:, :]))
     return _cat(xa, mid, xb, v[..., trunc:, :])
 
 

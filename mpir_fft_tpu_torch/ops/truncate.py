@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import count_copy
 from .butterfly import butterfly_fwd, butterfly_inv
 from .limb import carry_pass, shift_mod
 from .transforms import fft_radix2, ifft_radix2
@@ -38,11 +39,11 @@ from .transforms import fft_radix2, ifft_radix2
 
 def _cat(*parts: torch.Tensor) -> torch.Tensor:
     """Concat along axis -2, dropping zero-length parts (none reaches a
-    kernel: a CUDA grid of 0 is an invalid launch)."""
+    kernel: a CUDA grid of 0 is an invalid launch); a copy is counted."""
     parts = [p for p in parts if p.shape[-2] > 0]
     if len(parts) == 1:
         return parts[0]
-    return torch.cat(parts, dim=-2)
+    return count_copy(torch.cat(parts, dim=-2))
 
 
 def _shift(x: torch.Tensor, e, W: int) -> torch.Tensor:
